@@ -1,0 +1,15 @@
+"""dynamo_tpu_torch — the PyTorch/CUDA port of dynamo_tpu for one NVIDIA H100.
+
+The JAX package (`dynamo_tpu`) is the reference; this package imports
+`torch` and never `jax`, and nothing of `dynamo_tpu`.  It carries its own
+copies of the host modules it needs (config, page pool, scheduler, block
+hashing).  The two Pallas paged-attention kernels of the JAX package are
+hand-written CUDA kernels here (`csrc/paged_attention.cu`).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no card and no explicit CPU request they raise.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,338 @@
+"""Engine runtime configuration (the analog of vLLM's EngineArgs as consumed
+by the reference's workers, reference components/src/dynamo/vllm/args.py)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+
+@dataclass
+class EngineConfig:
+    # KV cache geometry
+    page_size: int = 16  # tokens per page (= kv block size in the MDC)
+    num_pages: int = 512  # pages in the device pool (incl. trash page 0)
+    max_pages_per_seq: int = 64  # cap on context pages per sequence
+
+    # batching
+    max_num_seqs: int = 8  # max concurrent sequences in decode
+    max_prefill_tokens: int = 256  # chunked-prefill chunk cap per step
+    prefill_batch_size: int = 1  # sequences prefilled per step
+    watermark: float = 0.05  # fraction of pages kept free at admission
+
+    # buckets (powers of two up to the caps) — static shapes for XLA
+    decode_batch_buckets: Optional[Sequence[int]] = None
+    chunk_buckets: Optional[Sequence[int]] = None
+
+    # tokens decoded per device dispatch (lax.scan inside one jit call) —
+    # amortizes host→TPU dispatch latency; stop conditions are applied
+    # host-side afterwards, so a request may compute up to N-1 tokens past
+    # its stop (discarded, never delivered)
+    decode_steps: int = 1
+
+    # decode dispatches issued back-to-back before fetching results: block
+    # k+1 takes block k's device-side outputs as inputs, so result fetch
+    # (host RTT) overlaps the next block's compute.  1 = no chaining.
+    decode_chain: int = 1
+
+    # device-resident decode loop (docs/device_loop.md): instead of a
+    # FIXED `decode_chain` horizon, keep feeding each decode block's
+    # device-side outputs back as the next block's inputs for as long as
+    # no admission/stop event is pending.  Per-row eos/stop-token and
+    # max-token checks run ON DEVICE (an active-row mask carried through
+    # the scan: finished rows freeze their position/PRNG counter and
+    # write only to the trash page), a drain thread fetches block k
+    # while block k+1 computes, and pages are pre-reserved
+    # `decode_chain` blocks ahead (watermark-respecting) so one page
+    # table serves the rolling horizon.  Token-identical to the
+    # per-step engine (greedy, seeded, penalized, laddered); engages
+    # only on flat single-process engines at the ladder's top rung —
+    # meshed/pp/sp/pooled engines and spec dispatches keep their
+    # existing paths.  Multi-token stop SEQUENCES stay host-detected
+    # and force chain fall-out.
+    decode_continuous: bool = False
+
+    # adaptive decode-block sizing ("block ladder"): compile the decode/
+    # mixed step at THIS ladder of block sizes instead of only
+    # `decode_steps`, and let the scheduler pick the rung per dispatch —
+    # full blocks while the prompt queue is empty, the shortest rung
+    # (with dispatch chaining suppressed) the moment prompts are
+    # pending, so a waiting prompt rides the next mixed dispatch within
+    # one short block instead of a full chained run (the Sarathi-Serve /
+    # Orca stall-free property, host-side policy form).  After the
+    # queue drains the scheduler climbs back up one rung per quiet
+    # dispatch, so a Poisson burst's stragglers still find short
+    # blocks.  None disables (single fixed `decode_steps` block —
+    # today's behavior).  Rungs must be positive and <= decode_steps;
+    # `decode_steps` itself is always appended as the top rung.  Each
+    # rung is one more compiled program per (penalized, top_logprobs,
+    # greedy) step variant actually used — keep ladders short (~4).
+    decode_block_ladder: Optional[Sequence[int]] = None
+
+    # chain the first decode block straight off a prompt-completing
+    # prefill's device-side sampled tokens (skips the prefill fetch
+    # barrier — one host round-trip saved per request); falls back to
+    # the separate prefill/decode steps whenever the batch is not
+    # eligible (chunking mid-prompt, penalties, multihost, pool pressure)
+    fuse_prefill_decode: bool = True
+
+    # mixed scheduling: when running decodes coexist with pending
+    # prefills, ONE dispatch runs a bounded prefill chunk AND the decode
+    # scan (vLLM chunked-prefill interleave; reference mocker watermark
+    # scheduler, scheduler.rs:240).  Decodes never stall behind a
+    # prompt's full prefill, so ITL stays flat under concurrent load.
+    # Token budget for the prefill side of a mixed dispatch; None →
+    # max_prefill_tokens, 0 disables mixing (prefill-first scheduling)
+    mixed_prefill_tokens: Optional[int] = None
+
+    # self-speculative decoding: draft k tokens per decode dispatch from
+    # the sequence's own prompt+output history (n-gram / prompt lookup —
+    # no draft model, no extra weights) and verify them in ONE fused
+    # forward over k+1 positions (models.llama.forward_verify).  0
+    # disables.  Greedy output is token-identical to plain decode, and
+    # seeded temperature>0 sampling too: the verify samples each
+    # position from the same (seed, counter) PRNG stream plain decode
+    # would use.  On acceptance a dispatch emits up to k+1 tokens for
+    # one weight read — the lever for batch-1 ITL on a bandwidth-bound
+    # chip.  The engine falls back to the plain block path per DISPATCH
+    # (the whole co-scheduled batch, not per row): any penalized /
+    # top-logprobs row, a partitioned pool, a pp/sp mesh, or a row
+    # within k+1 tokens of the context cap sends that dispatch down
+    # the plain path.
+    # chunked prefill INSIDE the continuous decode chain
+    # (docs/device_loop.md "chunk rows"): token budget per decode block
+    # shared by all chunk rows of that block.  While a chunk row still
+    # has prompt left it feeds one prompt token per scan step (writing
+    # KV, emitting nothing); the step that feeds the LAST prompt token
+    # samples the first output, so admission splices into the running
+    # chain instead of forcing a fall-out.  None → max_prefill_tokens;
+    # 0 disables (admissions fall the chain out, PR 6 behavior)
+    prefill_chunk_tokens: Optional[int] = None
+
+    speculative_ngram_k: int = 0
+    # drafter match window: the longest trailing m-gram (max_match down
+    # to min_match) with an earlier occurrence in the last
+    # `speculative_history` tokens supplies the draft; no match falls
+    # back to repeating the last token (wrong drafts only cost
+    # acceptance, never correctness)
+    speculative_min_match: int = 1
+    speculative_max_match: int = 4
+    speculative_history: int = 256
+
+    enable_prefix_caching: bool = True
+    block_hash_salt: str = ""
+
+    # weight-only quantization: "none" | "int8" (per-output-channel
+    # symmetric; halves weight HBM traffic on the decode hot path)
+    quantization: str = "none"
+
+    # fuse q/k/v (and dense gate/up) weights into single larger matmuls
+    # (models.llama.fuse_projections — numerically identical).  At small
+    # hidden sizes / batch, seven small per-layer weight reads leave HBM
+    # bandwidth idle behind per-kernel overheads; four larger reads keep
+    # the decode loop bandwidth-bound.  Single-device engines only (the
+    # fused output axis doesn't carry the megatron tp specs yet)
+    fuse_projections: bool = False
+
+    # attention implementation: "auto" resolves to the Pallas streaming
+    # kernels (ops/pallas_attention.py) on single-device TPU and the XLA
+    # einsum path otherwise; "pallas"/"xla" force one
+    attention_impl: str = "auto"
+
+    # partition the KV pool across the mesh's dp×sp shards: num_pages
+    # becomes PER-SHARD (per-device HBM is fixed), aggregate capacity
+    # scales with the mesh, sequences pin to one shard's pool, and the
+    # engine runs its steps under a manual-over-(dp,sp) shard_map so all
+    # page gathers stay device-local (reference capability: engines
+    # shard KV across TP/DP ranks, disagg_serving.md:110-120)
+    kv_partition: bool = False
+
+    # model limits
+    max_model_len: int = 1024
+
+    table_width_buckets: Optional[Sequence[int]] = None
+
+    # -- overload control (docs/overload_control.md) ----------------------- #
+    # class a request gets when it carries no explicit `priority`:
+    # "interactive" (SLO-protected; may claim the watermark reserve and
+    # preempt batch decodes) or "batch" (absorbs overload: queued with a
+    # deadline, shed past the pressure threshold, parked mid-decode)
+    default_priority: str = "interactive"
+    # pressure threshold for batch admission shedding: shed NEW batch
+    # requests when the waiting queue is at least this deep AND the live
+    # watermark headroom is at or under `overload_headroom_pages`.
+    # 0 disables shedding (default — overload control is opt-in)
+    overload_queue_depth: int = 0
+    # watermark-headroom floor (pages) below which the queue-depth
+    # threshold above counts as pressure
+    overload_headroom_pages: int = 0
+    # a batch request queued longer than this without ever being admitted
+    # is shed (never accepted-then-starved); 0 disables the deadline
+    batch_deadline_s: float = 0.0
+    # cap on pages the preemption parking lot may hold host-side at once;
+    # at budget the scheduler stops parking (victims keep running).
+    # 0 = unbounded
+    park_max_pages: int = 0
+
+    def __post_init__(self):
+        if self.mixed_prefill_tokens is None:
+            self.mixed_prefill_tokens = self.max_prefill_tokens
+        # chunk buckets are sized from max_prefill_tokens; a larger mixed
+        # budget would plan chunks no bucket can hold
+        self.mixed_prefill_tokens = min(
+            self.mixed_prefill_tokens, self.max_prefill_tokens
+        )
+        if self.default_priority not in ("interactive", "batch"):
+            raise ValueError(
+                f"default_priority must be interactive|batch, got "
+                f"{self.default_priority!r}"
+            )
+        if self.overload_queue_depth < 0:
+            raise ValueError(
+                f"overload_queue_depth must be >= 0, got "
+                f"{self.overload_queue_depth}"
+            )
+        if self.overload_headroom_pages < 0:
+            raise ValueError(
+                f"overload_headroom_pages must be >= 0, got "
+                f"{self.overload_headroom_pages}"
+            )
+        if self.batch_deadline_s < 0:
+            raise ValueError(
+                f"batch_deadline_s must be >= 0, got {self.batch_deadline_s}"
+            )
+        if self.park_max_pages < 0:
+            raise ValueError(
+                f"park_max_pages must be >= 0, got {self.park_max_pages}"
+            )
+        if self.quantization not in ("none", "int8"):
+            raise ValueError(
+                f"quantization must be none|int8, got {self.quantization!r}"
+            )
+        if self.attention_impl not in ("auto", "adaptive", "pallas", "xla"):
+            raise ValueError(
+                f"attention_impl must be auto|adaptive|pallas|xla, "
+                f"got {self.attention_impl!r}"
+            )
+        if self.speculative_ngram_k < 0:
+            raise ValueError("speculative_ngram_k must be >= 0")
+        if self.speculative_ngram_k and not (
+            1 <= self.speculative_min_match <= self.speculative_max_match
+        ):
+            raise ValueError(
+                "speculative matching requires 1 <= speculative_min_match "
+                f"<= speculative_max_match, got "
+                f"[{self.speculative_min_match}, {self.speculative_max_match}]"
+            )
+        if self.decode_block_ladder is not None:
+            rungs = list(self.decode_block_ladder)
+            bad = [r for r in rungs
+                   if not isinstance(r, int) or isinstance(r, bool) or r < 1]
+            if bad:
+                raise ValueError(
+                    f"decode_block_ladder rungs must be positive ints, "
+                    f"got {bad}"
+                )
+            over = [r for r in rungs if r > self.decode_steps]
+            if over:
+                raise ValueError(
+                    f"decode_block_ladder rungs {over} exceed decode_steps="
+                    f"{self.decode_steps} (the scheduler reserves pages for "
+                    f"at most decode_steps positions per dispatch)"
+                )
+            # normalize: ascending, deduped, decode_steps as the top rung
+            self.decode_block_ladder = sorted(
+                set(rungs) | {self.decode_steps}
+            )
+        if self.prefill_chunk_tokens is None:
+            self.prefill_chunk_tokens = self.max_prefill_tokens
+        if self.prefill_chunk_tokens < 0:
+            raise ValueError(
+                "prefill_chunk_tokens must be >= 0, got "
+                f"{self.prefill_chunk_tokens}"
+            )
+        if self.decode_continuous:
+            if self.speculative_ngram_k:
+                raise ValueError(
+                    "decode_continuous does not compose with "
+                    "speculative_ngram_k yet (the draft-verify step has "
+                    "no device-side stop mask)"
+                )
+            if self.decode_chain < 1:
+                raise ValueError(
+                    "decode_continuous requires decode_chain >= 1 (it is "
+                    "the page pre-reservation horizon, in blocks)"
+                )
+        if self.speculative_ngram_k and self.speculative_history < 1:
+            # tokens[-0:] would silently mean UNBOUNDED history, turning
+            # the per-dispatch host lookup into a full-context scan
+            raise ValueError(
+                "speculative_history must be >= 1, got "
+                f"{self.speculative_history}"
+            )
+        if self.decode_batch_buckets is None:
+            self.decode_batch_buckets = _pow2_buckets(self.max_num_seqs)
+        if self.chunk_buckets is None:
+            self.chunk_buckets = [
+                b for b in _pow2_buckets(self.max_prefill_tokens) if b >= self.page_size
+            ] or [self.max_prefill_tokens]
+        if self.max_pages_per_seq * self.page_size < self.max_model_len:
+            self.max_pages_per_seq = -(-self.max_model_len // self.page_size)
+        if self.table_width_buckets is None:
+            # attention cost scales with table width: size it to the longest
+            # sequence actually in the batch, bucketed so XLA compiles a few
+            # variants (coarser than pow2 to bound variant count)
+            self.table_width_buckets = _pow2_buckets(self.max_pages_per_seq)
+
+    @property
+    def block_ladder(self) -> tuple:
+        """The decode-block rung sizes the scheduler may pick from,
+        ascending, always ending in `decode_steps` — `(decode_steps,)`
+        when adaptive sizing is off."""
+        if not self.decode_block_ladder:
+            return (self.decode_steps,)
+        return tuple(self.decode_block_ladder)
+
+    @property
+    def cc_horizon_blocks(self) -> int:
+        """Blocks of pages the continuous decode loop pre-reserves per
+        table build (>= 2 so the double-buffered drain never outruns the
+        reservation): `decode_chain` keeps its meaning as the lookahead
+        depth, continuous mode just stops treating it as a hard stop."""
+        return max(2, self.decode_chain)
+
+    @property
+    def usable_pages(self) -> int:
+        return self.num_pages - 1  # page 0 is the trash page
+
+    @property
+    def decode_advance(self) -> int:
+        """Worst-case positions ONE decode dispatch may write KV for —
+        what the scheduler must reserve pages against: the T-step block,
+        or the (1+k)-position draft-verify chunk when speculation is on
+        (the engine picks the path per dispatch, so reservation covers
+        both)."""
+        spec = (1 + self.speculative_ngram_k) if self.speculative_ngram_k else 0
+        return max(self.decode_steps, spec)
+
+    @property
+    def hard_cap(self) -> int:
+        """Longest context any sequence may reach: model window clamped to
+        what its page-table row can address."""
+        return min(self.max_model_len, self.max_pages_per_seq * self.page_size)
+
+
+def _pow2_buckets(cap: int) -> list:
+    out, b = [], 1
+    while b < cap:
+        out.append(b)
+        b *= 2
+    out.append(cap)
+    return sorted(set(out))
+
+
+def bucket_for(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]

@@ -1,0 +1,946 @@
+"""Continuous-batching scheduler with chunked prefill, prefix caching and
+preemption (a copy of the JAX package's host scheduler, kept here so the
+torch port never imports the JAX package).
+
+Modeled on the behavior the reference *simulates* in its mocker
+(reference lib/llm/src/mocker/scheduler.rs:240 watermark scheduler,
+chunked prefill, preemption) and vLLM's real scheduler — but designed for
+XLA: every step produces a statically-shaped batch (bucketed chunk lengths /
+batch sizes), so the jitted prefill/decode functions compile a handful of
+variants and then never retrace.
+
+Policy (vLLM-style):
+- prefills first: any running sequence with unprefilled prompt tokens gets
+  the next chunk (up to `max_prefill_tokens` across the step);
+- otherwise one decode step over all running sequences;
+- admission holds back `watermark` fraction of pages; allocation failure on
+  a running sequence preempts the youngest sequence (pages freed, sequence
+  returns to the head of the waiting queue and re-prefills — prefix cache
+  makes the recompute cheap).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, List, Optional, Sequence as Seq, Tuple
+
+from ..tokens import chain_seed, compute_block_hash_for_seq, next_block_hash
+from .config import EngineConfig
+from .page_pool import NoPagesError, PagePool
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class SamplingOptions:
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    max_tokens: int = 16
+    stop_token_ids: List[int] = field(default_factory=list)
+    stop_sequences: List[List[int]] = field(default_factory=list)
+    ignore_eos: bool = False
+    logprobs: bool = False
+    top_logprobs: int = 0  # top-k logprobs per token (OpenAI max 20)
+    seed: Optional[int] = None
+
+    @property
+    def penalized(self) -> bool:
+        return bool(self.frequency_penalty or self.presence_penalty)
+
+
+class Sequence:
+    """One in-flight request inside the engine."""
+
+    def __init__(self, request_id: str, prompt: List[int], opts: SamplingOptions):
+        self.request_id = request_id
+        self.prompt = list(prompt)
+        self.opts = opts
+        self.seed = 0  # per-request sampling seed (engine assigns)
+        self.hold_pages = False  # finish() keeps pages (disagg KV export)
+        # overload-control class: "interactive" rides ahead of "batch" in
+        # the waiting queue and may claim the watermark reserve; "batch"
+        # absorbs overload (queued with a deadline, shed, or preempted
+        # mid-decode with its KV parked)
+        self.priority = "interactive"
+        # True while this sequence's KV lives in the engine's parking lot
+        # (preempted mid-decode); num_computed / output_tokens /
+        # block_hashes are preserved so resume is byte-exact
+        self.parked = False
+        # multimodal: processed pixels arrive with the request; the engine
+        # encodes them at first prefill.  cache_salt isolates the prefix
+        # cache per image content — image placeholder tokens are identical
+        # across different images, so token-only hashes would alias
+        self.mm_pixels = None  # np [N, H, W, 3] float32 (clip towers)
+        self.mm_offsets: List[int] = []
+        self.mm_embeds = None  # np [N, patches, h] — or, for dynamic-
+        # resolution (qwen2_vl) media, a LIST of [P_i, h] arrays
+        # qwen2_vl: per-medium (patches [L_i, patch_dim], grid (t, h, w))
+        self.mm_patches = None
+        self.mm_grids: List[tuple] = []
+        # M-RoPE: per-token (temporal, height, width) streams for the
+        # prompt, and the delta every later rope position shifts by
+        self.mm_positions = None  # np [3, prompt_len] int32
+        self.rope_delta = 0
+        self.cache_salt = ""
+        self.pages: List[int] = []
+        self.kv_rank = 0  # pool partition this sequence's pages live on
+        self._admit_hashes: Optional[List[int]] = None  # scheduler cache
+        self.num_cached = 0  # prompt tokens satisfied from prefix cache
+        self.num_computed = 0  # tokens whose KV is written
+        self.output_tokens: List[int] = []
+        self.block_hashes: List[int] = []  # chained, full blocks only
+        self.committed_pages = 0
+        self.status = "waiting"
+        self.finish_reason: Optional[str] = None
+        self.preemptions = 0
+        # speculative decoding telemetry: drafts proposed for / accepted
+        # by this sequence (ride the final delivery so the frontend can
+        # aggregate per-model acceptance)
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        # TTFT attribution timestamps (time.monotonic): request enqueued
+        # at the engine; first seen by the scheduler (the gap is the
+        # in-flight decode block the pump was committed to — what the
+        # block ladder shortens); admitted to running; first token
+        # sampled.  `ttft_attr` is the one-shot attribution dict the
+        # first delivered delta carries to the frontend.
+        self.t_arrival: Optional[float] = None
+        self.t_seen: Optional[float] = None
+        self.t_admitted: Optional[float] = None
+        self.t_first_token: Optional[float] = None
+        self.ttft_attr: Optional[dict] = None
+        # forensics: mid-stream incidents (preemption park/resume, prefix
+        # onboard) accumulated here and attached to the next delivered
+        # delta, so the frontend's per-request waterfall sees stalls that
+        # happened inside the engine (attach-and-clear in _deliver)
+        self.incidents: List[dict] = []
+        self.t_parked: Optional[float] = None  # preempt_park stamp
+        # the request's TraceContext, captured at generate() where the
+        # transport's contextvar is still live — the pump thread exports
+        # per-request milestone spans (block-wait/queue-wait/prefill/
+        # decode) under it so engine time joins the caller's trace
+        self.trace = None
+
+    @property
+    def total_len(self) -> int:
+        return len(self.prompt) + len(self.output_tokens)
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt)
+
+    @property
+    def prefill_done(self) -> bool:
+        return self.num_computed >= self.prompt_len
+
+    def all_tokens(self) -> List[int]:
+        return self.prompt + self.output_tokens
+
+    def pages_needed(self, upto_tokens: int, page_size: int) -> int:
+        return -(-upto_tokens // page_size)
+
+
+@dataclass
+class PrefillItem:
+    seq: Sequence
+    chunk_start: int
+    chunk_len: int
+    samples: bool  # True when this chunk completes the prompt
+
+
+@dataclass
+class StepPlan:
+    kind: str  # "prefill" | "decode" | "mixed" | "idle"
+    prefill: List[PrefillItem] = field(default_factory=list)
+    decode: List[Sequence] = field(default_factory=list)
+
+
+class Scheduler:
+    def __init__(self, cfg: EngineConfig, pool: PagePool):
+        self.cfg = cfg
+        self.pool = pool
+        self.waiting: Deque[Sequence] = deque()
+        self.running: List[Sequence] = []
+        # sequences errored inside planning (e.g. out of KV capacity with
+        # nothing left to evict) — the engine drains and notifies
+        self.errored: List[Sequence] = []
+        # when set (decode-chain processing), _finish parks pages here
+        # instead of freeing — freed pages must not be reallocated while
+        # chained dispatches referencing them are still in flight
+        self.deferred_free: Optional[List[int]] = None
+        # optional multi-tier onboarding hook (KVBM): called with the hash
+        # run missed by the device cache, returns onboarded page ids.
+        # `onboard_trace` carries the admitting request's TraceContext
+        # across the hook call (set/cleared by _apply_prefix_cache)
+        self.onboard_fn = None
+        self.onboard_trace = None
+        # overload-control hooks (engine-set; all None on the mock path,
+        # which falls back to recompute preemption):
+        #   park_fn(seq) -> bool    exports the victim's live KV pages into
+        #                           the parking lot (False = lot full)
+        #   resume_fn(seq)          restores parked KV into fresh pages at
+        #                           admission time (raises on failure)
+        #   unpark_fn(seq)          releases a parked entry without resuming
+        #                           (abort / shutdown while parked)
+        self.park_fn = None
+        self.resume_fn = None
+        self.unpark_fn = None
+        # batch-class sequences shed from the waiting queue (deadline
+        # expiry under pressure) — the engine drains and notifies with a
+        # structured `overloaded` error
+        self.shed: List[Sequence] = []
+        # overload counters (exported as dynamo_engine_*_total)
+        self.preempted_total = 0
+        self.resumed_total = 0
+        self.shed_total = 0
+        self.queued_total = 0
+        # block-ladder ramp position: 0 = shortest rung.  Reset whenever
+        # prompts are pending; climbs one rung per quiet dispatch so the
+        # engine eases back into full blocks instead of jumping (a burst
+        # straggler arriving right after the queue drains still finds a
+        # short block in flight)
+        self._rung_idx = 0
+        # optional StepEventRecorder (runtime.events): admissions and rung
+        # selections land on the engine step timeline
+        self.events = None
+
+    def drain_errored(self) -> List[Sequence]:
+        out, self.errored = self.errored, []
+        return out
+
+    # -- intake -------------------------------------------------------------- #
+
+    def add(self, seq: Sequence) -> None:
+        if seq.prompt_len + seq.opts.max_tokens > self.cfg.max_model_len:
+            # clamp generation budget to the model window
+            seq.opts.max_tokens = max(0, self.cfg.max_model_len - seq.prompt_len)
+        if seq.t_seen is None:
+            seq.t_seen = time.monotonic()
+        if seq.priority == "batch" and (
+            self.waiting or len(self.running) >= self.cfg.max_num_seqs
+        ):
+            # a batch request enqueued behind existing work (the
+            # "queued" arm of the shed-or-queue policy)
+            self.queued_total += 1
+        self._enqueue(seq)
+
+    def _class_rank(self, seq: Sequence) -> int:
+        return 0 if seq.priority == "interactive" else 1
+
+    def _enqueue(self, seq: Sequence, front: bool = False) -> None:
+        """Class-ordered queue insert: interactive rides ahead of batch,
+        FIFO within a class.  `front` inserts at the head of the
+        sequence's OWN class region (preemption victims re-admit before
+        later arrivals of the same class — the anti-starvation property
+        the old `appendleft` provided, now class-scoped)."""
+        rank = self._class_rank(seq)
+        idx = len(self.waiting)
+        for i, s in enumerate(self.waiting):
+            r = self._class_rank(s)
+            if (r >= rank) if front else (r > rank):
+                idx = i
+                break
+        self.waiting.insert(idx, seq)
+
+    def abort(self, request_id: str) -> None:
+        for seq in list(self.waiting):
+            if seq.request_id == request_id:
+                self.waiting.remove(seq)
+                self._release_parked(seq)
+                seq.status = "finished"
+                seq.finish_reason = "cancelled"
+        for seq in self.running:
+            if seq.request_id == request_id:
+                self._finish(seq, "cancelled")
+
+    def _release_parked(self, seq: Sequence) -> None:
+        """Credit the parking lot for a parked sequence that will never
+        resume (abort / shed / shutdown) — parked KV must never outlive
+        its request (the leak ledger's `parked_pages` account)."""
+        if seq.parked:
+            if self.unpark_fn is not None:
+                self.unpark_fn(seq)
+            seq.parked = False
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def num_requests(self) -> Tuple[int, int]:
+        return len(self.running), len(self.waiting)
+
+    # -- admission ----------------------------------------------------------- #
+
+    def _watermark_pages(self) -> int:
+        return int(self.cfg.watermark * self.cfg.usable_pages)
+
+    def _admit_check(self, seq: Sequence) -> Tuple[bool, int]:
+        """(admissible, rank): the non-mutating capacity half of
+        admission — the single source of truth shared by `_try_admit`
+        and `prompts_pending`, so the block-ladder policy can never
+        desynchronize from real admissibility.
+
+        Class-aware (overload control): an interactive request may claim
+        the watermark reserve when batch-class work is present to absorb
+        the resulting pressure (the reserve's churn-prevention role is
+        taken over by batch preemption); batch requests always respect
+        the full reserve.  A parked sequence's need is its restore
+        footprint (the parked pages plus the next decode position), not
+        a first prefill chunk."""
+        if seq.parked:
+            need = seq.pages_needed(seq.num_computed + 1, self.cfg.page_size)
+        else:
+            first_chunk = min(seq.prompt_len, self.cfg.max_prefill_tokens)
+            need = seq.pages_needed(first_chunk, self.cfg.page_size)
+        if seq.num_computed > 0 or self.pool.ranks == 1:
+            # imported KV keeps the rank its pages live on; single
+            # pools skip partition scoring entirely
+            rank = seq.kv_rank
+        else:
+            # pick the pool partition: longest cached prefix wins,
+            # ties spread by availability
+            rank, _ = self.pool.best_rank(self._seq_hashes(seq))
+        ok = self.pool.available_on(rank) >= need + self._reserve_pages(seq)
+        return ok, rank
+
+    def _reserve_pages(self, seq: Sequence) -> int:
+        """Admission reserve this sequence must leave untouched."""
+        wm = self._watermark_pages()
+        if wm and seq.priority == "interactive" and self._batch_present():
+            return 0
+        return wm
+
+    def _batch_present(self) -> bool:
+        return any(s.priority == "batch" for s in self.running) or any(
+            s.priority == "batch" for s in self.waiting
+        )
+
+    def overloaded(self) -> bool:
+        """Past the configured pressure threshold: the waiting queue is
+        at least `overload_queue_depth` deep AND the live watermark
+        headroom (the PR 7 capacity gauge) is at or under
+        `overload_headroom_pages`.  Scheduler-side source of truth for
+        batch admission shedding; 0 depth disables shedding."""
+        depth = self.cfg.overload_queue_depth
+        if depth <= 0 or len(self.waiting) < depth:
+            return False
+        headroom = (self.pool.available_pages
+                    - self._watermark_pages() * self.pool.ranks)
+        return headroom <= self.cfg.overload_headroom_pages
+
+    def _try_admit(self) -> None:
+        self._shed_expired()
+        while self.waiting:
+            seq = self.waiting[0]
+            if len(self.running) >= self.cfg.max_num_seqs:
+                ok, rank = False, seq.kv_rank
+            else:
+                ok, rank = self._admit_check(seq)
+            if not ok:
+                # an interactive head may evict batch-class decodes
+                # (park, not recompute) to make room for itself
+                if not self._preempt_for_head(seq):
+                    break
+                if len(self.running) >= self.cfg.max_num_seqs:
+                    break
+                ok, rank = self._admit_check(seq)
+                if not ok:
+                    break
+            seq.kv_rank = rank
+            self.waiting.popleft()
+            if seq.parked:
+                if not self._resume(seq):
+                    continue  # errored out; next head may still admit
+            elif self.cfg.enable_prefix_caching:
+                self._apply_prefix_cache(seq)
+            seq.status = "running"
+            if seq.t_admitted is None:  # keep the FIRST admission:
+                # re-admission after preemption is not queue wait
+                seq.t_admitted = time.monotonic()
+            self.running.append(seq)
+            if self.events is not None:
+                self.events.record(
+                    "admit", rid=seq.request_id, rank=rank,
+                    prompt_len=seq.prompt_len, cached=seq.num_cached,
+                )
+
+    def _resume(self, seq: Sequence) -> bool:
+        """Restore a parked sequence's KV through the engine hook; on
+        failure the request errors out (never silently recomputed — a
+        recompute here would break token identity)."""
+        try:
+            self.resume_fn(seq)
+        except Exception:  # noqa: BLE001 — surfaced as a request error
+            logger.exception("park/resume restore failed for %s",
+                             seq.request_id)
+            self._release_parked(seq)
+            seq.status = "finished"
+            seq.finish_reason = "error"
+            self.errored.append(seq)
+            return False
+        seq.parked = False
+        self.resumed_total += 1
+        if seq.t_parked is not None:
+            # forensics: the park→resume stall rides the next delivered
+            # delta so the frontend's waterfall can blame `preempt`
+            stall_ms = (time.monotonic() - seq.t_parked) * 1e3
+            seq.incidents.append(
+                {"kind": "preempt", "stall_ms": round(stall_ms, 3)})
+            seq.t_parked = None
+        if self.events is not None:
+            self.events.record(
+                "preempt_resume", rid=seq.request_id, rank=seq.kv_rank,
+                tokens=seq.num_computed,
+            )
+        return True
+
+    def splice_admit(self) -> Optional[Sequence]:
+        """Admit the head-of-queue prompt WITHOUT the pump: the
+        continuous decode chain's step thread calls this mid-chain so
+        an arriving request becomes a chunk row spliced into the
+        running block (docs/device_loop.md "splice protocol") instead
+        of a chain fall-out.  Exactly `_try_admit`'s per-sequence body
+        — same `_admit_check` capacity gate (watermark-respecting),
+        same prefix-cache application, same admit event (tagged
+        ``spliced``) — so splice admission and pump admission can never
+        diverge.  Returns the admitted sequence, or None when the head
+        is not admissible right now.  A parked head never splices: its
+        resume is a device KV import, not a chunk-row feed — the chain
+        falls out (``admit``) and the pump resumes it."""
+        if not self._head_admissible():
+            return None
+        if self.waiting[0].parked:
+            return None
+        seq = self.waiting[0]
+        ok, rank = self._admit_check(seq)
+        if not ok:
+            return None
+        seq.kv_rank = rank
+        self.waiting.popleft()
+        if self.cfg.enable_prefix_caching:
+            self._apply_prefix_cache(seq)
+        seq.status = "running"
+        if seq.t_admitted is None:
+            seq.t_admitted = time.monotonic()
+        self.running.append(seq)
+        if self.events is not None:
+            self.events.record(
+                "admit", rid=seq.request_id, rank=rank,
+                prompt_len=seq.prompt_len, cached=seq.num_cached,
+                spliced=True,
+            )
+        return seq
+
+    def _seq_hashes(self, seq: Sequence) -> List[int]:
+        """Block-hash chain for admission-time cache scoring (never hits
+        the whole-prompt block — its last token must be recomputed).
+        Cached on the sequence: the prompt never changes, and a waiting
+        head-of-queue sequence is re-examined every pump tick."""
+        if not self.cfg.enable_prefix_caching:
+            return []
+        if getattr(seq, "_admit_hashes", None) is None:
+            ps = self.cfg.page_size
+            hashes = compute_block_hash_for_seq(
+                seq.prompt, ps, self.cfg.block_hash_salt + seq.cache_salt
+            )
+            if seq.prompt_len % ps == 0 and hashes:
+                hashes = hashes[:-1]
+            seq._admit_hashes = hashes
+        return seq._admit_hashes
+
+    def add_imported(self, seq: Sequence) -> None:
+        """Admit a sequence whose KV was injected externally (disagg decode
+        side): pages and num_computed are already set; skip prefix cache."""
+        if seq.t_seen is None:
+            seq.t_seen = time.monotonic()
+        self.waiting.append(seq)
+
+    def _apply_prefix_cache(self, seq: Sequence) -> None:
+        if seq.num_computed > 0:  # imported KV — already placed
+            return
+        ps = self.cfg.page_size
+        # never cache-hit the *entire* prompt: the last token must be
+        # recomputed so prefill produces logits to sample from.
+        hashes = self._seq_hashes(seq)
+        hit_pages = self.pool.lookup_on(seq.kv_rank, hashes)
+        if self.onboard_fn is not None and len(hit_pages) < len(hashes):
+            # onboard() returns pages already holding this sequence's
+            # ref, allocated on the sequence's pool rank (a sequence's
+            # pages must share one partition).  The admitting request's
+            # trace rides an attribute (not the hook signature, which
+            # tests spy on) so the engine can export a kvbm.onboard span
+            # under it.
+            self.onboard_trace = seq.trace
+            t_onboard = time.monotonic()
+            try:
+                onboarded = self.onboard_fn(
+                    hashes[len(hit_pages):], seq.kv_rank)
+                if onboarded:
+                    # forensics: host→device KV onboarding stalled this
+                    # request's admission; ride the first delta
+                    seq.incidents.append({
+                        "kind": "onboard",
+                        "pages": len(onboarded),
+                        "stall_ms": round(
+                            (time.monotonic() - t_onboard) * 1e3, 3),
+                    })
+                hit_pages.extend(onboarded)
+            finally:
+                # a raising hook must not leave the dead request's trace
+                # attached — the next admission's span would join it
+                self.onboard_trace = None
+        if hit_pages:
+            seq.pages = list(hit_pages)
+            seq.num_cached = len(hit_pages) * ps
+            seq.num_computed = seq.num_cached
+            seq.block_hashes = hashes[: len(hit_pages)]
+            seq.committed_pages = len(hit_pages)
+
+    # -- planning ------------------------------------------------------------ #
+
+    def _head_admissible(self) -> bool:
+        """Could the head-of-queue prompt be admitted right now?  The
+        same `_admit_check` `_try_admit` runs, minus the mutation."""
+        if not self.waiting or len(self.running) >= self.cfg.max_num_seqs:
+            return False
+        return self._admit_check(self.waiting[0])[0]
+
+    def prompts_pending(self) -> bool:
+        """True when a prompt could make progress next plan — a running
+        sequence still mid-chunked-prefill, or an ADMISSIBLE waiting
+        prompt — i.e. the states whose TTFT a committed full decode
+        block would hold hostage.  A waiting prompt that CANNOT be
+        admitted (pages/slots exhausted) is excluded on purpose: short
+        rungs buy it nothing (it is blocked on capacity, not on the
+        in-flight block — that wait lands in queue-wait, not
+        block-wait), and pinning every decode to 1-step unchained
+        dispatches for its whole wait would tax the running streams'
+        ITL indefinitely.  `_chain_ok` still refuses chaining while
+        anything waits, so once capacity frees the prompt is admitted
+        within at most one (full) block."""
+        return any(
+            not s.prefill_done for s in self.running
+        ) or self._head_admissible()
+
+    def select_decode_rung(self) -> Tuple[int, bool]:
+        """(n_steps, allow_chain) for the next decode-bearing dispatch
+        (pure decode, mixed, or the fused prefill→decode chain).
+
+        Policy (the block ladder / Sarathi-Serve's stall-free
+        property in host-side form): while prompts are pending, dispatch
+        the SHORTEST rung with chaining suppressed, so the pump replans
+        — and the waiting prompt rides a mixed dispatch — within one
+        short block instead of `chain × decode_steps` steps.  Once the
+        queue drains, climb one rung per quiet dispatch back to the full
+        block; chaining is only allowed at the top rung (a chain is a
+        commitment of chain × n_steps steps, exactly what short rungs
+        exist to avoid).
+
+        Page reservation is unaffected: `decode_advance` covers the
+        worst case (`decode_steps`, or the 1+k speculative chunk) and
+        every rung is <= decode_steps, so a rung switch never outgrows
+        the reserved tables — including under speculative-verify
+        reservations."""
+        ladder = self.cfg.block_ladder
+        if len(ladder) == 1:
+            return ladder[-1], True
+        # ONE pending evaluation per call: prompts_pending walks the
+        # running list and scores head-of-queue admissibility — pump
+        # hot-path work the ladder exists to keep short
+        pending = self.prompts_pending()
+        rung = self._rung_for(pending)
+        self._rung_idx = (0 if pending
+                          else min(self._rung_idx + 1, len(ladder) - 1))
+        if self.events is not None:
+            self.events.record("rung_select", rung=rung[0],
+                               chain=rung[1], pending=pending)
+        return rung
+
+    def peek_decode_rung(self) -> Tuple[int, bool]:
+        """`select_decode_rung` without the ramp advance — for callers
+        that may still abort the dispatch (the fused path's page
+        extension): a rung is only consumed when a block actually
+        dispatches."""
+        ladder = self.cfg.block_ladder
+        if len(ladder) == 1:
+            return ladder[-1], True
+        return self._rung_for(self.prompts_pending())
+
+    def _rung_for(self, pending: bool) -> Tuple[int, bool]:
+        ladder = self.cfg.block_ladder
+        if pending:
+            return ladder[0], False
+        idx = min(self._rung_idx, len(ladder) - 1)
+        return ladder[idx], idx == len(ladder) - 1
+
+    def commit_decode_rung(self) -> None:
+        """Advance the ramp for a dispatch whose rung was taken via
+        `peek_decode_rung` (the fused path: its eligibility already
+        guaranteed no prompts were pending, so this is always the
+        quiet-ramp advance — no second pending evaluation, and the
+        committed rung is exactly the peeked one)."""
+        ladder = self.cfg.block_ladder
+        if len(ladder) > 1:
+            self._rung_idx = min(self._rung_idx + 1, len(ladder) - 1)
+
+    def schedule(self) -> StepPlan:
+        self._try_admit()
+        if not self.running:
+            return StepPlan("idle")
+
+        # mixed scheduling: when decodes are already running AND prompts
+        # are pending, plan BOTH into one dispatch — decodes keep their
+        # ITL, the prefill side advances by a bounded chunk budget.
+        # Decode rows get page priority (preemptive); the mixed prefill
+        # side allocates non-preemptively (it must not invalidate a
+        # decode row planned into the same dispatch).  Multimodal
+        # prompts take the pure-prefill path (their embed injection
+        # arrays only exist there).
+        has_pending_prefill = any(
+            not s.prefill_done for s in self.running
+        )
+        mixed_budget = self.cfg.mixed_prefill_tokens
+        if has_pending_prefill and mixed_budget > 0 and any(
+            s.prefill_done for s in self.running
+        ) and not any(
+            s.mm_embeds is not None or s.mm_pixels is not None
+            or s.mm_patches is not None
+            for s in self.running if not s.prefill_done
+        ):
+            decodable = self._plan_decode()
+            if decodable:
+                items = self._plan_prefill(mixed_budget, preempt=False)
+                if items:
+                    return StepPlan("mixed", prefill=items, decode=decodable)
+                return StepPlan("decode", decode=decodable)
+
+        items = self._plan_prefill(self.cfg.max_prefill_tokens, preempt=True)
+        if items:
+            return StepPlan("prefill", prefill=items)
+        decodable = self._plan_decode()
+        if decodable:
+            return StepPlan("decode", decode=decodable)
+        return StepPlan("idle")
+
+    def _plan_prefill(self, budget: int, preempt: bool) -> List[PrefillItem]:
+        """Plan prefill chunks under a token budget (iterate a copy:
+        preemptive page growth may preempt members)."""
+        items: List[PrefillItem] = []
+        for seq in list(self.running):
+            if seq.prefill_done or budget <= 0:
+                continue
+            if len(items) >= self.cfg.prefill_batch_size:
+                break
+            chunk = min(seq.prompt_len - seq.num_computed, budget)
+            if preempt:
+                if not self._ensure_pages(seq, seq.num_computed + chunk):
+                    continue  # seq may have been preempted/errored
+            else:
+                need = seq.pages_needed(
+                    seq.num_computed + chunk, self.cfg.page_size
+                ) - len(seq.pages)
+                # a mixed prefill chunk must not drain the watermark
+                # reserve admission maintains for decode growth — doing so
+                # forces the next decode growth to preempt this very
+                # prefill (churn the watermark exists to prevent).  Chunks
+                # needing no new pages always proceed: they cost the
+                # reserve nothing
+                if need > 0:
+                    headroom = self._watermark_pages()
+                    if seq.preemptions >= 2:
+                        # anti-thrash: a sequence decode growth has
+                        # evicted twice only re-prefills with real
+                        # headroom (enough pages that the running
+                        # decodes' next growth will not immediately
+                        # evict it again)
+                        headroom += sum(
+                            1 for s in self.running
+                            if s.prefill_done and s.kv_rank == seq.kv_rank
+                        )
+                    if self.pool.available_on(seq.kv_rank) < need + headroom:
+                        continue
+                if not self.try_extend_pages(seq, seq.num_computed + chunk):
+                    continue  # pool tight — decode-only this round
+            items.append(
+                PrefillItem(
+                    seq,
+                    seq.num_computed,
+                    chunk,
+                    samples=(seq.num_computed + chunk >= seq.prompt_len),
+                )
+            )
+            budget -= chunk
+        return items
+
+    def _plan_decode(self) -> List[Sequence]:
+        """Every prefill-done running sequence advances up to
+        `decode_advance` tokens — decode_steps on the block path, or the
+        1+k draft-verify chunk when speculation is on; reservation
+        covers the worst case of whichever path the engine dispatches
+        (page reservation clamped to the model window so the table
+        never outgrows its largest bucket).  Variable multi-token
+        acceptance is handled at consume time: `check_stop` runs per
+        appended token, so a stop inside an accepted run discards the
+        tail exactly like a stop inside a decode block."""
+        hard_cap = self.cfg.hard_cap
+        decodable: List[Sequence] = []
+        for seq in list(self.running):
+            if seq.status != "running" or not seq.prefill_done:
+                continue
+            target = min(seq.num_computed + self.cfg.decode_advance, hard_cap)
+            if not self._ensure_pages(seq, target):
+                continue
+            decodable.append(seq)
+        return decodable[: self.cfg.max_num_seqs]
+
+    def _ensure_pages(self, seq: Sequence, upto_tokens: int) -> bool:
+        """Grow seq's page list to cover `upto_tokens`, preempting others
+        (youngest-first) if the pool is dry. Returns False if seq itself got
+        preempted."""
+        need = seq.pages_needed(upto_tokens, self.cfg.page_size) - len(seq.pages)
+        if need <= 0:
+            return True
+        while True:
+            try:
+                seq.pages.extend(self.pool.allocate_on(seq.kv_rank, need))
+                return True
+            except NoPagesError:
+                victim = self._pick_victim(exclude=seq, rank=seq.kv_rank)
+                if victim is None:
+                    # nothing left to evict: with the pool to itself the
+                    # sequence can never fit — error it out instead of the
+                    # preempt/re-admit livelock
+                    self._finish(seq, "error")
+                    self.errored.append(seq)
+                    return False
+                # park mid-decode victims (byte-exact resume) when the
+                # engine provides a lot; recompute-preempt otherwise
+                if not self.preempt_park(victim):
+                    self._preempt(victim)
+
+    def try_extend_pages(self, seq: Sequence, upto_tokens: int,
+                         keep_watermark: bool = False) -> bool:
+        """Grow seq's page list WITHOUT preemption (cached-page eviction is
+        fine).  Used by decode-chaining, where preempting a running sequence
+        would invalidate tables already captured by in-flight dispatches.
+        `keep_watermark` additionally refuses to dip into the admission
+        reserve — the continuous decode loop's horizon pre-reservation
+        must not starve waiting prompts of the pages `_admit_check`
+        holds back for them."""
+        need = seq.pages_needed(upto_tokens, self.cfg.page_size) - len(seq.pages)
+        if need <= 0:
+            return True
+        reserve = self._watermark_pages() if keep_watermark else 0
+        if self.pool.available_on(seq.kv_rank) < need + reserve:
+            return False
+        seq.pages.extend(self.pool.allocate_on(seq.kv_rank, need))
+        return True
+
+    def admission_ready(self) -> bool:
+        """Public face of `_head_admissible` (`_admit_check` minus the
+        mutation): True when the head-of-queue prompt could be admitted
+        right now — the continuous decode chain's admission fall-out
+        signal."""
+        return self._head_admissible()
+
+    def _pick_victim(self, exclude: Sequence, rank: int = 0) -> Optional[Sequence]:
+        """Youngest running sequence on the SAME pool partition (evicting
+        another rank's pages cannot unblock this allocation); batch-class
+        victims are preferred over interactive ones."""
+        for want_batch in (True, False):
+            for seq in reversed(self.running):  # youngest first
+                if (seq is not exclude and seq.kv_rank == rank
+                        and (seq.priority == "batch") == want_batch):
+                    return seq
+        return None
+
+    def _park_candidate(self, rank: int) -> Optional[Sequence]:
+        """Youngest batch-class mid-decode sequence on `rank` — the only
+        legal park victims (a mid-prefill victim has no output KV worth
+        preserving; recompute preemption handles it)."""
+        for seq in reversed(self.running):
+            if (seq.priority == "batch" and seq.kv_rank == rank
+                    and seq.prefill_done and seq.output_tokens):
+                return seq
+        return None
+
+    def preempt_park(self, seq: Sequence) -> bool:
+        """Preempt `seq` mid-decode by PARKING its KV (byte-exact resume)
+        instead of recomputing: commit full blocks to the device cache
+        (feeding the tier offload pump), export the live pages through the
+        engine's park hook, free them, and requeue at the head of the
+        victim's class region.  Returns False (no state change) when the
+        hook is absent, the victim is not mid-decode, or the lot refuses
+        (budget) — callers fall back to recompute preemption."""
+        if (self.park_fn is None or not seq.prefill_done
+                or not seq.output_tokens or seq.hold_pages):
+            return False
+        self.commit_full_pages(seq)
+        if not self.park_fn(seq):
+            return False
+        logger.info("parking %s (%d tokens)", seq.request_id,
+                    seq.num_computed)
+        self.pool.free(seq.pages)
+        seq.pages = []
+        seq.committed_pages = 0
+        seq.parked = True
+        seq.status = "waiting"
+        seq.preemptions += 1
+        seq.t_parked = time.monotonic()  # forensics: resume stamps stall
+        self.preempted_total += 1
+        if seq in self.running:
+            self.running.remove(seq)
+        self._enqueue(seq, front=True)
+        if self.events is not None:
+            self.events.record(
+                "preempt_park", rid=seq.request_id, rank=seq.kv_rank,
+                tokens=seq.num_computed, outputs=len(seq.output_tokens),
+            )
+        return True
+
+    def _rank_for(self, seq: Sequence) -> int:
+        if seq.num_computed > 0 or self.pool.ranks == 1:
+            return seq.kv_rank
+        return self.pool.best_rank(self._seq_hashes(seq))[0]
+
+    def _preempt_for_head(self, seq: Sequence) -> bool:
+        """Park batch-class victims until the interactive head `seq`
+        becomes admissible (pages or a slot).  Returns True if at least
+        one victim was parked; never touches interactive victims and
+        never recomputes (a recompute preemption of a mid-decode victim
+        is not token-safe on the real engine)."""
+        if self.park_fn is None or seq.priority != "interactive":
+            return False
+        rank = self._rank_for(seq)
+        parked_any = False
+        for _ in range(len(self.running)):
+            if (len(self.running) < self.cfg.max_num_seqs
+                    and self._admit_check(seq)[0]):
+                break
+            victim = self._park_candidate(rank)
+            if victim is None or not self.preempt_park(victim):
+                break
+            parked_any = True
+        return parked_any
+
+    def preempt_ready(self) -> bool:
+        """True when an interactive head could be admitted if a batch
+        victim were parked — the continuous decode chain's preemption
+        fall-out signal (reason ``preempted``): the chain exits, the pump
+        replans, `_try_admit` parks the victim and admits the head."""
+        if self.park_fn is None or not self.waiting:
+            return False
+        head = self.waiting[0]
+        if head.priority != "interactive":
+            return False
+        if len(self.running) < self.cfg.max_num_seqs:
+            if self._admit_check(head)[0]:
+                return False  # ordinary admission handles it
+        return self._park_candidate(self._rank_for(head)) is not None
+
+    def _shed_expired(self) -> None:
+        """Deadline shed: a batch-class request that has waited past
+        `batch_deadline_s` without ever being admitted is shed (the
+        queued-with-a-deadline half of the admission policy — never
+        accepted-then-starved).  Parked sequences and sequences that
+        already produced tokens are exempt: the client has state."""
+        deadline = self.cfg.batch_deadline_s
+        if deadline <= 0 or not self.waiting:
+            return
+        now = time.monotonic()
+        for seq in list(self.waiting):
+            if (seq.priority == "batch" and not seq.parked
+                    and not seq.output_tokens and seq.t_seen is not None
+                    and now - seq.t_seen > deadline):
+                self.waiting.remove(seq)
+                seq.status = "finished"
+                seq.finish_reason = "shed"
+                self.shed_total += 1
+                self.shed.append(seq)
+                if self.events is not None:
+                    self.events.record(
+                        "shed", rid=seq.request_id,
+                        waited_s=round(now - seq.t_seen, 3),
+                    )
+
+    def drain_shed(self) -> List[Sequence]:
+        out, self.shed = self.shed, []
+        return out
+
+    def _preempt(self, seq: Sequence) -> None:
+        logger.info("preempting %s", seq.request_id)
+        self.pool.free(seq.pages)
+        seq.pages = []
+        seq.num_cached = 0
+        seq.num_computed = 0
+        seq.committed_pages = 0
+        seq.block_hashes = seq.block_hashes[:0]
+        seq.status = "waiting"
+        seq.preemptions += 1
+        if seq in self.running:
+            self.running.remove(seq)
+        self._enqueue(seq, front=True)
+
+    # -- completion ---------------------------------------------------------- #
+
+    def commit_full_pages(self, seq: Sequence) -> None:
+        """Register newly-filled pages in the prefix cache (emits KV events)."""
+        if not self.cfg.enable_prefix_caching:
+            return
+        ps = self.cfg.page_size
+        full = seq.num_computed // ps
+        if full <= seq.committed_pages:
+            return
+        tokens = seq.all_tokens()
+        # extend the hash chain incrementally (O(new blocks), not O(n^2))
+        while len(seq.block_hashes) < full:
+            i = len(seq.block_hashes)
+            parent = (
+                seq.block_hashes[-1]
+                if seq.block_hashes
+                else chain_seed(self.cfg.block_hash_salt + seq.cache_salt)
+            )
+            seq.block_hashes.append(
+                next_block_hash(parent, tokens[i * ps : (i + 1) * ps])
+            )
+        for i in range(seq.committed_pages, full):
+            parent = seq.block_hashes[i - 1] if i > 0 else None
+            self.pool.commit(seq.pages[i], seq.block_hashes[i], parent)
+        seq.committed_pages = full
+
+    def check_stop(self, seq: Sequence, eos_token_ids: Seq[int]) -> Optional[str]:
+        out = seq.output_tokens
+        if not seq.opts.ignore_eos and out and out[-1] in eos_token_ids:
+            return "stop"
+        if out and out[-1] in seq.opts.stop_token_ids:
+            return "stop"
+        for stop in seq.opts.stop_sequences:
+            if stop and out[-len(stop):] == stop:
+                return "stop"
+        if len(out) >= seq.opts.max_tokens:
+            return "length"
+        if seq.total_len >= self.cfg.max_model_len:
+            return "length"
+        return None
+
+    def _finish(self, seq: Sequence, reason: str) -> None:
+        seq.status = "finished"
+        seq.finish_reason = reason
+        if not seq.hold_pages:
+            if self.deferred_free is not None:
+                self.deferred_free.extend(seq.pages)
+            else:
+                self.pool.free(seq.pages)
+            seq.pages = []
+        if seq in self.running:
+            self.running.remove(seq)
+
+    def finish(self, seq: Sequence, reason: str) -> None:
+        self.commit_full_pages(seq)
+        self._finish(seq, reason)
