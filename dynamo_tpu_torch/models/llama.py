@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..ops import (
     decode_attention,
     prefill_attention,
@@ -46,7 +47,8 @@ class KVCache:
 
     @staticmethod
     def create(cfg: ModelConfig, num_pages: int, page_size: int,
-               dtype=torch.bfloat16, device="cpu") -> "KVCache":
+               dtype=torch.bfloat16, device=None) -> "KVCache":
+        device = resolve_device(device)
         shape = (cfg.num_hidden_layers, num_pages, page_size,
                  cfg.num_key_value_heads, cfg.head_dim_)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -129,14 +131,17 @@ class DecoderLayer(nn.Module):
 
 
 class Llama(nn.Module):
-    """Embedding, decoder layers and LM head (tied or untied)."""
+    """Embedding, decoder layers and LM head (tied or untied).  Like every
+    entry point of the port it lives on the CUDA device unless the caller
+    passes ``device="cpu"``; `KVCache.create`, `init_params` and
+    `params_from_jax` resolve their device the same way."""
 
-    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device="cpu"):
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = device = resolve_device(device)
         h, V = cfg.hidden_size, cfg.vocab_size
 
         def p(*shape):
@@ -197,7 +202,7 @@ _LAYER_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm",
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu") -> Llama:
+                dtype=torch.bfloat16, device=None) -> Llama:
     """Random weights from `generator` (drawn on the generator's device),
     with the JAX package's scales: normal / sqrt(fan_in), embedding 0.02,
     norms 1.  Drawn one tensor at a time in f32 and cast, so a full-size
@@ -225,7 +230,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def params_from_jax(cfg: ModelConfig, tree: Dict, dtype=None,
-                    device="cpu") -> Llama:
+                    device=None) -> Llama:
     """The port's model from a JAX `init_params` tree already converted to
     numpy (``jax.tree.map(np.asarray, params)``): layer stacks
     [L, ...] become per-layer parameters.  `dtype` defaults to the

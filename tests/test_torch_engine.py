@@ -34,7 +34,8 @@ def jax_params():
 
 def make_engine(jax_params, **over):
     cfg = tiny_config()
-    model = params_from_jax(cfg, jax.tree.map(np.asarray, jax_params))
+    model = params_from_jax(cfg, jax.tree.map(np.asarray, jax_params),
+                            device="cpu")
     return TorchEngine(cfg, model, EngineConfig(**{**ECFG, **over}),
                        eos_token_ids=[], device="cpu")
 

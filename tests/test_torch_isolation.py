@@ -64,7 +64,7 @@ def test_no_jax_import_in_source(path):
 def test_entry_points_refuse_without_cuda(monkeypatch):
     from dynamo_tpu_torch import resolve_device
     from dynamo_tpu_torch.engine import TorchEngine
-    from dynamo_tpu_torch.models import init_params, tiny_config
+    from dynamo_tpu_torch.models import KVCache, Llama, init_params, tiny_config
     from dynamo_tpu_torch.run.__main__ import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -72,7 +72,13 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
     cfg = tiny_config()
-    model = init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    for make in (lambda: Llama(cfg, torch.float32),
+                 lambda: KVCache.create(cfg, 4, 8, torch.float32),
+                 lambda: init_params(cfg, torch.Generator(), torch.float32)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    model = init_params(cfg, torch.Generator().manual_seed(0), torch.float32,
+                        device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchEngine(cfg, model)
     assert TorchEngine(cfg, model, device="cpu").device.type == "cpu"

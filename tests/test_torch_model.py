@@ -32,7 +32,7 @@ def _setup(jdtype):
     cfg_j = jcfg.tiny_config()
     params = jl.init_params(cfg_j, jax.random.PRNGKey(0), dtype=jdtype)
     cfg_t = tcfg.tiny_config()
-    model = tl.params_from_jax(cfg_t, _tree(params))
+    model = tl.params_from_jax(cfg_t, _tree(params), device="cpu")
     return cfg_j, params, cfg_t, model
 
 
@@ -48,7 +48,7 @@ def _run_both(jdtype, tdtype, n_decode=8):
     table = _table(B)
     P = 1 + B * MAXP
     kv_j = jl.KVCache.create(cfg_j, P, PAGE, jdtype)
-    kv_t = tl.KVCache.create(cfg_t, P, PAGE, tdtype)
+    kv_t = tl.KVCache.create(cfg_t, P, PAGE, tdtype, "cpu")
     chunks = [  # (token slice, prefix_lens, chunk_lens)
         (slice(0, S1), [0, 0], [S1, 9]),
         (slice(S1, S1 + S2), [S1, 9], [S2, 5]),
@@ -105,13 +105,13 @@ def test_bf16_prefill_logits_allclose():
 
 def test_init_params_seeded_and_untied_head():
     cfg = tcfg.tiny_config(tie_word_embeddings=False)
-    a = tl.init_params(cfg, torch.Generator().manual_seed(3), torch.float32)
-    b = tl.init_params(cfg, torch.Generator().manual_seed(3), torch.float32)
+    a = tl.init_params(cfg, torch.Generator().manual_seed(3), torch.float32, "cpu")
+    b = tl.init_params(cfg, torch.Generator().manual_seed(3), torch.float32, "cpu")
     for (na, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(pa, pb), na
     assert a.lm_head is not None and a.lm_head.shape == (cfg.hidden_size, cfg.vocab_size)
     tied = tl.init_params(dataclasses.replace(cfg, tie_word_embeddings=True),
-                          torch.Generator().manual_seed(3), torch.float32)
+                          torch.Generator().manual_seed(3), torch.float32, "cpu")
     assert tied.lm_head is None
     x = torch.randn(2, cfg.hidden_size)
     assert tied.lm_logits(x).shape == (2, cfg.vocab_size)
@@ -121,4 +121,4 @@ def test_init_params_seeded_and_untied_head():
                                   {"attention_sinks": True}])
 def test_unported_model_features_refused(over):
     with pytest.raises(NotImplementedError):
-        tl.Llama(tcfg.tiny_config(**over), torch.float32)
+        tl.Llama(tcfg.tiny_config(**over), torch.float32, "cpu")
