@@ -1,15 +1,14 @@
 // Paged attention for the KV page pool, written by hand for Hopper (sm_90a).
 //
-// Two kernels, each the counterpart of one Pallas TPU kernel of the JAX
-// package:
+// Each kernel is the counterpart of one Pallas TPU kernel of the JAX
+// package (dynamo_tpu/ops/pallas_attention.py):
 //
-//   pa_decode_kernel  replaces dynamo_tpu/ops/pallas_attention.py
-//                     decode_attention_pallas (_decode_kernel, _page_dmas):
-//                     one query token per sequence over its page-table row.
-//   pa_prefill_kernel replaces dynamo_tpu/ops/pallas_attention.py
-//                     prefill_attention_pallas (_prefill_kernel): a new
-//                     chunk attends to its cached prefix pages, then to
-//                     itself causally.
+//   pa_decode_split_kernel + pa_decode_merge_kernel
+//       replace decode_attention_pallas (_decode_kernel, _page_dmas): one
+//       query token per sequence over its page-table row;
+//   pa_prefill_wgmma_kernel (bf16, wgmma) and pa_prefill_kernel (f32)
+//       replace prefill_attention_pallas (_prefill_kernel): a new chunk
+//       attends to its cached prefix pages, then to itself causally.
 //
 // Semantics (shared with the plain PyTorch versions in
 // dynamo_tpu_torch/ops/paged_attention.py):
@@ -17,57 +16,198 @@
 //     its table row names, token t at (table[t / page], t % page);
 //   - GQA: q head h reads kv head h / (H / n_kv);
 //   - scores are q.k * 1/sqrt(hd) in f32; an f32 online softmax (running
-//     max m, denominator l, accumulator acc) streams the keys;
+//     max m, denominator l, accumulator acc) streams the keys.  Scores are
+//     kept in log2 units (scaled by log2(e)) so the exponentials are exp2;
 //   - a sliding window > 0 keeps keys with position > query_pos - window;
 //   - per-head sink logits join the denominator only: l += exp(sink - m);
 //   - the denominator is clamped to 1e-30 and NEG_INF is -1e30, so a row
 //     with no valid key (seq_len 0, or a prefill row past chunk_len)
 //     gives zeros, never NaN.
 //
-// What bounds them on an H100: decode reads every cached K/V byte of the
-// batch once and does ~4 flops per byte, so it is bound by HBM bytes
-// (3.35 TB/s).  Prefill of a 512-token chunk reads q and writes the output
-// for all H heads once and does 4*hd flops per (row, key) pair; at
-// Llama-3.1-8B's shapes its byte and operation bounds lie within 2x of
-// each other (bytes the larger), far below what this version reaches.
+// DECODE -- what bounds it: every cached K/V byte of the batch is read
+// once for ~1 flop per byte, so HBM bytes bound it.  At the serving shape
+// (8 padded rows, ~5300 live tokens, n_kv 8, hd 128, bf16) that is about
+// 21.7 MB, 6.5 us at 3.35 TB/s.  The first version (one block per
+// (kv head, row), grid n_kv x B) left most of the 132 SMs idle, walked a
+// 4095-token row with one block, reduced every key's score with a serial
+// 5-shuffle warp sum per head, waited for each tile before scoring it,
+// and re-read the page table for every 16-byte vector.  This version:
+//   - split-KV: grid (n_kv, B, n_split); a block scores one kv head's G
+//     query heads over one run of 256 keys (whole pages) of one row.
+//     The run is a constant, so a row's splits, and the f32 sums of its
+//     output, do not change with its batch-mates; n_split covers the
+//     table width (a shape, never seq_lens), which fills the card at
+//     least twice at the serving shape.  A split wholly past seq_len or
+//     before the window writes m = NEG_INF, l = 0 and exits;
+//   - the split's page ids are read once into shared memory;
+//   - K/V tiles of 64 keys move with 16-byte cp.async into a ring of 2
+//     stages: the next tile's copies are issued before this tile is
+//     scored;
+//   - lanes are split over keys: a group of LPK lanes (4-16, by G and hd)
+//     owns one key at a time, each lane a slice of hd read as 16-byte
+//     vectors, so a score is reduced over log2(LPK) shuffles, not a
+//     5-shuffle sum per key and head.  CUDA cores rather than
+//     mma.sync with G padded to 16 rows: the kernel is bytes-bound, the
+//     same code serves f32 pools, and padding G = 4 to 16 rows would waste
+//     3/4 of every product;
+//   - each split's (m, l, acc) go in f32 to scratch the wrapper allocates;
+//     pa_decode_merge_kernel combines the splits by their maxima, adds
+//     the sink, clamps the denominator and writes q's dtype.
 //
-// What the design does about it (first, simple version):
-//   - decode: one block per (kv head, sequence).  The block's G query
-//     heads share every K/V tile: the tile is copied once from the pool
-//     into shared memory with 16-byte asynchronous copies (cp.async), and
-//     each of the four warps scores its 32 keys against all G heads from
-//     there -- the reuse the TPU kernel gets by slicing per kv head.
-//     The block reads
-//     its own table row and seq_len (no scalar prefetch) and starts at
-//     the first tile inside the window.  Warps keep their own online
-//     softmax state and are merged through shared memory at the end.
-//     At batch 4 with 8 kv heads this is only 32 blocks on 132 SMs: the
-//     first thing to fix is a split over the KV length (split-KV).
-//   - prefill: one block per (16 query rows, q head, sequence); a loop
-//     inside the block replaces the TPU's sequential chunk grid, first
-//     over the prefix pages, then over k_new/v_new tiles up to the causal
-//     limit.  Scores use CUDA cores (lane-split dot products and warp
-//     shuffles); wgmma/TMA tiles are later work.
+// PREFILL -- what bounds it: at the serving shape (one 512-token chunk
+// after a 1536-token prefix, 32 q / 8 kv heads, hd 128) it does 15.0
+// GFLOP against 16.8 MB, so it is operations-bound: 15.2 us at the bf16
+// tensor-core peak (989 TFLOP/s).  Only tensor cores get near that.
+// pa_prefill_wgmma_kernel (bf16):
+//   - one block (one warpgroup, 4 warps) per (64-row tile, kv head,
+//     sequence); the tile's rows are 64/G query positions x the G query
+//     heads that share the kv head, so each K/V tile crosses from memory
+//     to shared memory once per kv head (the first version loaded it once
+//     per query head);
+//   - S = Q.K^T and O += P.V run on the tensor cores as wgmma (m64n64k16
+//     with Q and K from shared memory; m64n{64,128}k16 with P from
+//     registers and V as the transposed B), f32 accumulate, from
+//     128-byte-swizzled tiles.  One warpgroup reads each K/V tile once
+//     for all 64 rows, where mma.sync made every warp read it again;
+//   - tiles of 64 keys in a ring of 2 stages filled with cp.async; prefix
+//     keys come through the table row (page ids read once into shared
+//     memory), chunk keys from k_new/v_new, both in one key space
+//     u = prefix position, then prefix_len + chunk position;
+//   - the copy of tile i + 1 runs under the products and softmax of
+//     tile i;
+//   - causal: the key loop ends at the block's last row, and only tiles
+//     that cross the first row's diagonal (or any tile under a window)
+//     are masked; a window starts at the first visible tile.
+// f32 inputs keep the first version's CUDA-core pa_prefill_kernel: tensor
+// cores would need TF32, which breaks the 1e-4 f32 tolerance.  f32 is the
+// tests' dtype, not the serving path's.
 //
-// Each C entry point returns cudaGetLastError() right after its launch.
+// Each C entry point returns cudaGetLastError() right after its launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = 32 * NWARPS;
-constexpr int KEYS = 32;    // keys per warp per tile (one per lane)
-constexpr int BQ = 16;      // prefill query rows per block
-constexpr int RPW = BQ / NWARPS;  // prefill rows per warp
+constexpr int STAGES = 2;   // depth of the decode K/V ring
+constexpr int PSTAGES = 2;  // depth of the bf16 prefill K/V ring
+constexpr int DTILE = 64;   // decode keys per tile
+constexpr int MROWS = 64;   // bf16 prefill rows per block (positions x G)
+constexpr int NKEYS = 64;   // bf16 prefill keys per tile
+constexpr int KEYS = 32;    // f32 prefill: keys per warp per tile (one per lane)
+constexpr int BQ = 16;      // f32 prefill query rows per block
+constexpr int RPW = BQ / NWARPS;  // f32 prefill rows per warp
+
+// ---- PTX helpers ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; when !ok nothing is read and
+// the 16 bytes are zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; 0 for x <= -126
+// after flushing the denormal result)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// ---- wgmma (sm_90a) --------------------------------------------------------
+// V is the MN-major (transposed) B of O += P.V: its 64-dim atoms lie 8192
+// bytes apart (64 keys x 128 bytes, the leading byte offset), its 8-key
+// row groups 1024 bytes apart (the stride byte offset)
+constexpr uint32_t V_LBO = 8192, V_SBO = 1024;
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t gdesc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// keep the compiler from moving accesses of wgmma operands across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+// d (64 x 64 f32) (+)= A (smem, K-major) * B (smem, K-major)
+__device__ __forceinline__ void wg_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d (64 x 64 f32) += A (registers) * B (smem, MN-major: transposed)
+__device__ __forceinline__ void wg_rs_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x 128 f32) += A (registers) * B (smem, MN-major: transposed)
+__device__ __forceinline__ void wg_rs_n128(float (&d)[16][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <int HD>
+__device__ __forceinline__ void wg_pv(float (&d)[HD / 8][4], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 128) wg_rs_n128(d, a, db); else wg_rs_n64(d, a, db);
+}
+
+// Byte offset of 16-byte chunk c of row r in a 64-row bf16 tile of the
+// prefill: 64-column atoms of 128-byte rows, each atom swizzled as the
+// wgmma B128 layout expects (chunk XOR row % 8, atoms 1024-byte aligned),
+// so the 8 rows a phase of the tensor cores reads at one column fall in 8
+// different bank groups.
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+  return (uint32_t)((c >> 3) * (64 * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
@@ -100,7 +240,7 @@ __device__ __forceinline__ void stage_rows(T* dst, int nrows, SrcOf src_of) {
     const T* src = src_of(r);
     uint4* d = reinterpret_cast<uint4*>(dst + (size_t)r * HD) + c;
     if (src != nullptr) {
-      __pipeline_memcpy_async(d, reinterpret_cast<const uint4*>(src) + c, 16);
+      cp_async16(smem_u32(d), reinterpret_cast<const uint4*>(src) + c, true);
     } else {
       *d = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -108,11 +248,12 @@ __device__ __forceinline__ void stage_rows(T* dst, int nrows, SrcOf src_of) {
 }
 
 __device__ __forceinline__ void stage_wait() {
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
+  cp_commit();
+  cp_wait<0>();
   __syncthreads();
 }
 
+// (stage_rows, stage_wait and fold_tile serve the f32 prefill kernel.)
 // One warp folds a tile of 32 keys (row j of ks/vs is the key of lane j)
 // into the online softmax state of R query rows.  valid[i] says whether
 // THIS lane's key is visible to row i.  q rows are pre-scaled f32, split
@@ -173,88 +314,235 @@ __device__ __forceinline__ void fold_tile(float (&qr)[R][HD / 32],
   }
 }
 
+// 16 bytes of a row (one vector) as floats
+__device__ __forceinline__ void load_f(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void load_f(const __nv_bfloat16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+// Lanes that share one key in the decode split pass: enough that a lane
+// holds at most 64 f32 of q (G heads x hd/LPK) and 64 of acc, at least 4.
+template <int G, int HD>
+__host__ __device__ constexpr int lanes_per_key() {
+  return G * HD / 64 < 4 ? 4 : (G * HD / 64 > 32 ? 32 : G * HD / 64);
+}
+
+// Dynamic shared memory of the split pass: the K/V ring (reused by the
+// final merge of the warps), then the split's page ids.
+template <typename T, int HD, int G>
+struct DecodeSmem {
+  static constexpr size_t ring = (size_t)STAGES * 2 * DTILE * HD * sizeof(T);
+  static constexpr size_t merge = (2 * NWARPS * G + (size_t)NWARPS * G * HD) * sizeof(float);
+  static constexpr size_t pids = ring > merge ? ring : merge;  // byte offset of the page ids
+  static size_t bytes(int split_keys, int page) {
+    return pids + (size_t)(split_keys / page + 2) * sizeof(int);
+  }
+};
+
 // ---------------------------------------------------------------------------
-// decode: grid (n_kv, B), NTHREADS threads; dynamic shared memory holds one
-// tile of NWARPS*32 keys for K and V (reused for the final warp merge).
+// decode, split pass: grid (n_kv, B, n_split), NTHREADS threads.  Writes
+// each (row, head, split)'s f32 (m, l) to part_ml [B, H, n_split, 2] and
+// its unnormalised acc to part_acc [B, H, n_split, HD]; m is in log2 units.
 // ---------------------------------------------------------------------------
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(NTHREADS)
-pa_decode_kernel(const T* __restrict__ q,        // [B, H, HD]
-                 const T* __restrict__ k_pages,  // [P, page, n_kv, HD]
-                 const T* __restrict__ v_pages,
-                 const int* __restrict__ table,  // [B, maxp]
-                 const int* __restrict__ seq_lens,  // [B]
-                 const float* __restrict__ sink,    // [H] or nullptr
-                 T* __restrict__ out,               // [B, H, HD]
-                 int maxp, int page, int n_kv, int window, float scale) {
-  constexpr int EPL = HD / 32;
-  constexpr int TILE = KEYS * NWARPS;
+pa_decode_split_kernel(const T* __restrict__ q,        // [B, H, HD]
+                       const T* __restrict__ k_pages,  // [P, page, n_kv, HD]
+                       const T* __restrict__ v_pages,
+                       const int* __restrict__ table,     // [B, maxp]
+                       const int* __restrict__ seq_lens,  // [B]
+                       float* __restrict__ part_ml,
+                       float* __restrict__ part_acc,
+                       int maxp, int page, int n_kv, int window,
+                       int split_keys, float scale_log2) {
+  constexpr int LPK = lanes_per_key<G, HD>();
+  constexpr int EPL = HD / LPK;                  // elements of a row per lane
+  constexpr int VEC = 16 / (int)sizeof(T);       // elements per 16-byte vector
+  constexpr int NV = EPL / VEC;                  // vectors per lane
+  constexpr int NG = NWARPS * 32 / LPK;          // key groups per block
+  constexpr int KPG = DTILE / NG;                // keys per group per tile
+  constexpr int VPR = HD / VEC;                  // vectors per key row
+  constexpr int TILE = DTILE * HD;               // elements of one K (or V) tile
+  static_assert(NV >= 1 && KPG >= 1, "decode lane layout");
+
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + (size_t)TILE * HD;
+  T* ring = reinterpret_cast<T*>(smem);  // [STAGES][K, V][DTILE][HD]
+  int* pids = reinterpret_cast<int*>(smem + DecodeSmem<T, HD, G>::pids);
 
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int H = n_kv * G;
+  const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int n_split = gridDim.z, H = n_kv * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int seq_len = seq_lens[b];
-  const int start = window > 0 ? max(seq_len - window, 0) : 0;
-  const int* trow = table + (size_t)b * maxp;
-  const size_t tok_stride = (size_t)n_kv * HD;
+  const int lo = split * split_keys;
+  const int hi = min(lo + split_keys, seq_len);
+  const int first = max(lo, window > 0 ? seq_len - window : 0);
+  // partials of head kh*G + g sit at base + g * n_split
+  const size_t base = ((size_t)b * H + kh * G) * n_split + split;
+  if (first >= hi) {  // nothing of this row in this split
+    if (tid < G) {
+      part_ml[(base + (size_t)tid * n_split) * 2] = NEG_INF;
+      part_ml[(base + (size_t)tid * n_split) * 2 + 1] = 0.f;
+    }
+    return;
+  }
 
-  float qr[G][EPL], m[G], l[G], acc[G][EPL];
+  // the split's page ids, read once
+  const int p_first = first / page;
+  const int n_pid = (hi - 1) / page - p_first + 1;
+  const int* trow = table + (size_t)b * maxp;
+  for (int i = tid; i < n_pid; i += NTHREADS) pids[i] = trow[min(p_first + i, maxp - 1)];
+  __syncthreads();
+
+  const size_t tok_stride = (size_t)n_kv * HD;
+  const int t_begin = lo + ((first - lo) / DTILE) * DTILE;
+  const int n_tiles = (hi - t_begin + DTILE - 1) / DTILE;
+  auto load_tile = [&](int it) {
+    const int t0 = t_begin + it * DTILE;
+    T* ks = ring + (size_t)(it % STAGES) * 2 * TILE;
+    T* vs = ks + TILE;
+    for (int i = tid; i < DTILE * VPR; i += NTHREADS) {
+      const int r = i / VPR, c = i % VPR;
+      const int t = t0 + r;
+      const bool ok = t >= first && t < hi;
+      size_t off = (size_t)c * VEC;
+      if (ok)
+        off += ((size_t)pids[t / page - p_first] * page + t % page) * tok_stride +
+               (size_t)kh * HD;
+      const size_t dst = (size_t)r * HD + c * VEC;
+      cp_async16(smem_u32(ks + dst), k_pages + off, ok);
+      cp_async16(smem_u32(vs + dst), v_pages + off, ok);
+    }
+  };
+
+  // lane li of key group gi holds elements (v * LPK + li) * VEC + [0, VEC)
+  const int gi = warp * (32 / LPK) + lane / LPK, li = lane % LPK;
+  float qr[G][EPL], acc[G][EPL], m[G], l[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qh = q + ((size_t)b * H + kh * G + g) * HD + lane * EPL;
+    const T* qh = q + ((size_t)b * H + kh * G + g) * HD;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) load_f(qh + (v * LPK + li) * VEC, &qr[g][v * VEC]);
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
-      qr[g][e] = to_f(qh[e]) * scale;
+      qr[g][e] *= scale_log2;
       acc[g][e] = 0.f;
     }
     m[g] = NEG_INF;
     l[g] = 0.f;
   }
 
-  for (int t0 = (start / TILE) * TILE; t0 < seq_len; t0 += TILE) {
-    __syncthreads();  // the previous tile is consumed
-    auto src_of = [&](int r, const T* pool) -> const T* {
-      const int t = t0 + r;
-      if (t >= seq_len || t < start) return nullptr;
-      const int pidx = min(t / page, maxp - 1);
-      const size_t slot = (size_t)trow[pidx] * page + (t % page);
-      return pool + slot * tok_stride + (size_t)kh * HD;
-    };
-    stage_rows<T, HD>(ks, TILE, [&](int r) { return src_of(r, k_pages); });
-    stage_rows<T, HD>(vs, TILE, [&](int r) { return src_of(r, v_pages); });
-    stage_wait();
-    const int tw = t0 + warp * KEYS;
-    if (tw < seq_len && tw + KEYS > start) {  // warp-uniform
-      const int t = tw + lane;
-      const bool ok = t < seq_len && t >= start;
-      bool valid[G];
+  load_tile(0);
+  cp_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_tile(it + 1);  // next tile in flight while this one is scored
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const T* ks = ring + (size_t)(it % STAGES) * 2 * TILE;
+    const T* vs = ks + TILE;
+    const int t0 = t_begin + it * DTILE;
+
+    float s[G][KPG];
 #pragma unroll
-      for (int g = 0; g < G; ++g) valid[g] = ok;
-      fold_tile<T, HD, G>(qr, ks + (size_t)warp * KEYS * HD,
-                          vs + (size_t)warp * KEYS * HD, valid, m, l, acc);
+    for (int r = 0; r < KPG; ++r) {
+      const int j = gi + NG * r;
+      const int t = t0 + j;
+      const bool ok = t >= first && t < hi;
+      float kf[EPL];
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        load_f(ks + (size_t)j * HD + (v * LPK + li) * VEC, &kf[v * VEC]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) d = fmaf(qr[g][e], kf[e], d);
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1) d += __shfl_xor_sync(FULL, d, o);
+        s[g][r] = ok ? d : NEG_INF;
+      }
     }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mt = s[g][0];
+#pragma unroll
+      for (int r = 1; r < KPG; ++r) mt = fmaxf(mt, s[g][r]);
+      const float m_new = fmaxf(m[g], mt);
+      const float m_use = m_new > 0.5f * NEG_INF ? m_new : 0.f;
+      const float corr = exp2f(m[g] - m_use);
+      float ps = 0.f;
+#pragma unroll
+      for (int r = 0; r < KPG; ++r) {
+        s[g][r] = exp2f(s[g][r] - m_use);  // masked keys: exp2(-1e30) = 0
+        ps += s[g][r];
+      }
+      l[g] = l[g] * corr + ps;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] *= corr;
+      m[g] = m_new;
+    }
+#pragma unroll
+    for (int r = 0; r < KPG; ++r) {
+      const int j = gi + NG * r;
+      float vf[EPL];
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        load_f(vs + (size_t)j * HD + (v * LPK + li) * VEC, &vf[v * VEC]);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(s[g][r], vf[e], acc[g][e]);
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's load
   }
 
-  // merge the warps' partial softmax states
-  __syncthreads();
+  // merge the key groups of a warp (lanes li, li + LPK, ...) ...
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) {
+      const float mo = __shfl_xor_sync(FULL, m[g], o);
+      const float lo_ = __shfl_xor_sync(FULL, l[g], o);
+      const float M = fmaxf(m[g], mo);
+      const float Mu = M > 0.5f * NEG_INF ? M : 0.f;
+      const float f1 = exp2f(m[g] - Mu), f2 = exp2f(mo - Mu);
+      l[g] = l[g] * f1 + lo_ * f2;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        acc[g][e] = acc[g][e] * f1 + __shfl_xor_sync(FULL, acc[g][e], o) * f2;
+      m[g] = M;
+    }
+  }
+  // ... then the warps, through shared memory (the ring is free now)
   float* cm = reinterpret_cast<float*>(smem);  // [NWARPS][G]
   float* cl = cm + NWARPS * G;                  // [NWARPS][G]
   float* ca = cl + NWARPS * G;                  // [NWARPS][G][HD]
+  if (lane < LPK) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      cm[warp * G + g] = m[g];
-      cl[warp * G + g] = l[g];
+    for (int g = 0; g < G; ++g) {
+      if (li == 0) {
+        cm[warp * G + g] = m[g];
+        cl[warp * G + g] = l[g];
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          ca[(warp * G + g) * HD + (v * LPK + li) * VEC + e] = acc[g][v * VEC + e];
     }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      ca[((size_t)warp * G + g) * HD + lane * EPL + e] = acc[g][e];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
+  for (int i = tid; i < G * HD; i += NTHREADS) {
     const int g = i / HD, d = i % HD;
     float M = NEG_INF;
 #pragma unroll
@@ -262,18 +550,50 @@ pa_decode_kernel(const T* __restrict__ q,        // [B, H, HD]
     float L = 0.f, A = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
-      const float f = expf(cm[w * G + g] - M);
+      const float f = exp2f(cm[w * G + g] - M);
       L += cl[w * G + g] * f;
-      A += ca[((size_t)w * G + g) * HD + d] * f;
+      A += ca[(w * G + g) * HD + d] * f;
     }
-    if (sink != nullptr) L += expf(sink[kh * G + g] - M);
-    out[((size_t)b * H + kh * G + g) * HD + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+    const size_t pi = base + (size_t)g * n_split;
+    part_acc[pi * HD + d] = A;
+    if (d == 0) {
+      part_ml[pi * 2] = M;
+      part_ml[pi * 2 + 1] = L;
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// prefill: grid (ceil(S / BQ), H, B), NTHREADS threads; each warp owns RPW
-// query rows; dynamic shared memory holds one 32-key K tile and V tile.
+// decode, merge pass: grid (H, B), HD threads; one block per (row, head).
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+pa_decode_merge_kernel(const float* __restrict__ part_ml,
+                       const float* __restrict__ part_acc,
+                       const float* __restrict__ sink,  // [H] or nullptr
+                       T* __restrict__ out,              // [B, H, HD]
+                       int n_split) {
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, d = threadIdx.x;
+  const size_t base = ((size_t)b * H + h) * n_split;
+  float M = NEG_INF;
+  for (int s = 0; s < n_split; ++s) M = fmaxf(M, part_ml[(base + s) * 2]);
+  float L = 0.f, A = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float ms = part_ml[(base + s) * 2];
+    if (ms > 0.5f * NEG_INF) {  // empty splits wrote no acc
+      const float f = exp2f(ms - M);
+      L += part_ml[(base + s) * 2 + 1] * f;
+      A += part_acc[(base + s) * HD + d] * f;
+    }
+  }
+  if (sink != nullptr) L += exp2f(sink[h] * LOG2E - M);  // inf for an empty row: 0 out
+  out[((size_t)b * H + h) * HD + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+}
+
+// ---------------------------------------------------------------------------
+// f32 prefill on CUDA cores: grid (ceil(S / BQ), H, B), NTHREADS threads;
+// each warp owns RPW query rows; dynamic shared memory holds one 32-key K
+// tile and V tile.
 // ---------------------------------------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS)
@@ -375,36 +695,299 @@ pa_prefill_kernel(const T* __restrict__ q,      // [B, S, H, HD]
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 prefill on the tensor cores: grid (ceil(S / (MROWS / G)), n_kv, B),
+// NTHREADS threads (one warpgroup).  Tile row r is query position
+// q0 + r / G of head kh * G + r % G, so the tile's rows are one contiguous
+// run of q (and of the output).  Warp w holds rows 16w..16w+15 of every
+// accumulator.  Dynamic shared memory: the Q tile, then the K/V ring, in
+// the swizzled atoms of tile_off.
+// ---------------------------------------------------------------------------
+template <int HD, int G>
+__global__ void __launch_bounds__(NTHREADS)
+pa_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, H, HD]
+                      const __nv_bfloat16* __restrict__ k_new,  // [B, S, n_kv, HD]
+                      const __nv_bfloat16* __restrict__ v_new,
+                      const __nv_bfloat16* __restrict__ k_pages,  // [P, page, n_kv, HD]
+                      const __nv_bfloat16* __restrict__ v_pages,
+                      const int* __restrict__ table,        // [B, maxp]
+                      const int* __restrict__ prefix_lens,  // [B]
+                      const int* __restrict__ chunk_lens,   // [B]
+                      const float* __restrict__ sink,       // [H] or nullptr
+                      __nv_bfloat16* __restrict__ out,      // [B, S, H, HD]
+                      int S, int n_kv, int maxp, int page, int page_shift,
+                      int window, float scale_log2) {
+  constexpr int R = MROWS / G;      // query positions per block
+  constexpr int CPR = HD / 8;       // 16-byte chunks per row
+  constexpr int NT_S = NKEYS / 8;   // score n-tiles (8 keys each)
+  constexpr int NT_O = HD / 8;      // output n-tiles (8 dims each)
+  constexpr int KS_Q = HD / 16;     // k-steps of Q.K^T over the head dim
+  constexpr int TILE_BYTES = NKEYS * HD * 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // 1024-byte aligned (the wgmma swizzle atoms): the Q tile, the K/V ring
+  // [PSTAGES][K, V][NKEYS rows], then the block's prefix page ids
+  const uint32_t pad = ((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t qs = smem_u32(smem);
+  const uint32_t ring = qs + MROWS * HD * 2;
+
+  const int q0 = blockIdx.x * R, kh = blockIdx.y, b = blockIdx.z;
+  const int H = n_kv * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pre = prefix_lens[b], cl = chunk_lens[b];
+  const int q_rows = min(R, S - q0);  // positions of this tile inside S
+  __nv_bfloat16* o_base = out + (((size_t)b * S + q0) * H + kh * G) * HD;
+
+  if (q0 >= cl) {  // block-uniform: rows at or past chunk_len are zeros
+    for (int i = tid; i < q_rows * G * CPR; i += NTHREADS) {
+      const int p = i / (G * CPR), c = i % (G * CPR);
+      *reinterpret_cast<uint4*>(o_base + (size_t)p * H * HD + c * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+
+  // the Q tile (rows past S zero-filled)
+  for (int i = tid; i < MROWS * CPR; i += NTHREADS) {
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r / G < q_rows;
+    const size_t off = ok ? ((size_t)(r / G) * H + r % G) * HD + c * 8 : 0;
+    cp_async16(qs + tile_off(r, c), q + (((size_t)b * S + q0) * H + kh * G) * HD + off, ok);
+  }
+
+  // key space u: prefix position u < pre, else chunk position u - pre.
+  // Keys past the block's last valid row are causally invisible to every
+  // valid row of the block, so the loop ends there.
+  const int u_end = pre + min(q0 + R, cl);
+  const int u_start = window > 0 ? max(0, pre + q0 - window + 1) : 0;
+  const int u_first = (u_start / NKEYS) * NKEYS;
+  const int n_tiles = (u_end - u_first + NKEYS - 1) / NKEYS;
+  // the page ids of the prefix keys this block reads, once
+  int* spid = reinterpret_cast<int*>(smem + MROWS * HD * 2 + PSTAGES * 2 * TILE_BYTES);
+  const int* trow = table + (size_t)b * maxp;
+  const int pg0 = u_first / page;
+  const int pre_hi = min(u_end, pre);
+  const int n_pg = pre_hi > u_first ? min((pre_hi - 1) / page - pg0 + 1, maxp) : 0;
+  for (int i = tid; i < n_pg; i += NTHREADS) spid[i] = trow[min(pg0 + i, maxp - 1)];
+  __syncthreads();
+
+  // thread tid copies chunk lc of rows lr, lr + RSTEP, ... of each tile;
+  // RSTEP is a multiple of 8, so the swizzle of its rows is one constant
+  constexpr int RSTEP = NTHREADS / CPR;
+  constexpr int RPT = NKEYS / RSTEP;
+  const int lr = tid / CPR, lc = tid % CPR;
+  const uint32_t dst0 = tile_off(lr, lc);
+  const size_t tok_stride = (size_t)n_kv * HD;
+  const size_t col = (size_t)kh * HD + lc * 8;
+  const __nv_bfloat16* kn_b = k_new + (size_t)b * S * tok_stride + col;
+  const __nv_bfloat16* vn_b = v_new + (size_t)b * S * tok_stride + col;
+  // K and V of tile `it` into its stage of the ring (one address per key
+  // for both)
+  auto load_tile = [&](int it) {
+    if (it >= n_tiles) return;
+    const int u0 = u_first + it * NKEYS;
+    const uint32_t ks = ring + (it % PSTAGES) * 2 * TILE_BYTES + dst0, vs = ks + TILE_BYTES;
+    if (u0 >= pre && u0 + NKEYS <= u_end) {  // a whole tile of the chunk
+      const size_t off = (size_t)(u0 - pre + lr) * tok_stride;
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const size_t o = off + (size_t)k * RSTEP * tok_stride;
+        cp_async16(ks + k * RSTEP * 128, kn_b + o, true);
+        cp_async16(vs + k * RSTEP * 128, vn_b + o, true);
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int u = u0 + lr + k * RSTEP;
+      const bool ok = u < u_end;  // else zero-filled (and masked)
+      const __nv_bfloat16 *ksrc = k_new, *vsrc = v_new;
+      if (ok && u < pre) {
+        const int pidx = page_shift >= 0 ? u >> page_shift : u / page;
+        const size_t slot = (size_t)spid[min(pidx - pg0, n_pg - 1)] * page + (u - pidx * page);
+        ksrc = k_pages + slot * tok_stride + col;
+        vsrc = v_pages + slot * tok_stride + col;
+      } else if (ok) {
+        ksrc = kn_b + (size_t)(u - pre) * tok_stride;
+        vsrc = vn_b + (size_t)(u - pre) * tok_stride;
+      }
+      cp_async16(ks + k * RSTEP * 128, ksrc, ok);
+      cp_async16(vs + k * RSTEP * 128, vsrc, ok);
+    }
+  };
+
+  const int g8 = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
+  const int row0 = warp * 16 + g8;           // this thread's rows: row0, row0 + 8
+  const int qpos[2] = {pre + q0 + row0 / G, pre + q0 + (row0 + 8) / G};
+
+  // Accumulators in the wgmma layout (that of mma.sync's m16n8 tiles):
+  // s[j] / o[j] hold rows row0 and row0 + 8 of keys / dims 8j + 2*t4 + {0, 1}.
+  float s[NT_S][4], o[NT_O][4];
+  uint32_t pa[NKEYS / 16][4];  // P of the tile, bf16 A fragments of P.V
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // m: running row max of the unscaled scores; mu: the max in use, scaled
+  // to log2 units (0 while the row has seen no visible key)
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, mu[2] = {0.f, 0.f};
+
+  // S = Q.K^T of tile `it` into s (asynchronous: committed, not waited)
+  auto issue_s = [&](int it) {
+    const uint32_t ks = ring + (it % PSTAGES) * 2 * TILE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < KS_Q; ++kk) {  // 16 dims a step, 4 steps per atom
+      const uint32_t off = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wg_ss_n64(s, gdesc(qs + off, 16, 1024), gdesc(ks + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+  };
+  // O += P.V of tile `it` with pa (asynchronous: committed, not waited)
+  auto issue_pv = [&](int it) {
+    const uint32_t vs = ring + (it % PSTAGES) * 2 * TILE_BYTES + TILE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < NKEYS / 16; ++kk)  // 16 keys (2048 bytes of V) a step
+      wg_pv<HD>(o, pa[kk], gdesc(vs + kk * 16 * 128, V_LBO, V_SBO));
+    wg_commit();
+  };
+  // the online softmax of tile `it`'s scores in s: s becomes P (f32), l
+  // and the row maxima move, and corr holds O's rescale.  Only tiles that
+  // cross the diagonal of the block's first row, or lie under a window,
+  // are masked; scores stay unscaled until the exponential.
+  float corr[2];
+  auto softmax = [&](int it) {
+    const int u0 = u_first + it * NKEYS;
+    const bool need_mask = window > 0 || u0 + NKEYS - 1 > pre + q0;
+    float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (need_mask) {
+          const int u = u0 + 8 * j + 2 * t4 + (e & 1), qp = qpos[e >> 1];
+          if (u > qp || (window > 0 && u <= qp - window)) s[j][e] = NEG_INF;
+        }
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the 4 threads of a quad share a row
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(FULL, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(FULL, mt[h], 2));
+      const float m_new = fmaxf(m[h], mt[h]);
+      const float m_use = m_new > 0.5f * NEG_INF ? m_new : 0.f;
+      corr[h] = fast_exp2((m[h] - m_use) * scale_log2);  // 1 unless the max moved
+      mu[h] = m_use * scale_log2;
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked: exp2(-1e30 * scale) = 0
+        s[j][e] = fast_exp2(fmaf(s[j][e], scale_log2, -mu[e >> 1]));
+        l[e >> 1] += s[j][e];
+      }
+    }
+  };
+  // O *= corr, then P (f32 in s) -> pa (bf16 A fragments of P.V)
+  auto rescale_and_pack = [&]() {
+    if (__any_sync(FULL, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NT_O; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < NKEYS / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+  };
+  // Per tile: the copy of the next tile is issued into the other stage,
+  // then S = Q.K^T, the softmax, and O += P.V of this one.  (Overlapping
+  // the softmax with the next products, FA3-style, made ptxas serialize
+  // the wgmmas and ran slower; it is later work.)
+  load_tile(0);  // with the Q tile, group 0
+  cp_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    load_tile(it + 1);  // its stage was freed by the last iteration's barrier
+    cp_commit();
+    cp_wait<1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async data -> wgmma
+    __syncthreads();
+    fence_acc(s);
+    wg_fence();
+    issue_s(it);
+    wg_wait0();
+    fence_acc(s);
+    softmax(it);
+    rescale_and_pack();
+    fence_acc(o);
+    fence_frag(pa);
+    wg_fence();
+    issue_pv(it);
+    wg_wait0();
+    fence_acc(o);
+    fence_frag(pa);
+    __syncthreads();  // this stage is refilled by the next iteration's copy
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+    const int r = row0 + 8 * h, p = r / G, gh = r % G;
+    if (p >= q_rows) continue;
+    const float L = l[h] + (sink != nullptr ? fast_exp2(sink[kh * G + gh] * LOG2E - mu[h]) : 0.f);
+    const float inv = q0 + p < cl ? 1.f / fmaxf(L, 1e-30f) : 0.f;
+    __nv_bfloat16* orow = o_base + ((size_t)p * H + gh) * HD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+          pack_bf16(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+  }
+}
+
 template <typename T, int HD, int G>
 int launch_decode(const void* q, const void* kp, const void* vp,
                   const void* table, const void* seq_lens, const void* sink,
-                  void* out, int B, int n_kv, int maxp, int page, int window,
+                  void* out, float* part_ml, float* part_acc, int B, int n_kv,
+                  int maxp, int page, int window, int n_split, int split_keys,
                   float scale, cudaStream_t stream) {
-  const size_t tile = 2 * (size_t)KEYS * NWARPS * HD * sizeof(T);
-  const size_t merge = (2 * NWARPS * G + (size_t)NWARPS * G * HD) * sizeof(float);
-  const size_t bytes = tile > merge ? tile : merge;
-  auto kern = pa_decode_kernel<T, HD, G>;
+  const size_t bytes = DecodeSmem<T, HD, G>::bytes(split_keys, page);
+  auto split = pa_decode_split_kernel<T, HD, G>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(n_kv, B), NTHREADS, bytes, stream>>>(
+  split<<<dim3(n_kv, B, n_split), NTHREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(seq_lens), static_cast<const float*>(sink),
-      static_cast<T*>(out), maxp, page, n_kv, window, scale);
+      static_cast<const int*>(seq_lens), part_ml, part_acc, maxp, page, n_kv,
+      window, split_keys, scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pa_decode_merge_kernel<T, HD><<<dim3(n_kv * G, B), HD, 0, stream>>>(
+      part_ml, part_acc, static_cast<const float*>(sink), static_cast<T*>(out),
+      n_split);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int decode_by_groups(int G, const void* q, const void* kp, const void* vp,
                      const void* table, const void* seq_lens, const void* sink,
-                     void* out, int B, int n_kv, int maxp, int page, int window,
-                     float scale, cudaStream_t s) {
+                     void* out, float* ml, float* acc, int B, int n_kv,
+                     int maxp, int page, int window, int n_split,
+                     int split_keys, float scale, cudaStream_t s) {
   switch (G) {
-    case 1: return launch_decode<T, HD, 1>(q, kp, vp, table, seq_lens, sink, out, B, n_kv, maxp, page, window, scale, s);
-    case 2: return launch_decode<T, HD, 2>(q, kp, vp, table, seq_lens, sink, out, B, n_kv, maxp, page, window, scale, s);
-    case 4: return launch_decode<T, HD, 4>(q, kp, vp, table, seq_lens, sink, out, B, n_kv, maxp, page, window, scale, s);
-    case 8: return launch_decode<T, HD, 8>(q, kp, vp, table, seq_lens, sink, out, B, n_kv, maxp, page, window, scale, s);
+    case 1: return launch_decode<T, HD, 1>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
+    case 2: return launch_decode<T, HD, 2>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
+    case 4: return launch_decode<T, HD, 4>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
+    case 8: return launch_decode<T, HD, 8>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -430,29 +1013,78 @@ int launch_prefill(const void* q, const void* kn, const void* vn,
   return (int)cudaGetLastError();
 }
 
+template <int HD, int G>
+int launch_prefill_wgmma(const void* q, const void* kn, const void* vn,
+                       const void* kp, const void* vp, const void* table,
+                       const void* prefix, const void* chunk, const void* sink,
+                       void* out, int B, int S, int n_kv, int maxp, int page,
+                       int window, float scale, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr int R = MROWS / G;
+  const size_t bytes = 1024 + (size_t)MROWS * HD * 2 +
+                       (size_t)PSTAGES * 2 * NKEYS * HD * 2 + (size_t)maxp * sizeof(int);
+  int page_shift = -1;  // log2(page) when page is a power of two
+  for (int p = 0; p < 31; ++p)
+    if ((1 << p) == page) page_shift = p;
+  auto kern = pa_prefill_wgmma_kernel<HD, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((S + R - 1) / R, n_kv, B), NTHREADS, bytes, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(kn),
+      static_cast<const bf*>(vn), static_cast<const bf*>(kp),
+      static_cast<const bf*>(vp), static_cast<const int*>(table),
+      static_cast<const int*>(prefix), static_cast<const int*>(chunk),
+      static_cast<const float*>(sink), static_cast<bf*>(out), S, n_kv, maxp,
+      page, page_shift, window, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int prefill_wgmma_by_groups(int G, const void* q, const void* kn, const void* vn,
+                          const void* kp, const void* vp, const void* table,
+                          const void* prefix, const void* chunk,
+                          const void* sink, void* out, int B, int S, int n_kv,
+                          int maxp, int page, int window, float scale,
+                          cudaStream_t s) {
+  switch (G) {
+    case 1: return launch_prefill_wgmma<HD, 1>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
+    case 2: return launch_prefill_wgmma<HD, 2>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
+    case 4: return launch_prefill_wgmma<HD, 4>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
+    case 8: return launch_prefill_wgmma<HD, 8>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Pointers are device pointers; sink
-// may be null.  Returns a cudaError_t (0 = launched).
+// may be null.  part_ml [B, H, n_split, 2] and part_acc [B, H, n_split, hd]
+// are f32 scratch; splits cover split_keys keys each.  Launches the split
+// pass, then the merge pass.  Returns a cudaError_t (0 = launched).
 extern "C" int pa_decode(const void* q, const void* k_pages,
                          const void* v_pages, const void* table,
                          const void* seq_lens, const void* sink, void* out,
-                         int B, int H, int n_kv, int hd, int maxp, int page,
-                         int window, int dtype, float scale, void* stream) {
+                         void* part_ml, void* part_acc, int B, int H, int n_kv,
+                         int hd, int maxp, int page, int window, int n_split,
+                         int split_keys, int dtype, float scale, void* stream) {
   if (B == 0) return 0;
   const int G = H / n_kv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
   if (dtype == 1 && hd == 128)
-    return decode_by_groups<__nv_bfloat16, 128>(G, q, k_pages, v_pages, table, seq_lens, sink, out, B, n_kv, maxp, page, window, scale, s);
+    return decode_by_groups<__nv_bfloat16, 128>(G, q, k_pages, v_pages, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
   if (dtype == 1 && hd == 64)
-    return decode_by_groups<__nv_bfloat16, 64>(G, q, k_pages, v_pages, table, seq_lens, sink, out, B, n_kv, maxp, page, window, scale, s);
+    return decode_by_groups<__nv_bfloat16, 64>(G, q, k_pages, v_pages, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
   if (dtype == 0 && hd == 128)
-    return decode_by_groups<float, 128>(G, q, k_pages, v_pages, table, seq_lens, sink, out, B, n_kv, maxp, page, window, scale, s);
+    return decode_by_groups<float, 128>(G, q, k_pages, v_pages, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
   if (dtype == 0 && hd == 64)
-    return decode_by_groups<float, 64>(G, q, k_pages, v_pages, table, seq_lens, sink, out, B, n_kv, maxp, page, window, scale, s);
+    return decode_by_groups<float, 64>(G, q, k_pages, v_pages, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16 goes to the tensor-core kernel, f32 to the CUDA-core one.
 extern "C" int pa_prefill(const void* q, const void* k_new, const void* v_new,
                           const void* k_pages, const void* v_pages,
                           const void* table, const void* prefix_lens,
@@ -461,11 +1093,12 @@ extern "C" int pa_prefill(const void* q, const void* k_new, const void* v_new,
                           int page, int window, int dtype, float scale,
                           void* stream) {
   if (B == 0 || S == 0) return 0;
+  const int G = H / n_kv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && hd == 128)
-    return launch_prefill<__nv_bfloat16, 128>(q, k_new, v_new, k_pages, v_pages, table, prefix_lens, chunk_lens, sink, out, B, S, H, n_kv, maxp, page, window, scale, s);
+    return prefill_wgmma_by_groups<128>(G, q, k_new, v_new, k_pages, v_pages, table, prefix_lens, chunk_lens, sink, out, B, S, n_kv, maxp, page, window, scale, s);
   if (dtype == 1 && hd == 64)
-    return launch_prefill<__nv_bfloat16, 64>(q, k_new, v_new, k_pages, v_pages, table, prefix_lens, chunk_lens, sink, out, B, S, H, n_kv, maxp, page, window, scale, s);
+    return prefill_wgmma_by_groups<64>(G, q, k_new, v_new, k_pages, v_pages, table, prefix_lens, chunk_lens, sink, out, B, S, n_kv, maxp, page, window, scale, s);
   if (dtype == 0 && hd == 128)
     return launch_prefill<float, 128>(q, k_new, v_new, k_pages, v_pages, table, prefix_lens, chunk_lens, sink, out, B, S, H, n_kv, maxp, page, window, scale, s);
   if (dtype == 0 && hd == 64)

@@ -1,0 +1,98 @@
+"""Mutation check of the attention kernels against `chip_smoke.py` phase 3.
+
+Each mutant is a copy of the checkout, in a temporary directory, whose
+`csrc/paged_attention.cu` carries one planted fault.  Every copy builds
+its own kernels (in parallel), then runs phase 3 alone; phase 3 must fail
+with "kernel disagrees".  Needs a CUDA card:
+
+    python3 -m dynamo_tpu_torch.mutants            # every mutant
+    python3 -m dynamo_tpu_torch.mutants NAME ...   # some of them
+
+Prints one JSON line per mutant (caught or not, and each case's error
+relative to its tolerance), then exits 1 if any mutant went unseen.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join("dynamo_tpu_torch", "csrc", "paged_attention.cu")
+
+# name -> (text of the source, its faulty replacement); each text occurs once
+MUTANTS = {
+    "merge ignores the split maxima": (
+        "      const float f = exp2f(ms - M);\n",
+        "      const float f = 1.f;\n"),
+    "merge drops the last split": (
+        "  for (int s = 0; s < n_split; ++s) {\n    const float ms",
+        "  for (int s = 0; s < n_split - 1; ++s) {\n    const float ms"),
+    "prefill reads the wrong kv head": (
+        "  const size_t col = (size_t)kh * HD + lc * 8;",
+        "  const size_t col = (size_t)((kh + 1) % n_kv) * HD + lc * 8;"),
+    "prefill leaves the diagonal tile unmasked": (
+        "const bool need_mask = window > 0 || u0 + NKEYS - 1 > pre + q0;",
+        "const bool need_mask = window > 0;"),
+}
+
+_BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
+_PHASE3 = "import chip_smoke; chip_smoke.phase_kernels()"
+
+
+def _copy(name: str) -> str:
+    old, new = MUTANTS[name]
+    tmp = tempfile.mkdtemp(prefix="pa_mutant_")
+    shutil.copytree(os.path.join(ROOT, "dynamo_tpu_torch"),
+                    os.path.join(tmp, "dynamo_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp)
+    path = os.path.join(tmp, SOURCE)
+    with open(path) as f:
+        src = f.read()
+    if src.count(old) != 1:
+        raise RuntimeError(f"mutant {name!r}: its text occurs {src.count(old)} times")
+    with open(path, "w") as f:
+        f.write(src.replace(old, new))
+    return tmp
+
+
+def _py(code: str, cwd: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                          capture_output=True, text=True, timeout=900)
+
+
+def main(argv=None) -> int:
+    names = (argv if argv is not None else sys.argv[1:]) or list(MUTANTS)
+    dirs = {n: _copy(n) for n in names}
+    try:
+        with ThreadPoolExecutor(max_workers=len(names)) as ex:
+            builds = dict(zip(names, ex.map(lambda n: _py(_BUILD, dirs[n]), names)))
+        missed = 0
+        for n in names:
+            if builds[n].returncode != 0:
+                raise RuntimeError(f"mutant {n!r} did not build:\n{builds[n].stderr[-3000:]}")
+            proc = _py(_PHASE3, dirs[n])  # one at a time: phase 3 times kernels
+            cases = [json.loads(ln) for ln in proc.stdout.splitlines()
+                     if ln.startswith('{"phase": "kernel_check"')]
+            caught = proc.returncode != 0 and "kernel disagrees" in proc.stderr
+            missed += not caught
+            print(json.dumps({
+                "mutant": n, "caught": caught,
+                "rel_err_over_tol": {c["case"]: c["max_rel_err"] / c["rtol"]
+                                     for c in cases},
+                "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
+            }), flush=True)
+        return 1 if missed else 0
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,8 +20,19 @@ import torch
 from . import _build
 
 # launches per kernel; chip_smoke zeroes these before driving the serving
-# path and reads them after it
-LAUNCHES = {"decode_attention": 0, "prefill_attention": 0}
+# path and reads them after it.  "decode_attention" counts calls of the
+# public function (each a split pass, then a merge pass), "decode_merge"
+# the merge launches.
+LAUNCHES = {"decode_attention": 0, "decode_merge": 0, "prefill_attention": 0}
+
+# The split-KV decode grid is (n_kv, B, n_split).  A split is a fixed run
+# of DECODE_SPLIT_KEYS keys (whole pages), never sized from the table
+# width: the width is the longest row of the batch, so a row's splits --
+# and the f32 sums of its output -- would change with its batch-mates,
+# and greedy tokens with them.  256 keys give 16 splits (512 blocks) at
+# the phase-3 ragged shape and 9 (576 blocks) at the serving shape, at
+# least twice the H100's 132 SMs.
+DECODE_SPLIT_KEYS = 256
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -31,7 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGS = {
-    "pa_decode": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "pa_decode": [_P] * 9 + [_I] * 10 + [_F, _P],
     "pa_prefill": [_P] * 10 + [_I] * 9 + [_F, _P],
 }
 
@@ -90,6 +101,19 @@ def _common(q, k_pages, v_pages, page_table, sink, H):
     return page, n_kv, hd
 
 
+def decode_split_pages(page: int) -> int:
+    """Pages of a row each decode split covers: a constant of the page
+    size."""
+    return max(1, DECODE_SPLIT_KEYS // page)
+
+
+def decode_num_splits(max_pages: int, page: int) -> int:
+    """Splits of each row's keys in the decode kernel, from shapes alone
+    (the table width, never seq_lens: reading those would sync the
+    host)."""
+    return -(-max_pages // decode_split_pages(page))
+
+
 def _win(window: Optional[int]) -> int:
     return 0 if window is None else int(window)
 
@@ -108,28 +132,38 @@ def decode_attention_cuda(
     window: Optional[int] = None,
     sink: Optional[torch.Tensor] = None,  # [H] f32
 ) -> torch.Tensor:
-    """Paged flash-decode on the card. Returns [B, H, hd]."""
+    """Paged flash-decode on the card: the split-KV pass over runs of
+    `decode_split_pages` pages of each row, then the merge pass.
+    Returns [B, H, hd]."""
     if q.dim() != 3:
         raise ValueError(f"q must be [B, H, hd], got {tuple(q.shape)}")
     B, H, hd_q = q.shape
-    _check("q", q, q.dtype, 3, q.device)
+    _check("q", q, q.dtype, 3, q.device, align=16)
     page, n_kv, hd = _common(q, k_pages, v_pages, page_table, sink, H)
     if hd_q != hd or page_table.shape[0] != B:
         raise ValueError("q / page_table shapes disagree with the pool")
     _check("seq_lens", seq_lens, torch.int32, 1, q.device)
     if seq_lens.shape[0] != B:
         raise ValueError("seq_lens must have one entry per row")
+    maxp = page_table.shape[1]
+    n_split = decode_num_splits(maxp, page)
     out = torch.empty_like(q)
+    # per-split partial softmax state, written by the split pass and read
+    # by the merge pass
+    part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, H, n_split, hd), dtype=torch.float32, device=q.device)
     err = _fn("pa_decode")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(),
         sink.data_ptr() if sink is not None else None, out.data_ptr(),
-        B, H, n_kv, hd, page_table.shape[1], page, _win(window),
-        _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+        part_ml.data_ptr(), part_acc.data_ptr(),
+        B, H, n_kv, hd, maxp, page, _win(window), n_split,
+        decode_split_pages(page) * page, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "decode attention")
     LAUNCHES["decode_attention"] += 1
+    LAUNCHES["decode_merge"] += 1
     return out
 
 
@@ -145,12 +179,13 @@ def prefill_attention_cuda(
     window: Optional[int] = None,
     sink: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Chunked-prefill flash attention on the card. Returns [B, S, H, hd];
-    rows at or past a row's chunk_len are zeros."""
+    """Chunked-prefill flash attention on the card (bf16 on the tensor
+    cores, f32 on CUDA cores). Returns [B, S, H, hd]; rows at or past a
+    row's chunk_len are zeros."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, S, H, hd], got {tuple(q.shape)}")
     B, S, H, hd_q = q.shape
-    _check("q", q, q.dtype, 4, q.device)
+    _check("q", q, q.dtype, 4, q.device, align=16)
     page, n_kv, hd = _common(q, k_pages, v_pages, page_table, sink, H)
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         _check(name, t, q.dtype, 4, q.device, align=16)

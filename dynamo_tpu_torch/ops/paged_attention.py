@@ -172,6 +172,69 @@ def decode_attention_plain(
     return _mqa_out(w, v)[:, 0].to(q.dtype)
 
 
+def decode_attention_split_plain(
+    q: torch.Tensor,  # [B, H, hd]
+    k_pages: torch.Tensor,  # [P, page, n_kv, hd]
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, max_pages]
+    seq_lens: torch.Tensor,  # [B]
+    window: Optional[int] = None,
+    sink: Optional[torch.Tensor] = None,
+    n_split: int = 1,
+    split_pages: Optional[int] = None,
+) -> torch.Tensor:
+    """`decode_attention_plain` computed as the CUDA split-KV kernel pair
+    computes it: the row's keys are cut into `n_split` runs of
+    `split_pages` pages (by default ceil(max_pages / n_split); the kernel
+    takes a constant, `cuda_attention.decode_split_pages`, and enough
+    splits to cover the table); each split keeps its own f32 (max m,
+    denominator l, accumulator acc) -- m = NEG_INF and l = 0 for a split
+    with no visible key -- and the merge rescales the splits by exp(m - M)
+    against their
+    common maximum M, adds the sink to the denominator only and clamps it
+    to 1e-30.  Returns [B, H, hd]."""
+    B, H, hd = q.shape
+    page = k_pages.shape[1]
+    maxp = page_table.shape[1]
+    if split_pages is None:
+        split_pages = -(-maxp // n_split)
+    sk = split_pages * page
+    k, v = gather_kv(k_pages, v_pages, page_table)
+    L = k.shape[1]
+    pad = n_split * sk - L
+    if pad < 0:
+        raise ValueError(f"{n_split} splits of {split_pages} pages do not "
+                         f"cover a table of {maxp} pages")
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    scores = _mqa_scores(q[:, None], k)[:, :, 0] / math.sqrt(hd)  # [B, H, Lp]
+    pos = torch.arange(n_split * sk, device=q.device)[None, None, :]
+    sl = seq_lens.long()[:, None, None]
+    valid = pos < sl
+    if window is not None and int(window) > 0:
+        valid = valid & (pos >= sl - int(window))
+    valid = valid.expand(B, H, -1)
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    s = scores.reshape(B, H, n_split, sk)
+    ok = valid.reshape(B, H, n_split, sk)
+    m = s.amax(-1)  # [B, H, n_split]; NEG_INF for an empty split
+    p = torch.where(ok, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    n_kv = v.shape[2]
+    vs = v.float().reshape(B, n_split, sk, n_kv, hd)
+    acc = torch.einsum("bkgns,bnskd->bkgnd",
+                       p.reshape(B, n_kv, H // n_kv, n_split, sk), vs)
+    acc = acc.reshape(B, H, n_split, hd)
+    # the merge pass
+    M = m.amax(-1, keepdim=True)
+    w = torch.where(m > 0.5 * NEG_INF, torch.exp(m - M), torch.zeros_like(m))
+    den = (l * w).sum(-1)
+    if sink is not None:
+        den = den + torch.exp(sink.float()[None, :] - M[..., 0])
+    out = (acc * w[..., None]).sum(-2) / den.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
 def prefill_attention(q, k_new, v_new, k_pages, v_pages, page_table,
                       prefix_lens, chunk_lens, window=None, sink=None):
     """Chunk attends to its cached prefix + itself (causal; optionally

@@ -6,10 +6,12 @@ the batch, following the JAX package's `ops/sampling.py` rules:
 - top-k / top-p rows work on a top-``TOP_K_CAP`` slice; top-p mass is
   measured against the FULL softmax and conditioned on the slice.
 
-Seeded rows draw from a counter-based stream keyed by ``(seed, counter)``
-through a fresh `torch.Generator` per row and step, so a row's sample does
-not depend on what it is batched with.  The bits differ from JAX's
-threefry: the two agree in distribution, not token for token.
+Each row draws from its own stream keyed by ``(seed, counter)``, exactly
+as the JAX package does: ``fold_in(PRNGKey(seed), counter)``, ``split``
+into a full-vocab key and a top-K key, and ``gumbel`` under each
+(`threefry.py`, bit-equal to ``jax.random``).  So a row's sample does not
+depend on what it is batched with, and a seeded request gives the JAX
+worker's tokens.  The whole batch is keyed and drawn at once.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import torch
+
+from . import threefry
 
 TOP_K_CAP = 64
 
@@ -49,36 +53,26 @@ class SamplingParams:
         )
 
 
-def _row_generator(seed: int, counter: int, device) -> torch.Generator:
-    """The (seed, counter) stream of one row: a generator seeded from both
-    through a 64-bit mix (splitmix64 finalizer), so neighbouring counters
-    give unrelated streams."""
-    x = ((int(seed) & 0xFFFFFFFF) << 32 | (int(counter) & 0xFFFFFFFF))
-    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 31
-    g = torch.Generator(device=device)
-    g.manual_seed(x & 0x7FFFFFFFFFFFFFFF)
-    return g
-
-
-def _gumbel(n: int, gen: torch.Generator, device) -> torch.Tensor:
-    u = torch.rand(n, generator=gen, device=device, dtype=torch.float32)
-    u = u.clamp(min=torch.finfo(torch.float32).tiny, max=1.0 - 2 ** -24)
-    return -torch.log(-torch.log(u))
-
-
 def gumbel_noise(seeds: Sequence[int], counters: Sequence[int], V: int, K: int,
-                 device) -> tuple:
+                 device, full_rows: Sequence[int]) -> tuple:
     """Per-row Gumbel noise for the full vocab [B, V] and the top-K slice
-    [B, K], drawn from each row's (seed, counter) stream."""
-    full, sub = [], []
-    for s, c in zip(seeds, counters):
-        g = _row_generator(s, c, device)
-        full.append(_gumbel(V, g, device))
-        sub.append(_gumbel(K, g, device))
-    return torch.stack(full), torch.stack(sub)
+    [B, K] from each row's (seed, counter) key, as the JAX package's
+    `_sample_nongreedy` draws it (seeds taken modulo 2**32).  Only
+    `full_rows` get full-vocab noise (the others' stays 0): the full draw
+    is the costly one, and only unconstrained rows read it.  The keys are
+    [B, 2] words derived on the host; both draws are one hash on
+    `device`."""
+    seeds = torch.tensor([int(s) & threefry.MASK for s in seeds], dtype=torch.int64)
+    counters = torch.tensor([int(c) & threefry.MASK for c in counters],
+                            dtype=torch.int64)
+    sub = threefry.split(threefry.fold_in(threefry.prng_key(seeds), counters))
+    full_rows = list(full_rows)
+    g_full = torch.zeros((len(seeds), V), dtype=torch.float32, device=device)
+    if not full_rows:
+        return g_full, threefry.gumbel_parts([(sub[:, 1], K)], device)[0]
+    g_sub, drawn = threefry.gumbel_parts([(sub[:, 1], K), (sub[full_rows, 0], V)], device)
+    g_full[torch.tensor(full_rows, dtype=torch.int64).to(device)] = drawn
+    return g_full, g_sub
 
 
 def sample_tokens(
@@ -90,11 +84,15 @@ def sample_tokens(
     """One token per row ([B] int64). Greedy rows take argmax."""
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
-    if bool((params.temperature <= 0.0).all()):
+    temp = params.temperature.tolist()
+    if all(t <= 0.0 for t in temp):
         return greedy
     B, V = logits.shape
     K = min(TOP_K_CAP, V)
-    g_full, g_sub = gumbel_noise(seeds, counters, V, K, logits.device)
+    top_k, top_p = params.top_k.tolist(), params.top_p.tolist()
+    full_rows = [i for i in range(B)
+                 if temp[i] > 0.0 and top_k[i] <= 0 and top_p[i] >= 1.0]
+    g_full, g_sub = gumbel_noise(seeds, counters, V, K, logits.device, full_rows)
     return _sample_nongreedy(logits, greedy, params, g_full, g_sub)
 
 

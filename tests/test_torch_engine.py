@@ -2,8 +2,8 @@
 
 The engine's serving behaviour (single and concurrent generation, prefix
 cache, stop tokens, long-prompt rejection, kill, a balanced pool at
-shutdown) and greedy identity with the JAX package's JaxEngine on the same
-weights, for the prompts of tests/test_engine.py.
+shutdown), and greedy and seeded-sampling identity with the JAX package's
+JaxEngine on the same weights, for the prompts of tests/test_engine.py.
 """
 
 import asyncio
@@ -110,6 +110,23 @@ async def test_stop_token_and_seeded_reproducibility(jax_params):
                                                     temperature=0.7, seed=3)))
     assert a == b[0]
     await engine.shutdown()
+
+
+async def test_seeded_request_token_identical_to_jax_engine(jax_params):
+    """A seeded temperature-0.9 request draws the JAX worker's tokens: both
+    key each step by fold_in(PRNGKey(seed), tokens generated so far)."""
+    r = req([3, 1, 4, 1, 5, 9, 2, 6], max_tokens=10, temperature=0.9, seed=11)
+    engine = make_engine(jax_params)
+    got, _ = await collect(engine, r)
+    await engine.shutdown()
+    jeng = JaxEngine(jax_tiny_config(), jax_params, JaxEngineConfig(**ECFG),
+                     eos_token_ids=[], kv_dtype=jnp.float32)
+    want = []
+    async for d in jeng.generate(r):
+        want.extend(d["token_ids"])
+    await jeng.shutdown()
+    assert len(got) == 10 and got == want
+    assert len(set(got)) > 1
 
 
 async def test_long_prompt_rejected(jax_params):

@@ -224,3 +224,89 @@ def test_cuda_wrappers_refuse_cpu_tensors(fn):
             kn = torch.zeros(1, 1, 1, 64)
             cuda_attention.prefill_attention_cuda(q, kn, kn, pool, pool, table,
                                                   lens, lens)
+
+
+_SPLIT = [  # (n_split, window, sink)
+    (1, None, False),
+    (3, None, True),
+    (8, None, False),
+    (3, 40, True),
+    (8, 100, True),
+    (8, 8, False),
+]
+
+
+@pytest.mark.parametrize("n_split,window,sink", _SPLIT)
+def test_decode_split_plain_matches_jax(n_split, window, sink):
+    """The split-KV twin (per-split partials merged as the CUDA kernel pair
+    merges them) against the JAX einsum path: ragged rows, a row with
+    seq_len 0, and splits that lie wholly past a row's end or before its
+    window."""
+    rng = np.random.default_rng(7)
+    B, H, n_kv, hd, page, maxp = 4, 8, 2, 64, 16, 14
+    seq_lens = np.array([1, 0, 209, 37], np.int32)
+    table, P = _table(seq_lens, maxp, page)
+    kp = rng.standard_normal((P, page, n_kv, hd)) * 0.3
+    vp = rng.standard_normal((P, page, n_kv, hd)) * 0.3
+    q = rng.standard_normal((B, H, hd)) * 4.0  # peaked: the merge's rescale matters
+    s = rng.standard_normal(H).astype(np.float32) if sink else None
+    (jq, tq), (jk, tk), (jv, tv) = _both(q, "f32"), _both(kp, "f32"), _both(vp, "f32")
+    got = _np(paged_attention.decode_attention_split_plain(
+        tq, tk, tv, torch.from_numpy(table), torch.from_numpy(seq_lens),
+        window=window, sink=None if s is None else torch.from_numpy(s),
+        n_split=n_split))
+    want = _np(jpa.decode_attention(jq, jk, jv, jnp.asarray(table),
+                                    jnp.asarray(seq_lens), window=window,
+                                    sink=None if s is None else jnp.asarray(s)))
+    live = seq_lens > 0  # the JAX path leaves a seq_len-0 row unspecified
+    np.testing.assert_allclose(got[live], want[live], atol=2e-5, rtol=2e-5)
+    assert np.all(got[1] == 0)  # the kernels' zeros, sink or not
+
+
+def test_decode_split_count_is_a_function_of_shapes():
+    """The wrapper's splits read only shapes (never seq_lens, which would
+    be a host sync); a split is a constant run of whole pages, so a row's
+    splits do not change with the table width its batch-mates set; the
+    splits cover the table and fill the card at least twice over at the
+    phase-3 ragged shape and the serving shape."""
+    import inspect
+
+    f, sp = cuda_attention.decode_num_splits, cuda_attention.decode_split_pages
+    assert list(inspect.signature(f).parameters) == ["max_pages", "page"]
+    assert sp(16) * 16 == cuda_attention.DECODE_SPLIT_KEYS
+    assert sp(8) == 2 * sp(16) and sp(512) == 1
+    for B, n_kv, maxp, page in ((4, 8, 256, 16), (8, 8, 130, 16)):
+        n = f(maxp, page)
+        assert (n - 1) * sp(page) < maxp <= n * sp(page)
+        assert B * n_kv * n >= 2 * 132
+    assert f(1, 16) == 1
+
+
+def test_decode_split_plain_is_batch_invariant():
+    """A row's output under the wrapper's splits is bit for bit the same
+    whether its table is its own width or widened (as a longer batch-mate
+    widens it), while another split of the same row moves its bits: the
+    split boundaries, not the table width, fix the f32 sums."""
+    rng = np.random.default_rng(8)
+    H, n_kv, hd, page = 4, 2, 64, 16
+    lens = np.array([300, 1000], np.int32)
+    table, P = _table(lens, 63, page)
+    kp = torch.from_numpy((rng.standard_normal((P, page, n_kv, hd)) * 0.3).astype(np.float32))
+    vp = torch.from_numpy((rng.standard_normal((P, page, n_kv, hd)) * 0.3).astype(np.float32))
+    q = torch.from_numpy((rng.standard_normal((2, H, hd)) * 4).astype(np.float32))
+    sp = cuda_attention.decode_split_pages(page)
+
+    def run(width):  # row 0 with its table cut to `width` pages
+        t = torch.from_numpy(np.ascontiguousarray(table[[0], :width]))
+        return paged_attention.decode_attention_split_plain(
+            q[[0]], kp, vp, t, torch.from_numpy(lens[[0]]),
+            n_split=cuda_attention.decode_num_splits(width, page), split_pages=sp)
+
+    alone = run(19)  # 300 tokens: 19 pages, 2 splits
+    widened = run(63)  # the width of the 1000-token row: 4 splits
+    assert torch.equal(alone, widened)
+    other = paged_attention.decode_attention_split_plain(
+        q[[0]], kp, vp, torch.from_numpy(np.ascontiguousarray(table[[0], :19])),
+        torch.from_numpy(lens[[0]]), n_split=19)  # one page a split
+    assert not torch.equal(alone, other)
+    torch.testing.assert_close(alone, other, rtol=1e-5, atol=1e-6)
