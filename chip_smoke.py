@@ -6,7 +6,8 @@ Phases, each printing one JSON line (any failure exits non-zero before the
 final line):
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions;
+   CUDA versions, and the versions of the packages the port relies on
+   (torch, numpy, jinja2; a missing one fails the run);
 2. build: compiles the hand-written kernels from ``dynamo_tpu_torch/csrc``;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the shapes of Llama-3.1-8B (32 q heads, 8 kv heads, head dim 128,
@@ -33,9 +34,33 @@ final line):
    `forward_prefill` and 8 `forward_decode` steps, once on the kernels and
    once on the plain attention, same weights and same fed tokens; planted
    attention faults (zero attention, a decode that skips the newest token
-   or the first page) must fail the same check.
+   or the first page) must fail the same check;
+6. golden: the head-dim-64 transformers checkpoint
+   (``tests/fixtures/torch_golden_llama_hd64``) loaded through the port's
+   loader onto the card in f32 and bf16, its paged prefill and decode
+   steps run through both kernels, the logits held to transformers'
+   (f32: the CPU test's 2e-4; bf16: a share of each step's logit spread)
+   and the greedy continuation required equal (bf16: up to a near-tie);
+7. http: the port's whole stack in this process (embedded control plane,
+   worker over `TorchEngine` with phase 4's 8B weights, model watcher,
+   `HttpService` on a free port) with a seeded byte-level BPE tokenizer of
+   exactly 128256 ids written to ``build/``; phase 4's five prompts as
+   pre-tokenized /v1/completions requests: a concurrent unary wave, then
+   each prompt alone as unary, as SSE and straight into `generate()`
+   (each from the same prefix-cache state), then timed SSE waves from a
+   client process in the order direct, in-process frontend, frontend
+   process, and back (the host clock drifts within a call); two chat
+   requests (greedy; seeded at temperature 0.8, repeated) run under
+   `torch.profiler`.  SSE text must equal the unary text and the
+   `generate()` tokens detokenized, the seeded chat must repeat,
+   /v1/models, /health and /metrics must answer, and both attention
+   kernels must appear in the trace.  Mean TTFT, ITL and decode tokens/s
+   of each arm at the client and the frontend's SSE CPU per token are
+   printed on a line of their own beside phase 4's numbers and the card.
 
-Then the kernel summary line, the card line, and as the last line
+Launch counts are read per path (phases 4, 6 and 7, each zeroed just
+before it): the kernel summary line's ``launches`` are those of the
+HTTP traffic, the main path.  Then the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.
 """
@@ -496,6 +521,34 @@ async def _collect(engine, req):
             "t_first": t_first, "t_last": t_last}
 
 
+def serving_prompts(cfg):
+    """The serving traffic of phases 4 and 7: a 1024-token shared prefix
+    and five prompts {name: (tokens, temperature, seed)} of 64-2048
+    tokens, two of them behind the shared prefix, one seeded."""
+    g = torch.Generator().manual_seed(SEED + 1)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    shared = prompt(1024)
+    return shared, {
+        "A_64": (prompt(64), 0.0, None),
+        "B_shared+200": (shared + prompt(200), 0.0, None),
+        "C_2048": (prompt(2048), 0.0, None),
+        "D_shared+500_seeded": (shared + prompt(500), 0.8, 7),
+        "E_300": (prompt(300), 0.0, None),
+    }
+
+
+def warm_suffix(cfg):
+    """16 tokens after the shared prefix for the warm-up request (the
+    generator's next draws, as the first slice took them)."""
+    g = torch.Generator().manual_seed(SEED + 1)
+    for n in (1024, 64, 200, 2048, 500, 300):
+        torch.randint(0, cfg.vocab_size, (n,), generator=g)
+    return torch.randint(0, cfg.vocab_size, (16,), generator=g).tolist()
+
+
 def _req(tokens, temperature=0.0, seed=None, max_tokens=32):
     so = {"temperature": temperature}
     if seed is not None:
@@ -510,26 +563,16 @@ def phase_serving(model, cfg):
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
     from dynamo_tpu_torch.ops import cuda_attention as ca
 
-    g = torch.Generator().manual_seed(SEED + 1)
-
-    def prompt(n):
-        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
-
-    shared = prompt(1024)
-    reqs = {
-        "A_64": _req(prompt(64)),
-        "B_shared+200": _req(shared + prompt(200)),
-        "C_2048": _req(prompt(2048)),
-        "D_shared+500_seeded": _req(shared + prompt(500), temperature=0.8, seed=7),
-        "E_300": _req(prompt(300)),
-    }
+    shared, prompts = serving_prompts(cfg)
+    reqs = {name: _req(toks, temperature=t, seed=seed)
+            for name, (toks, t, seed) in prompts.items()}
     ecfg = EngineConfig(page_size=16, num_pages=1024, max_num_seqs=8,
                         max_prefill_tokens=512, max_model_len=4096)
     engine = TorchEngine(cfg, model, ecfg, device="cuda")
 
     async def run():
         # warm the shared prefix into the cache (and the kernels' first use)
-        await _collect(engine, _req(shared + prompt(16), max_tokens=4))
+        await _collect(engine, _req(shared + warm_suffix(cfg), max_tokens=4))
         cached0 = engine.metrics().prefix_cached_tokens_total
         torch.cuda.synchronize()
         ca.reset_launches()
@@ -584,7 +627,11 @@ def phase_serving(model, cfg):
         "solo_trace": breakdown,
         "card": card_line(),
     })
-    return launches
+    direct = {"ttft_ms": {n: r["ttft_ms"] for n, r in res.items()},
+              "itl_ms": {n: (r["t_last"] - r["t_first"]) / (len(r["tokens"]) - 1) * 1e3
+                         for n, r in res.items()},
+              "decode_tokens_per_s": decoded / (last - first)}
+    return launches, direct
 
 
 # --------------------------------------------------------------------------- #
@@ -674,16 +721,512 @@ def phase_paths(model, cfg):
 
 
 # --------------------------------------------------------------------------- #
+# phase 6: the golden anchor on the card
+# --------------------------------------------------------------------------- #
+
+GOLDEN_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_golden_llama_hd64")
+# f32: the CPU test's limit (tests/test_torch_loader.py, as test_golden.py:
+# |got - want| <= atol + rtol * |want|).  bf16: the weights and every
+# activation round to 8 mantissa bits, so each logit moves by a few bf16
+# roundings of the residual stream; the limit is a share of each step's
+# golden-logit standard deviation, far below the gap that separates the
+# greedy token from the runner-up in this checkpoint.
+GOLDEN_TOL = {torch.float32: {"atol": 2e-4, "rtol": 2e-4},
+              torch.bfloat16: {"std_share": 0.1}}
+
+
+def golden_steps(model, cfg, prompt, feed, page=16):
+    """Prefill logits, then one decode step per `feed` token, through the
+    paged pool on the card (the path tests/test_torch_loader.py anchors
+    on the CPU)."""
+    from dynamo_tpu_torch.models import KVCache
+
+    n_pages = (len(prompt) + len(feed)) // page + 2
+    kv = KVCache.create(cfg, 1 + n_pages, page, model.dtype, "cuda")
+    table = torch.arange(1, 1 + n_pages, dtype=torch.int32, device="cuda")[None]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    S = len(prompt)
+    outs = [model.forward_prefill(kv, torch.tensor([prompt], device="cuda"), table,
+                                  torch.zeros(1, **i32), torch.tensor([S], **i32))[0]]
+    for pos, tok in enumerate(feed, start=S):
+        outs.append(model.forward_decode(kv, torch.tensor([tok], device="cuda"),
+                                         torch.tensor([pos], device="cuda"), table)[0])
+    return torch.stack(outs).float().cpu().numpy()
+
+
+def phase_golden():
+    """The hd-64 transformers checkpoint loaded through the port's loader
+    onto the card, in f32 and bf16; both kernels run at head dim 64 with
+    2 query heads per kv head.  Logits must meet GOLDEN_TOL against
+    transformers' and the greedy continuation must be transformers'."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models import ModelConfig
+    from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+
+    cfg = ModelConfig.from_pretrained(GOLDEN_DIR)
+    data = np.load(os.path.join(GOLDEN_DIR, "golden_logits.npz"))
+    results, launches = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = load_params(GOLDEN_DIR, cfg, dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        ca.reset_launches()
+        for i in range(2):
+            want = data[f"logits{i}"]
+            greedy = data[f"greedy{i}"].tolist()
+            got = golden_steps(model, cfg, data[f"prompt{i}"].tolist(), greedy[:-1])
+            torch.cuda.synchronize()
+            diff = np.abs(got - want)
+            std = want.std(-1, keepdims=True)
+            tol = GOLDEN_TOL[dtype]
+            ok = (bool(np.all(diff <= tol["atol"] + tol["rtol"] * np.abs(want)))
+                  if "atol" in tol else float((diff / std).max()) <= tol["std_share"])
+            results.append({
+                "dtype": str(dtype), "prompt": i, "steps": int(want.shape[0]),
+                "max_abs_err": float(diff.max()),
+                "max_err_in_std": float((diff / std).max()),
+                "tolerance": tol, "within_tolerance": ok,
+                "finite": bool(np.isfinite(got).all()),
+                "greedy_equal": got.argmax(-1).tolist() == greedy,
+                # how far below transformers' best its logit for our
+                # token lies, in std (0 where the tokens agree)
+                "greedy_gap_in_std": float(((want.max(-1) - np.take_along_axis(
+                    want, got.argmax(-1)[:, None], -1)[:, 0]) / std[:, 0]).max()),
+            })
+        launches[str(dtype)] = dict(ca.LAUNCHES)
+    emit({"phase": "golden", "checkpoint": "tests/fixtures/torch_golden_llama_hd64",
+          "head_dim": cfg.head_dim_, "q_heads": cfg.num_attention_heads,
+          "kv_heads": cfg.num_key_value_heads, "results": results,
+          "launches": launches})
+    for r in results:
+        # f32: the greedy tokens are transformers'.  bf16: the fixture has
+        # near-ties (prompt 1, step 3: the top two 0.004 std apart, below
+        # bf16's resolution), so a token may differ only where transformers
+        # put it within the bf16 limit of its best, as phase 5 rules
+        greedy_ok = (r["greedy_equal"] if r["dtype"] == str(torch.float32)
+                     else r["greedy_gap_in_std"] <= GOLDEN_TOL[torch.bfloat16]["std_share"])
+        if not (r["within_tolerance"] and r["finite"] and greedy_ok):
+            fail(f"golden anchor missed on the card: {r}")
+    for dt, counts in launches.items():
+        if min(counts.values()) <= 0:
+            fail(f"golden {dt} run did not launch every kernel: {counts}")
+    # the path's counts: both dtypes together
+    return {k: sum(c[k] for c in launches.values()) for k in ca.LAUNCHES}
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: the full stack over HTTP
+# --------------------------------------------------------------------------- #
+
+
+# phase 7's timed SSE waves: straight into generate(), over HTTP through
+# the frontend in this process, over HTTP through a frontend process
+WAVE_ORDER = ("direct", "http_in_process", "http_frontend_process",
+              "http_frontend_process", "http_in_process", "direct")
+
+
+def _http(port, method, path, body=None, timeout=600):
+    """(status, body bytes) of one request on its own connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _http_stream(port, path, body, timeout=600):
+    """One SSE request read frame by frame at the client: (status, text,
+    finish_reason, send time, arrival time of each data frame)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps({**body, "stream": True}),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        text, finish, stamps = [], None, []
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            if line == b"data: [DONE]":
+                break
+            stamps.append(time.perf_counter())
+            ch = json.loads(line[6:])["choices"][0]
+            text.append(ch["delta"].get("content", "") if "delta" in ch
+                        else ch.get("text", ""))
+            finish = ch.get("finish_reason") or finish
+        r.read()
+        return r.status, "".join(text), finish, t0, stamps
+    finally:
+        conn.close()
+
+
+def _stream_wave(port, bodies):
+    """Every body as an SSE /v1/completions request at once, one client
+    thread each; [(status, text, finish_reason, t0, stamps)] in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(bodies)) as ex:
+        return list(ex.map(lambda b: _http_stream(port, "/v1/completions", b),
+                           bodies))
+
+
+def stream_client_main(argv) -> int:
+    """``chip_smoke.py --stream-client PORT BODIES.json``: phase 7's SSE
+    wave from a client process of its own, printed as one JSON line."""
+    port, path = int(argv[0]), argv[1]
+    with open(path) as f:
+        bodies = json.load(f)
+    print(json.dumps(_stream_wave(port, bodies)), flush=True)
+    return 0
+
+
+def _metric_sum(text: str, name: str) -> float:
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith(name + "{") or ln.startswith(name + " "))
+
+
+def phase_http(model, cfg, direct):
+    """The port's whole stack in this process: embedded control plane,
+    worker over `TorchEngine`, model watcher, `HttpService` on a free port.
+    Phase 4's prompts go in pre-tokenized over /v1/completions: once as a
+    concurrent unary wave (the main path, launches counted); each alone,
+    unary, SSE and straight into `generate()`, which must agree; then six
+    timed SSE waves from a client process, in the order of WAVE_ORDER,
+    with a frontend process (`python -m dynamo_tpu_torch.frontend`) for
+    the third arm.  Last, two chat requests (greedy; seeded at temperature
+    0.8, repeated from the same cold cache) under `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.frontend import HttpService, ModelManager, ModelWatcher
+    from dynamo_tpu_torch.llm import ModelDeploymentCard, StreamPostprocessor
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.testing import synthetic_tokenizer
+    from dynamo_tpu_torch.worker import serve_engine
+
+    t_tok = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tok_path = os.path.join(ROOT, "build", "llama3_synthetic_tokenizer.json")
+    tok = synthetic_tokenizer(cfg.vocab_size, SEED, path=tok_path)
+    t_tok = time.perf_counter() - t_tok
+    if tok.vocab_size != cfg.vocab_size:
+        fail(f"synthetic tokenizer has {tok.vocab_size} ids, not {cfg.vocab_size}")
+    ecfg = EngineConfig(page_size=16, num_pages=1024, max_num_seqs=8,
+                        max_prefill_tokens=512, max_model_len=4096)
+    engine = TorchEngine(cfg, model, ecfg, eos_token_ids=tok.eos_token_ids,
+                         device="cuda")
+    name = cfg.name
+    mdc = ModelDeploymentCard(name=name, tokenizer_json=tok.to_json_str(),
+                              eos_token_ids=tok.eos_token_ids, context_length=4096)
+    shared, prompts = serving_prompts(cfg)
+
+    def completion(toks, t, seed):
+        body = {"model": name, "prompt": toks, "max_tokens": 32, "temperature": t,
+                "nvext": {"ignore_eos": True}}
+        if seed is not None:
+            body["seed"] = seed
+        return body
+
+    def chat(content, **so):
+        return {"model": name, "max_tokens": 32, "nvext": {"ignore_eos": True},
+                "messages": [{"role": "user", "content": content}], **so}
+
+    greedy_chat = chat("Summarize paged attention in one line.", temperature=0)
+    seeded_chat = chat("Name three uses of a KV cache.", temperature=0.8, seed=11)
+
+    async def run():
+        rt = await DistributedRuntime.detached()
+        await serve_engine(rt, engine, mdc)
+        watcher = await ModelWatcher(rt, ModelManager()).start()
+        await asyncio.wait_for(watcher.wait_for_model(name), 120)
+        http = await HttpService(watcher.manager, host="127.0.0.1", port=0).start()
+        loop = asyncio.get_running_loop()
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=12)
+
+        def call(fn, *a):
+            return loop.run_in_executor(pool, fn, http.port, *a)
+
+        warm = completion(shared + warm_suffix(cfg), 0.0, None) | {"max_tokens": 4}
+
+        async def reset_cache(warm_prefix=True):
+            """The same prefix-cache state before every wave: cleared, then
+            the shared prefix warmed as phase 4 does.  A prompt the cache
+            already holds prefills only its tail, a different bf16
+            summation that can flip a near-tie of the 128k vocabulary."""
+            for path, body in (("/clear_kv_blocks", None),
+                               ("/v1/completions", warm))[:1 + warm_prefix]:
+                status, _ = await call(_http, "POST", path, body)
+                if status != 200:
+                    fail(f"http: {path} answered {status}")
+
+        bodies = [completion(*p) for p in prompts.values()]
+        bodies_path = os.path.join(ROOT, "build", "http_stream_bodies.json")
+        with open(bodies_path, "w") as f:
+            json.dump(bodies, f)
+
+        async def client_wave(port):
+            """The SSE wave from a client process of its own, as users
+            connect (client threads here would contend for this
+            process's GIL with the engine's step thread)."""
+            client = await asyncio.create_subprocess_exec(
+                sys.executable, os.path.abspath(__file__), "--stream-client",
+                str(port), bodies_path, stdout=asyncio.subprocess.PIPE)
+            stdout, _ = await asyncio.wait_for(client.communicate(), 600)
+            if client.returncode != 0:
+                fail(f"http: the stream client exited {client.returncode}")
+            return json.loads(stdout.decode().strip().splitlines()[-1])
+
+        async def direct_wave():
+            """The same wave straight into `generate()`, as phase 4 runs
+            it: [(tokens, t0, arrival time of each token)]."""
+            async def one(toks, t, seed):
+                t0, stamps, got = time.perf_counter(), [], []
+                async for d in engine.generate(_req(toks, temperature=t, seed=seed)):
+                    if d["token_ids"]:
+                        stamps.append(time.perf_counter())
+                        got.extend(d["token_ids"])
+                return got, t0, stamps
+            return await asyncio.gather(*[one(*p) for p in prompts.values()])
+
+        # the multi-process form: `python -m dynamo_tpu_torch.frontend` in
+        # a process of its own on this control plane, so this process
+        # keeps only the worker's side of the transport
+        front = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "dynamo_tpu_torch.frontend",
+            "--control", rt.control_address, "--host", "127.0.0.1",
+            "--port", "0", "--log-level", "warning", cwd=ROOT,
+            stdout=asyncio.subprocess.PIPE)
+        out = {}
+        try:
+            ready = (await asyncio.wait_for(front.stdout.readline(), 120)).decode()
+            if not ready.startswith("READY http://"):
+                fail(f"http: the frontend process printed {ready!r}")
+            front_port = int(ready.strip().rsplit(":", 1)[1])
+            for _ in range(600):  # until its watcher has the model
+                st, body = await loop.run_in_executor(
+                    pool, _http, front_port, "GET", "/v1/models")
+                if st == 200 and name.encode() in body:
+                    break
+                await asyncio.sleep(0.1)
+            # the main path: the unary wave through the in-process stack
+            await reset_cache()
+            torch.cuda.synchronize()
+            ca.reset_launches()
+            t0 = time.perf_counter()
+            unary = await asyncio.gather(*[
+                call(_http, "POST", "/v1/completions", b) for b in bodies])
+            torch.cuda.synchronize()
+            out["unary_wall_s"] = time.perf_counter() - t0
+            out["launches"] = dict(ca.LAUNCHES)
+            out["unary"] = [(st, json.loads(b)) for st, b in unary]
+            # each prompt alone from the same cache state, unary, SSE and
+            # straight into generate(): in a concurrent wave a prompt's
+            # prefill chunks depend on what arrived with it
+            out["solo"] = {}
+            for pname, body in zip(prompts, bodies):
+                await reset_cache()
+                st, b = await call(_http, "POST", "/v1/completions", body)
+                await reset_cache()
+                sse = await call(_http_stream, "/v1/completions", body)
+                await reset_cache()
+                toks, t, seed = prompts[pname]
+                got = await _collect(engine, _req(toks, temperature=t, seed=seed))
+                out["solo"][pname] = (st, json.loads(b), sse, got["tokens"])
+            # the timed waves, in the order A B C C B A: the host clock
+            # drifts within a call, so each arm's two waves straddle it
+            out["waves"] = []
+            for arm in WAVE_ORDER:
+                await reset_cache()
+                if arm == "direct":
+                    res = await direct_wave()
+                else:
+                    res = await client_wave(
+                        http.port if arm == "http_in_process" else front_port)
+                out["waves"].append((arm, res))
+            out["routes"] = {p: await call(_http, "GET", p)
+                             for p in ("/v1/models", "/health", "/metrics")}
+            front.terminate()
+            await asyncio.wait_for(front.wait(), 60)
+            # last: leaving the profiler processes its trace on this
+            # event loop, which then answers nothing for seconds
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t2 = time.perf_counter()
+                await reset_cache(warm_prefix=False)
+                chats = await asyncio.gather(
+                    call(_http, "POST", "/v1/chat/completions", greedy_chat),
+                    call(_http, "POST", "/v1/chat/completions", seeded_chat))
+                # the seeded request again, alone, from the same cold cache
+                await reset_cache(warm_prefix=False)
+                again = await call(_http, "POST", "/v1/chat/completions", seeded_chat)
+                torch.cuda.synchronize()
+                out["chat_wall_s"] = time.perf_counter() - t2
+            out["chats"] = [(st, json.loads(b)) for st, b in list(chats) + [again]]
+            out["prof"] = prof
+        finally:
+            if front.returncode is None:
+                front.terminate()
+                await asyncio.wait_for(front.wait(), 60)
+            pool.shutdown(wait=False)
+            await http.stop()
+            await watcher.stop()
+            await rt.shutdown(graceful=False)
+            await engine.shutdown()
+        return out
+
+    out = asyncio.run(run())
+    out["chat_trace"] = device_breakdown(out.pop("prof"), out["chat_wall_s"])
+    rows = {}
+    for pname, (st, body) in zip(prompts, out["unary"]):
+        if st != 200:
+            fail(f"http: {pname} answered {st}")
+        rows[pname] = {"finish": body["choices"][0]["finish_reason"],
+                       "completion_tokens": body["usage"]["completion_tokens"]}
+    for pname, (st, body, sse, toks) in out["solo"].items():
+        text, finish = body["choices"][0]["text"], body["choices"][0]["finish_reason"]
+        post = StreamPostprocessor(tok, prompts[pname][0])
+        direct_text = "".join(post.push_tokens([t]) for t in toks) + post.flush()
+        rows[pname].update({
+            "solo_unary_status": st, "solo_sse_status": sse[0],
+            "sse_equals_unary": (sse[1], sse[2]) == (text, finish),
+            "equals_direct_generate": direct_text == text})
+        if st != 200 or sse[0] != 200:
+            fail(f"http: {pname} alone answered {st} / {sse[0]}")
+        if not rows[pname]["sse_equals_unary"]:
+            fail(f"http: {pname} SSE text differs from its unary text: "
+                 f"{sse[1]!r} vs {text!r}")
+        if not rows[pname]["equals_direct_generate"]:
+            fail(f"http: {pname} text differs from generate() detokenized: "
+                 f"{text!r} vs {direct_text!r}")
+    for pname, r in rows.items():
+        if r["finish"] != "length" or r["completion_tokens"] != 32:
+            fail(f"http: {pname} ended {r['finish']} with {r['completion_tokens']} tokens")
+    waves = []
+    for arm, res in out["waves"]:
+        per = {}
+        for pname, item in zip(prompts, res):
+            if arm == "direct":
+                toks, t0, stamps = item
+            else:
+                sst, _, sfinish, t0, stamps = item
+                if sst != 200 or sfinish != "length":
+                    fail(f"http: {pname} SSE ({arm}) answered {sst}, {sfinish}")
+            if len(stamps) != 32:
+                fail(f"http: {pname} ({arm}) streamed {len(stamps)} of 32 tokens")
+            per[pname] = {"ttft_ms": (stamps[0] - t0) * 1e3,
+                          "itl_ms": (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3,
+                          "tokens": len(stamps), "t_first": stamps[0],
+                          "t_last": stamps[-1]}
+        first = min(v["t_first"] for v in per.values())
+        last = max(v["t_last"] for v in per.values())
+        waves.append({
+            "arm": arm,
+            "ttft_ms": {n: v["ttft_ms"] for n, v in per.items()},
+            "itl_ms": {n: v["itl_ms"] for n, v in per.items()},
+            "mean_itl_ms": sum(v["itl_ms"] for v in per.values()) / len(per),
+            "decode_tokens_per_s": sum(v["tokens"] - 1 for v in per.values())
+            / (last - first),
+        })
+    arms = {}
+    for w in waves:
+        a = arms.setdefault(w["arm"], {"mean_itl_ms": [], "decode_tokens_per_s": [],
+                                        "mean_ttft_ms": []})
+        a["mean_itl_ms"].append(w["mean_itl_ms"])
+        a["decode_tokens_per_s"].append(w["decode_tokens_per_s"])
+        a["mean_ttft_ms"].append(sum(w["ttft_ms"].values()) / len(w["ttft_ms"]))
+    chats = out["chats"]
+    if any(st != 200 for st, _ in chats):
+        fail(f"http: chat answered {[st for st, _ in chats]}")
+    chat_text = [b["choices"][0]["message"]["content"] for _, b in chats]
+    if chat_text[1] != chat_text[2]:
+        fail("http: the seeded chat request is not reproducible")
+    routes = out["routes"]
+    models = json.loads(routes["/v1/models"][1])
+    health = json.loads(routes["/health"][1])
+    metrics = routes["/metrics"][1].decode()
+    if (any(st != 200 for st, _ in routes.values())
+            or [m["id"] for m in models["data"]] != [name]
+            or health.get("status") != "healthy"
+            or "dynamo_frontend_requests_total" not in metrics):
+        fail(f"http: a route answered wrongly: { {p: r[0] for p, r in routes.items()} }")
+    trace = out["chat_trace"]["groups"]
+    traced = {g: trace.get(g, {}).get("launches", 0)
+              for g in ("attention_decode", "attention_prefill")}
+    if min(traced.values()) <= 0:
+        fail(f"http: the profiler did not see both attention kernels: {traced}")
+    launches = out["launches"]
+    if min(launches.values()) <= 0:
+        fail(f"http traffic did not launch every kernel: {launches}")
+    # frontend CPU building and writing SSE frames, over every token the
+    # in-process frontend streamed (unary answers write no frames)
+    streamed = WAVE_ORDER.count("http_in_process") * sum(
+        r["completion_tokens"] for r in rows.values())
+    egress_s = _metric_sum(metrics, "dynamo_frontend_egress_cpu_seconds_total")
+    res = {
+        "phase": "http", "model": name, "dtype": "bfloat16",
+        "layers": cfg.num_hidden_layers,
+        "tokenizer": {"path": "build/llama3_synthetic_tokenizer.json",
+                      "ids": tok.vocab_size, "build_s": t_tok},
+        "requests": rows,
+        "unary_wave_s": out["unary_wall_s"],
+        "waves": waves,
+        "frontend_egress_ms_per_token": egress_s / streamed * 1e3,
+        "direct_generate_phase4": direct,
+        "chat": {"seeded_repeats": True, "greedy_chars": len(chat_text[0]),
+                 "trace": out["chat_trace"]},
+        "launches": launches,
+    }
+    emit(res)
+    print(json.dumps({"http_metrics": {
+        "order": list(WAVE_ORDER), "arms": arms,
+        "frontend_egress_ms_per_token": res["frontend_egress_ms_per_token"],
+        "phase4_direct": direct}, "card": card_line()}), flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+
+
+def package_versions() -> dict:
+    """Versions of the packages this script and the port rely on; jinja2
+    (the chat template) must be there: the port has no fallback."""
+    from importlib.metadata import PackageNotFoundError, version
+
+    out = {}
+    for pkg in ("torch", "numpy", "jinja2"):
+        try:
+            out[pkg] = version(pkg)
+        except PackageNotFoundError:
+            fail(f"package {pkg} is missing on this machine; the port needs it")
+    return out
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--stream-client"]:
+        return stream_client_main(sys.argv[2:])
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     from dynamo_tpu_torch.models import LLAMA_3_1_8B, init_params
     from dynamo_tpu_torch.ops import _build
 
     card = card_line()
-    emit({"phase": "environment", "card": card, "torch": torch.__version__,
+    emit({"phase": "environment", "card": card, "packages": package_versions(),
+          "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "python": sys.version.split()[0]})
 
@@ -709,8 +1252,13 @@ def main() -> int:
     emit({"phase": "model_init", "model": cfg.name,
           "seconds": time.perf_counter() - t0,
           "weights_gb": torch.cuda.memory_allocated() / 1e9})
-    launches = phase_serving(model, cfg)
+    serving_launches, direct = phase_serving(model, cfg)
     phase_paths(model, cfg)
+    golden_launches = phase_golden()
+    http_launches = phase_http(model, cfg, direct)
+    by_path = {"serving (phase 4, generate)": serving_launches,
+               "golden (phase 6)": golden_launches,
+               "http (phase 7, the main path)": http_launches}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),
@@ -723,7 +1271,8 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
-            "replaces": src_line, "launches": launches[name],
+            "replaces": src_line, "launches": http_launches[name],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": serving["ms"], "plain_ms": serving["plain_ms"],
             "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
@@ -731,7 +1280,7 @@ def main() -> int:
             "timed_cases": [{k: c[k] for k in keys} for c in timed],
         }
         if name == "decode_attention":
-            entry["merge_launches"] = launches["decode_merge"]
+            entry["merge_launches"] = http_launches["decode_merge"]
             entry["serving_grid_blocks"] = serving["grid_blocks"]
         kernels.append(entry)
     emit({"kernels": kernels})

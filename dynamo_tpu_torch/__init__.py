@@ -3,7 +3,10 @@
 The JAX package (`dynamo_tpu`) is the reference; this package imports
 `torch` and never `jax`, and nothing of `dynamo_tpu`.  It carries its own
 copies of the host modules it needs (config, page pool, scheduler, block
-hashing).  The two Pallas paged-attention kernels of the JAX package are
+hashing, the runtime, worker, OpenAI frontend and LLM pipeline) and its
+own stdlib stand-ins for packages the GPU machine lacks (tokenizer,
+safetensors reader, msgpack codec, HTTP server, Prometheus exposition).
+The two Pallas paged-attention kernels of the JAX package are
 hand-written CUDA kernels here (`csrc/paged_attention.cu`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,0 +1,72 @@
+"""Frontend CLI: `python -m dynamo_tpu_torch.frontend --control HOST:PORT
+--port 8000`.
+
+The port's copy of `python -m dynamo_tpu.frontend`: the OpenAI HTTP
+server, model discovery and routed pipelines, round-robin or random.
+The KV router, TLS, gRPC, shards, the status server and the fleet
+telemetry plane are later slices.  Prints ``READY http://host:port``.
+"""
+
+import argparse
+import asyncio
+import logging
+import os
+import signal
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="dynamo_tpu_torch OpenAI frontend")
+    env_control = os.environ.get("DYN_CONTROL", "")
+    ap.add_argument("--control", required=not env_control, default=env_control,
+                    help="control plane host:port")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--namespace", default="dynamo",
+                    help="accepted for symmetry; model cards carry their "
+                         "own namespace and the watcher follows all of them")
+    ap.add_argument("--router-mode", default="round_robin",
+                    choices=["round_robin", "random"])
+    ap.add_argument("--sse-coalesce", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="merge same-choice token deltas into one SSE frame "
+                         "when a connection's write queue backs up "
+                         "(default: DYN_TPU_SSE_COALESCE, else on)")
+    ap.add_argument("--log-level", default="info")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=args.log_level.upper(),
+                        format="%(asctime)s %(levelname)s %(name)s %(message)s")
+    asyncio.run(_run(args))
+
+
+async def _run(args) -> None:
+    from ..runtime import DistributedRuntime
+    from . import FrontendMetrics, HttpService, ModelManager, ModelWatcher
+    from .openai_http import _env_bool
+
+    runtime = await DistributedRuntime.connect(args.control)
+    manager = ModelManager()
+    watcher = await ModelWatcher(runtime, manager,
+                                 router_mode=args.router_mode).start()
+    # the serving CLI turns coalescing on unless the flag/env says otherwise
+    sse_coalesce = (args.sse_coalesce if args.sse_coalesce is not None
+                    else _env_bool("DYN_TPU_SSE_COALESCE", True))
+    http = await HttpService(manager, host=args.host, port=args.port,
+                             metrics=FrontendMetrics(),
+                             sse_coalesce=sse_coalesce).start()
+    print(f"READY http://{args.host}:{http.port}", flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    await http.stop()
+    await watcher.stop()
+    await runtime.shutdown()
+
+
+if __name__ == "__main__":
+    main()

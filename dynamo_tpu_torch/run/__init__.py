@@ -1,1 +1,1 @@
-"""Batch launcher of the port (`python -m dynamo_tpu_torch.run`)."""
+"""Launcher of the port (`python -m dynamo_tpu_torch.run`): OpenAI HTTP or batch."""

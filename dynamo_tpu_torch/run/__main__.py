@@ -1,18 +1,26 @@
-"""Batch launcher of the port: `python -m dynamo_tpu_torch.run --in batch
---out engine --model {tiny,llama-3.1-8b,...} --seed N --input-file
-prompts.jsonl [--device cpu]`.
+"""Unified launcher of the port: `python -m dynamo_tpu_torch.run --in X
+--out engine --model M`.
 
-Each input line is a JSON object with ``token_ids`` plus optional
+  --in http    the OpenAI HTTP frontend over a local TorchEngine worker
+               (default): an embedded control plane unless --control is
+               given, the worker registered on it, the model watcher and
+               `HttpService`; prints ``READY http://host:port``.
+  --in batch   JSONL of token-id requests in, JSONL out (--input-file,
+               --output-file): every request sent to
+               `TorchEngine.generate` at once.
+
+``--model`` takes a checkpoint directory (the loader and tokenizer.json),
+``tiny`` or a canned config name (random weights from ``--seed``); see
+`dynamo_tpu_torch.worker`.  Runs on CUDA unless given ``--device cpu``.
+
+A batch input line is a JSON object with ``token_ids`` plus optional
 sampling fields (``temperature``, ``top_k``, ``top_p``, ``seed``,
 ``frequency_penalty``, ``presence_penalty``, ``logprobs``) and stop fields
 (``max_tokens``, ``stop_token_ids``, ``ignore_eos``); nested
 ``sampling_options`` / ``stop_conditions`` objects are taken as they are.
-Every request is sent to `TorchEngine.generate` at once; the output is one
-JSON line per input, in input order: ``{"index", "token_ids",
-"finish_reason"}``.  Weights are random, drawn from ``--seed``.
-
-``--in http`` is not ported yet: the OpenAI frontend, the tokenizer and
-the control-plane transport need packages the GPU machine does not have.
+The output is one JSON line per input, in input order: ``{"index",
+"token_ids", "finish_reason"}``.  The text/endpoint inputs and the
+mock/echo/dyn outputs of the JAX launcher are later slices.
 """
 
 from __future__ import annotations
@@ -20,69 +28,34 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import signal
 import sys
 from typing import List, Optional
-
-import torch
 
 _SAMPLING = ("temperature", "top_k", "top_p", "seed", "frequency_penalty",
              "presence_penalty", "logprobs", "top_logprobs")
 _STOP = ("max_tokens", "stop_token_ids", "ignore_eos", "stop_sequences")
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def parse_args(argv=None):
+    from ..worker.__main__ import add_model_args
+
     ap = argparse.ArgumentParser("dynamo_tpu_torch.run")
-    ap.add_argument("--in", dest="in_mode", default="batch",
-                    choices=["batch", "http"])
+    ap.add_argument("--in", dest="in_mode", default="http",
+                    choices=["http", "batch"])
     ap.add_argument("--out", dest="out_mode", default="engine",
                     choices=["engine"])
-    ap.add_argument("--model", default="tiny",
-                    help="tiny or a canned config name (llama-3.1-8b, ...)")
-    ap.add_argument("--num-layers", type=int, default=None,
-                    help="cut the model's depth (widths stay as published)")
-    ap.add_argument("--dtype", default=None, choices=sorted(_DTYPES),
-                    help="default: float32 for tiny, bfloat16 otherwise")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu; there is no silent fallback")
+    ap.add_argument("--control", default="",
+                    help="existing control plane address (default: embedded)")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--namespace", default="dynamo")
+    ap.add_argument("--router-mode", default="round_robin",
+                    choices=["round_robin", "random"])
     ap.add_argument("--input-file", default=None)
     ap.add_argument("--output-file", default=None)
-    ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--num-pages", type=int, default=1024)
-    ap.add_argument("--max-model-len", type=int, default=4096)
-    ap.add_argument("--max-num-seqs", type=int, default=8)
-    ap.add_argument("--max-prefill-tokens", type=int, default=512)
+    add_model_args(ap)
     return ap.parse_args(argv)
-
-
-def build_engine(args):
-    """(TorchEngine, ModelConfig) from the CLI arguments."""
-    import dataclasses
-
-    from ..device import resolve_device
-    from ..engine import EngineConfig, TorchEngine
-    from ..models import CONFIGS, init_params, tiny_config
-
-    device = resolve_device(args.device)
-    if args.model == "tiny":
-        cfg = tiny_config()
-    elif args.model in CONFIGS:
-        cfg = CONFIGS[args.model]
-    else:
-        raise SystemExit(f"unknown model {args.model!r}: tiny or one of "
-                         f"{sorted(CONFIGS)}")
-    if args.num_layers:
-        cfg = dataclasses.replace(cfg, num_hidden_layers=args.num_layers)
-    dtype = _DTYPES[args.dtype or ("float32" if args.model == "tiny" else "bfloat16")]
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = init_params(cfg, gen, dtype=dtype, device=device)
-    ecfg = EngineConfig(
-        page_size=args.page_size, num_pages=args.num_pages,
-        max_model_len=args.max_model_len, max_num_seqs=args.max_num_seqs,
-        max_prefill_tokens=args.max_prefill_tokens,
-    )
-    return TorchEngine(cfg, model, ecfg, device=device), cfg
 
 
 def to_request(line: dict) -> dict:
@@ -111,19 +84,55 @@ async def run_batch(engine, requests: List[dict]) -> List[dict]:
         await engine.shutdown()
 
 
+async def start_stack(args, engine, mdc):
+    """Runtime (embedded control plane unless --control), the engine's
+    worker endpoint, the model watcher and the HTTP service."""
+    from ..frontend import HttpService, ModelManager, ModelWatcher
+    from ..runtime import DistributedRuntime
+    from ..worker import serve_engine
+
+    if args.control:
+        runtime = await DistributedRuntime.connect(args.control)
+    else:
+        runtime = await DistributedRuntime.detached()
+    await serve_engine(runtime, engine, mdc, namespace=args.namespace)
+    manager = ModelManager()
+    watcher = await ModelWatcher(runtime, manager,
+                                 router_mode=args.router_mode).start()
+    await watcher.wait_for_model(mdc.name)
+    http = await HttpService(manager, host=args.host, port=args.port).start()
+    return runtime, watcher, http
+
+
+async def serve_http(args, engine, mdc) -> None:
+    runtime, watcher, http = await start_stack(args, engine, mdc)
+    print(f"READY http://{args.host}:{http.port}", flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    try:
+        await stop.wait()
+    finally:
+        await http.stop()
+        await watcher.stop()
+        await runtime.shutdown(graceful=False)
+        await engine.shutdown()
+
+
 def main(argv: Optional[list] = None) -> int:
+    from ..worker.__main__ import build_engine
+
     args = parse_args(argv)
-    if args.in_mode == "http":
-        print("dynamo_tpu_torch.run: --in http is not yet ported (the OpenAI "
-              "frontend, tokenizer and transport come in a later slice); "
-              "use --in batch", file=sys.stderr)
-        return 2
-    if not args.input_file:
+    if args.in_mode == "batch" and not args.input_file:
         print("--in batch needs --input-file", file=sys.stderr)
         return 2
+    engine, mdc = build_engine(args)
+    if args.in_mode == "http":
+        asyncio.run(serve_http(args, engine, mdc))
+        return 0
     with open(args.input_file) as f:
         requests = [to_request(json.loads(ln)) for ln in f if ln.strip()]
-    engine, _ = build_engine(args)
     results = asyncio.run(run_batch(engine, requests))
     out = open(args.output_file, "w") if args.output_file else sys.stdout
     try:

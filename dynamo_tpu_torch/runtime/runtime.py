@@ -1,0 +1,177 @@
+"""DistributedRuntime: the per-process cluster handle.
+
+The port's copy of the JAX package's `runtime/runtime.py`.  Reference: lib/runtime/src/lib.rs:72 (`Runtime`), :184
+(`DistributedRuntime`).  Holds the control-plane client (discovery KV +
+pub/sub + streams), the shared ServiceClient pool, this process's
+ServiceServer, the primary lease (liveness) with its keepalive task, and a
+graceful-shutdown tracker.  `DistributedRuntime.detached()` runs an embedded
+control plane in-process for single-process/static deployments and tests.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+
+from .component import Namespace
+from .transport.control_plane import (
+    ControlPlaneClient,
+    ControlPlaneServer,
+)
+from .transport.service import ServiceClient, ServiceServer
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_LEASE_TTL = float(os.environ.get("DYN_TPU_LEASE_TTL", "5.0"))
+
+
+class DistributedRuntime:
+    def __init__(
+        self,
+        control_address: str,
+        *,
+        advertise_host: str | None = None,
+        lease_ttl: float = DEFAULT_LEASE_TTL,
+    ):
+        self.control_address = control_address
+        self.control: ControlPlaneClient = ControlPlaneClient(control_address)
+        self.service_client = ServiceClient()
+        self.service_server: ServiceServer | None = None
+        self.primary_lease: int = 0
+        # dialable-from-other-hosts address: explicit arg, else
+        # DYN_ADVERTISE_HOST (k8s: pod IP via fieldRef), else loopback
+        self._advertise_host = (
+            advertise_host or os.environ.get("DYN_ADVERTISE_HOST")
+            or "127.0.0.1"
+        )
+        self._lease_ttl = lease_ttl
+        self._keepalive_task: asyncio.Task | None = None
+        self._embedded_server: ControlPlaneServer | None = None
+        self._served: list = []
+        self._shutdown = asyncio.Event()
+        # lease-scoped keys this process owns (instance records, model
+        # cards, transfer layouts): remembered so that when a lease is
+        # lost to a control-plane partition longer than the TTL, the
+        # keepalive loop can re-grant and re-publish them — the process
+        # re-converges into discovery instead of silently vanishing
+        self._leased_keys: dict[str, bytes] = {}
+
+    # -- construction ------------------------------------------------------- #
+
+    @classmethod
+    async def connect(cls, control_address: str | None = None, **kw) -> "DistributedRuntime":
+        """Connect to a running control plane (address from arg or
+        DYN_TPU_CONTROL env var)."""
+        addr = control_address or os.environ.get("DYN_TPU_CONTROL", "")
+        if not addr:
+            raise ValueError("no control plane address (set DYN_TPU_CONTROL)")
+        rt = cls(addr, **kw)
+        await rt._init()
+        return rt
+
+    @classmethod
+    async def detached(cls, **kw) -> "DistributedRuntime":
+        """Single-process mode: embed a control plane server in-process.
+        Other local processes may still connect to `rt.control_address`."""
+        server = await ControlPlaneServer().start()
+        rt = cls(server.address, **kw)
+        rt._embedded_server = server
+        await rt._init()
+        return rt
+
+    async def _init(self) -> None:
+        await self.control.connect()
+        self.primary_lease = await self.control.grant_lease(self._lease_ttl)
+        self._keepalive_task = asyncio.create_task(self._keepalive_loop())
+
+    async def _keepalive_loop(self) -> None:
+        """Keep the primary lease alive; survive transient control-plane
+        loss (partition, restart).  A ConnectionError is NOT fatal — retry
+        until shutdown; if the lease actually expired meanwhile, re-grant
+        and re-publish every lease-scoped key this process owns."""
+        republish = False
+        while not self._shutdown.is_set():
+            try:
+                await asyncio.sleep(self._lease_ttl / 3)
+                ok = await self.control.keepalive(self.primary_lease)
+                if not ok:
+                    logger.warning(
+                        "primary lease %d lost — re-granting and "
+                        "re-publishing %d key(s)", self.primary_lease,
+                        len(self._leased_keys),
+                    )
+                    self.primary_lease = await self.control.grant_lease(
+                        self._lease_ttl
+                    )
+                    republish = True
+                if republish:
+                    # sticky until it fully succeeds: a partition returning
+                    # mid-recovery must not strand half the keys
+                    for key, value in list(self._leased_keys.items()):
+                        await self.control.put(key, value,
+                                               lease=self.primary_lease)
+                    republish = False
+            except asyncio.CancelledError:
+                return
+            except (ConnectionError, RuntimeError) as e:
+                logger.warning("lease keepalive failed (%s); retrying", e)
+
+    # -- lease-scoped state -------------------------------------------------- #
+
+    async def put_leased(self, key: str, value: bytes) -> None:
+        """Publish a key under the primary lease AND remember it for
+        re-publication after a lease loss."""
+        self._leased_keys[key] = value
+        await self.control.put(key, value, lease=self.primary_lease)
+
+    async def delete_leased(self, key: str) -> None:
+        self._leased_keys.pop(key, None)
+        await self.control.delete(key)
+
+    # -- component tree ----------------------------------------------------- #
+
+    def namespace(self, name: str) -> Namespace:
+        return Namespace(self, name)
+
+    # -- service server ----------------------------------------------------- #
+
+    async def ensure_service_server(self) -> ServiceServer:
+        if self.service_server is None:
+            self.service_server = await ServiceServer(host="0.0.0.0").start()
+        return self.service_server
+
+    def advertise_address(self) -> str:
+        assert self.service_server is not None
+        return f"{self._advertise_host}:{self.service_server.port}"
+
+    # -- shutdown ----------------------------------------------------------- #
+
+    async def shutdown(self, graceful: bool = True, drain_timeout: float = 30.0) -> None:
+        """Deregister instances, optionally drain in-flight streams, revoke
+        the lease, close transports (reference: graceful-shutdown tracker +
+        endpoint drain, endpoint.rs:39)."""
+        for served in self._served:
+            try:
+                await served.deregister()
+            except (ConnectionError, RuntimeError):
+                pass
+        if self.service_server is not None:
+            if graceful:
+                await self.service_server.drain(drain_timeout)
+            await self.service_server.stop()
+        if self._keepalive_task:
+            self._keepalive_task.cancel()
+            await asyncio.gather(self._keepalive_task, return_exceptions=True)
+        try:
+            await self.control.revoke(self.primary_lease)
+        except (ConnectionError, RuntimeError):
+            pass
+        await self.service_client.close()
+        await self.control.close()
+        if self._embedded_server:
+            await self._embedded_server.stop()
+        self._shutdown.set()
+
+    async def wait_shutdown(self) -> None:
+        await self._shutdown.wait()

@@ -1,0 +1,138 @@
+"""Test data of the port: the tiny byte-level tokenizer and a seeded
+byte-level BPE tokenizer of any vocabulary size.
+
+Both are written as ``tokenizer.json`` documents, so the HF `tokenizers`
+runtime and the port's `llm.tokenizer` read the same bytes.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+from typing import List, Optional
+
+from .llm.tokenizer import HuggingFaceTokenizer, bytes_to_unicode
+
+TINY_SPECIALS = ("<|endoftext|>", "<|user|>", "<|assistant|>", "<|system|>")
+
+# Llama-3's split pattern (its published tokenizer.json)
+LLAMA3_PATTERN = (
+    r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+    r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+"
+)
+
+
+def _added(content: str, i: int) -> dict:
+    return {"id": i, "content": content, "single_word": False, "lstrip": False,
+            "rstrip": False, "normalized": False, "special": True}
+
+
+def _bpe(vocab: dict, merges: List[List[str]], ignore_merges: bool) -> dict:
+    return {"type": "BPE", "dropout": None, "unk_token": None,
+            "continuing_subword_prefix": None, "end_of_word_suffix": None,
+            "fuse_unk": False, "byte_fallback": False,
+            "ignore_merges": ignore_merges, "vocab": vocab, "merges": merges}
+
+
+_BYTELEVEL = {"type": "ByteLevel", "add_prefix_space": False,
+              "trim_offsets": True, "use_regex": True}
+
+
+def tiny_tokenizer_json() -> str:
+    """The JAX package's tiny test tokenizer (`dynamo_tpu.testing.
+    tiny_tokenizer`): a byte-level BPE trained to its 260-symbol floor
+    (4 specials, then the 256-character byte alphabet in code-point
+    order, no merges) plus ``<image>`` as id 260."""
+    alphabet = sorted(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(list(TINY_SPECIALS) + alphabet)}
+    added = [_added(t, i) for i, t in enumerate(TINY_SPECIALS)]
+    added.append(_added("<image>", len(vocab)))
+    return json.dumps({
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": dict(_BYTELEVEL), "post_processor": None,
+        "decoder": {**_BYTELEVEL, "add_prefix_space": True},
+        "model": _bpe(vocab, [], False),
+    }, ensure_ascii=False)
+
+
+def tiny_tokenizer() -> HuggingFaceTokenizer:
+    data = tiny_tokenizer_json()
+    tok = HuggingFaceTokenizer(data)
+    tok.eos_token_ids = [tok.token_to_id("<|endoftext|>")]
+    return tok
+
+
+def synthetic_tokenizer_json(vocab_size: int = 128256, seed: int = 0,
+                             n_special: int = 256,
+                             max_token_chars: int = 8) -> str:
+    """A Llama-3-shaped byte-level BPE tokenizer of exactly `vocab_size`
+    ids, drawn from `seed`: the 256 byte symbols, then seeded merges of
+    two existing symbols (at most `max_token_chars` characters, each a
+    new id), then `n_special` special tokens (``<|begin_of_text|>`` first,
+    which the post-processor puts before every encoded sequence).  Every
+    id decodes.  Test data for models with random weights, not a
+    tokenizer of any published model."""
+    rng = random.Random(seed)
+    table = bytes_to_unicode()
+    symbols = [table[b] for b in range(256)]
+    vocab = {s: i for i, s in enumerate(symbols)}
+    merges: List[List[str]] = []
+    n_merges = vocab_size - n_special - 256
+    if n_merges < 0:
+        raise ValueError(f"vocab_size {vocab_size} < 256 bytes + {n_special} specials")
+    while len(merges) < n_merges:
+        # left: any symbol; right: a byte half the time, so common byte
+        # runs grow into longer tokens as a trained vocabulary's do
+        a = symbols[rng.randrange(len(symbols))]
+        b = symbols[rng.randrange(256 if rng.random() < 0.5 else len(symbols))]
+        new = a + b
+        if len(new) > max_token_chars or new in vocab:
+            continue
+        vocab[new] = len(symbols)
+        symbols.append(new)
+        merges.append([a, b])
+    base = len(vocab)
+    names = ["<|begin_of_text|>", "<|end_of_text|>"] + [
+        f"<|reserved_special_token_{k}|>" for k in range(n_special - 2)]
+    added = [_added(t, base + k) for k, t in enumerate(names)]
+    bos = names[0]
+    return json.dumps({
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {**_BYTELEVEL, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {**_BYTELEVEL, "use_regex": False},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [base],
+                                      "tokens": [bos]}}}]},
+        "decoder": {**_BYTELEVEL, "use_regex": True},
+        "model": _bpe(vocab, merges, True),
+    }, ensure_ascii=False)
+
+
+def synthetic_tokenizer(vocab_size: int = 128256, seed: int = 0,
+                        path: Optional[str] = None) -> HuggingFaceTokenizer:
+    """`synthetic_tokenizer_json` loaded (and written to `path` when
+    given); EOS is ``<|end_of_text|>``, BOS ``<|begin_of_text|>``."""
+    data = synthetic_tokenizer_json(vocab_size, seed)
+    if path:
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(data)
+    tok = HuggingFaceTokenizer(data)
+    tok.eos_token_ids = [tok.token_to_id("<|end_of_text|>")]
+    tok.bos_token_id = tok.token_to_id("<|begin_of_text|>")
+    return tok
+
+
+__all__ = ["LLAMA3_PATTERN", "synthetic_tokenizer",
+           "synthetic_tokenizer_json", "tiny_tokenizer", "tiny_tokenizer_json"]

@@ -1,0 +1,83 @@
+"""Worker glue: serve a TorchEngine (or any AsyncEngine) as a discovered,
+routable model endpoint.
+
+The port's copy of the JAX package's `worker/__init__.py` (`EngineWorker`,
+`serve_engine`).  The KV-event and load publishers that feed the KV
+router, data-parallel ranks and the KVBM tier summary are later slices.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, AsyncIterator
+
+from ..engine import ForwardPassMetrics, TorchEngine
+from ..frontend.service import register_llm
+from ..llm import ModelDeploymentCard, RuntimeConfig
+from ..runtime import Context, DistributedRuntime, ServedEndpoint
+
+logger = logging.getLogger(__name__)
+
+
+class EngineWorker:
+    """Wraps an engine with the endpoint handler protocol: request dicts in,
+    token-delta dicts out; control requests served inline."""
+
+    def __init__(self, engine: Any):
+        self.engine = engine
+
+    async def handle(self, request: Any, context: Context) -> AsyncIterator[Any]:
+        if isinstance(request, dict) and "control" in request:
+            async for out in self._control(request):
+                yield out
+            return
+        if isinstance(request, dict) and "embed_token_ids" in request:
+            yield {"error": "engine does not support embeddings"}
+            return
+        async for out in self.engine.generate(request, context):
+            yield out
+
+    async def _control(self, request: dict) -> AsyncIterator[Any]:
+        op = request["control"]
+        if op == "clear_kv_blocks":
+            cleared = 0
+            if hasattr(self.engine, "clear_kv_blocks"):
+                cleared = self.engine.clear_kv_blocks()
+            yield {"status": "ok", "pages_cleared": cleared}
+        elif op == "metrics":
+            m = (
+                self.engine.metrics()
+                if hasattr(self.engine, "metrics")
+                else ForwardPassMetrics()
+            )
+            yield vars(m) if not isinstance(m, dict) else m
+        else:
+            yield {"status": "error", "error": f"unknown control op {op}"}
+
+
+async def serve_engine(
+    runtime: DistributedRuntime,
+    engine: Any,
+    mdc: ModelDeploymentCard,
+    namespace: str = "dynamo",
+    component: str = "backend",
+    endpoint: str = "generate",
+) -> ServedEndpoint:
+    """Register the engine as `{namespace}.{component}.{endpoint}` and
+    publish its model card. Returns the served endpoint handle."""
+    worker = EngineWorker(engine)
+    ep = runtime.namespace(namespace).component(component).endpoint(endpoint)
+    served = await ep.serve_endpoint(
+        worker.handle,
+        health_check_payload={"control": "metrics"},
+    )
+    if isinstance(engine, TorchEngine):
+        mdc.kv_cache_block_size = engine.cfg.page_size
+        mdc.context_length = engine.cfg.max_model_len
+        mdc.runtime_config = RuntimeConfig(
+            total_kv_blocks=engine.cfg.usable_pages,
+            max_num_seqs=engine.cfg.max_num_seqs,
+            max_num_batched_tokens=engine.cfg.max_prefill_tokens,
+        )
+    await register_llm(runtime, served, mdc)
+    return served

@@ -1,0 +1,178 @@
+"""Worker CLI: `python -m dynamo_tpu_torch.worker --control HOST:PORT
+--model ...`.
+
+The port's copy of `python -m dynamo_tpu.worker`: builds a `TorchEngine`
+and serves it as a discovered model endpoint, then prints ``READY worker
+<name>``.  ``--model`` takes a checkpoint directory (safetensors +
+config.json + tokenizer.json), ``tiny`` (the test model and tokenizer) or
+a canned config name (``llama-3.1-8b``, ...; random weights from
+``--seed`` and a seeded byte-level tokenizer of the model's vocabulary).
+The engine flags of the JAX worker that the port has not taken
+(multi-step decode, chains, the block ladder, speculative decoding, int8,
+KV partitioning) are accepted and refused by `TorchEngine`; vision,
+disagg, KVBM, meshes, multihost, mock engines and the status server are
+later slices.  Runs on CUDA unless given ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import dataclasses
+import logging
+import os
+import signal
+
+_DTYPES = ("bfloat16", "float32")
+
+
+def _ladder_arg(s: str):
+    if not s:
+        return None
+    try:
+        return [int(r) for r in s.split(",") if r.strip()] or None
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"invalid ladder {s!r}: expected comma-separated ints") from None
+
+
+def add_model_args(ap: argparse.ArgumentParser) -> None:
+    """Model, device and engine flags shared by the worker and `run`."""
+    ap.add_argument("--model", default="tiny",
+                    help="HF checkpoint dir, 'tiny', or a canned config name")
+    ap.add_argument("--model-name", default=None)
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut a canned model's depth (widths stay as published)")
+    ap.add_argument("--dtype", default=None, choices=_DTYPES,
+                    help="default: float32 for tiny, bfloat16 otherwise")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="random weights and tokenizer of tiny/canned models")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; there is no silent fallback")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=1024)
+    ap.add_argument("--max-model-len", type=int, default=4096)
+    ap.add_argument("--max-num-seqs", type=int, default=8)
+    ap.add_argument("--max-prefill-tokens", type=int, default=512)
+    ap.add_argument("--mixed-prefill-tokens", type=int, default=None)
+    ap.add_argument("--no-prefix-caching", action="store_true")
+    ap.add_argument("--priority-class", default="interactive",
+                    choices=["interactive", "batch"])
+    # JAX engine flags the port refuses (TorchEngine names them)
+    ap.add_argument("--decode-steps", type=int, default=1)
+    ap.add_argument("--decode-chain", type=int, default=1)
+    ap.add_argument("--decode-continuous", action="store_true")
+    ap.add_argument("--decode-block-ladder", type=_ladder_arg, default=None)
+    ap.add_argument("--speculative-ngram-k", type=int, default=0)
+    ap.add_argument("--quantization", default="none", choices=["none", "int8"])
+    ap.add_argument("--kv-partition", action="store_true")
+
+
+def engine_config_from_args(args):
+    from ..engine import EngineConfig
+
+    return EngineConfig(
+        page_size=args.page_size,
+        num_pages=args.num_pages,
+        max_num_seqs=args.max_num_seqs,
+        max_prefill_tokens=args.max_prefill_tokens,
+        max_model_len=args.max_model_len,
+        mixed_prefill_tokens=args.mixed_prefill_tokens,
+        enable_prefix_caching=not args.no_prefix_caching,
+        default_priority=args.priority_class,
+        decode_steps=args.decode_steps,
+        decode_chain=args.decode_chain,
+        decode_continuous=args.decode_continuous,
+        decode_block_ladder=args.decode_block_ladder,
+        speculative_ngram_k=args.speculative_ngram_k,
+        quantization=args.quantization,
+        kv_partition=args.kv_partition,
+    )
+
+
+def build_engine(args):
+    """(TorchEngine, ModelDeploymentCard) from the CLI arguments."""
+    import torch
+
+    from ..device import resolve_device
+    from ..engine import TorchEngine
+    from ..llm import HuggingFaceTokenizer, ModelDeploymentCard
+    from ..models import CONFIGS, ModelConfig, init_params, tiny_config
+    from ..models.loader import load_params
+    from ..testing import synthetic_tokenizer, tiny_tokenizer
+
+    device = resolve_device(args.device)
+    ecfg = engine_config_from_args(args)
+    dtype = getattr(torch, args.dtype or (
+        "float32" if args.model == "tiny" else "bfloat16"))
+    if os.path.isdir(args.model):
+        cfg = ModelConfig.from_pretrained(args.model)
+        model = load_params(args.model, cfg, dtype=dtype, device=device)
+        tok = HuggingFaceTokenizer.from_pretrained(args.model)
+    else:
+        if args.model == "tiny":
+            tok = tiny_tokenizer()
+            cfg = tiny_config(vocab_size=tok.vocab_size)
+        elif args.model in CONFIGS:
+            cfg = CONFIGS[args.model]
+            tok = synthetic_tokenizer(cfg.vocab_size, args.seed)
+        else:
+            raise SystemExit(f"unknown model {args.model!r}: a checkpoint "
+                             f"directory, tiny, or one of {sorted(CONFIGS)}")
+        if args.num_layers:
+            cfg = dataclasses.replace(cfg, num_hidden_layers=args.num_layers)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        model = init_params(cfg, gen, dtype=dtype, device=device)
+    eos = list(tok.eos_token_ids)
+    engine = TorchEngine(cfg, model, ecfg, eos_token_ids=eos, device=device)
+    mdc = ModelDeploymentCard(
+        name=args.model_name or ("tiny-chat" if args.model == "tiny" else cfg.name),
+        tokenizer_json=tok.to_json_str(),
+        eos_token_ids=eos,
+        context_length=args.max_model_len,
+        priority_class=args.priority_class,
+    )
+    return engine, mdc
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="dynamo_tpu_torch worker")
+    env_control = os.environ.get("DYN_CONTROL", "")
+    ap.add_argument("--control", required=not env_control, default=env_control)
+    ap.add_argument("--namespace", default="dynamo")
+    ap.add_argument("--component", default="backend")
+    ap.add_argument("--endpoint", default="generate")
+    ap.add_argument("--log-level", default="info")
+    add_model_args(ap)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=args.log_level.upper(),
+                        format="%(asctime)s %(levelname)s %(name)s %(message)s")
+    asyncio.run(_run(args))
+
+
+async def _run(args) -> None:
+    from ..runtime import DistributedRuntime
+    from . import serve_engine
+
+    # build the engine BEFORE taking a lease: model load can take longer
+    # than the lease TTL
+    engine, mdc = build_engine(args)
+    runtime = await DistributedRuntime.connect(args.control)
+    await serve_engine(runtime, engine, mdc, namespace=args.namespace,
+                       component=args.component, endpoint=args.endpoint)
+    print(f"READY worker {mdc.name}", flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    await runtime.shutdown()
+    await engine.shutdown()
+
+
+if __name__ == "__main__":
+    main()

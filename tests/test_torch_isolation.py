@@ -1,7 +1,9 @@
 """The port stands alone: importing dynamo_tpu_torch (every module), its
-batch launcher and chip_smoke.py loads neither JAX nor the JAX package; no
-module of the port imports them; and the entry points refuse to run when
-there is no CUDA device and the caller did not ask for the CPU."""
+launchers and chip_smoke.py loads neither JAX nor the JAX package, nor any
+of the packages the GPU machine lacks (aiohttp, msgpack, tokenizers,
+safetensors, regex, prometheus_client); no module of the port imports
+them; and the entry points refuse to run when there is no CUDA device and
+the caller did not ask for the CPU."""
 
 import ast
 import os
@@ -13,7 +15,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dynamo_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "msgpack", "tokenizers",
+             "safetensors", "regex", "prometheus_client")
+LAUNCHERS = ("run", "worker", "frontend", "runtime")
 
 
 def _forbidden(name: str) -> bool:
@@ -26,7 +30,9 @@ def test_imports_load_no_jax():
         "import dynamo_tpu_torch\n"
         "for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import dynamo_tpu_torch.run.__main__, chip_smoke\n"
+        "for m in " + repr(LAUNCHERS) + ":\n"
+        "    importlib.import_module(f'dynamo_tpu_torch.{m}.__main__')\n"
+        "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -64,7 +70,13 @@ def test_no_jax_import_in_source(path):
 def test_entry_points_refuse_without_cuda(monkeypatch):
     from dynamo_tpu_torch import resolve_device
     from dynamo_tpu_torch.engine import TorchEngine
-    from dynamo_tpu_torch.models import KVCache, Llama, init_params, tiny_config
+    from dynamo_tpu_torch.models import (
+        KVCache,
+        Llama,
+        ModelConfig,
+        init_params,
+        tiny_config,
+    )
     from dynamo_tpu_torch.run.__main__ import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -85,4 +97,13 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
     prompts = os.path.join(ROOT, "tests", "fixtures", "torch_prompts.jsonl")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--in", "batch", "--input-file", prompts])
-    assert main(["--in", "http"]) == 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--in", "http"])
+    from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.worker.__main__ import build_engine, build_parser
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(build_parser().parse_args(["--control", "x:1"]))
+    golden = os.path.join(ROOT, "tests", "fixtures", "torch_golden_llama_hd64")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_params(golden, ModelConfig.from_pretrained(golden), torch.float32)
