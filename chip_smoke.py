@@ -56,11 +56,29 @@ final line):
    /v1/models, /health and /metrics must answer, and both attention
    kernels must appear in the trace.  Mean TTFT, ITL and decode tokens/s
    of each arm at the client and the frontend's SSE CPU per token are
-   printed on a line of their own beside phase 4's numbers and the card.
+   printed on a line of their own beside phase 4's numbers and the card;
+8. device_loop: the engine's device loop at phase 4's width, depth and
+   weights, in four engines: (a) one-step blocks, (b) 8-step blocks with
+   the ladder 1/2/4 and chains of 2, (c) as (b) with the continuous loop
+   and chunk rows of up to 512 prompt tokens a block, (d) speculative
+   decoding with 4 n-gram drafts.  Each serves phase 4's five prompts, a
+   long greedy prompt of repeated n-grams, and a 64-token arrival sent
+   once the five are done and a block of the long row is in flight (arm
+   (c) splices it into the running chain): two warm-up passes, a
+   measured pass (TTFT, ITL, tokens/s; launches counted through graph
+   replays; no new capture allowed), a check that one block's replay is
+   bit-equal to its uncaptured run, and a `torch.profiler` pass.  Greedy
+   rows that ran the same arithmetic must equal arm (a)'s; a chunk-row or
+   verified row may part from it only at a near-tie (its margin in logit
+   std units, measured on the prefill path, within LOGIT_TOL).
 
-Launch counts are read per path (phases 4, 6 and 7, each zeroed just
-before it): the kernel summary line's ``launches`` are those of the
-HTTP traffic, the main path.  Then the kernel summary line, the card line, and as the last line
+On the card every decode block is a replayed CUDA graph; the wrappers
+count launches in Python, so the graph runner adds each graph's recorded
+launches at every replay.  Every JSON line is also written to
+``chip_smoke.jsonl`` in the output directory below, for the lines a
+terminal's scrollback loses.  Launch counts are read per path (phases 4, 6
+and 7, and each arm of 8, each zeroed just before it): the kernel summary
+line's ``launches`` are those of the HTTP traffic, the main path.  Then the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.
 """
@@ -100,8 +118,15 @@ RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 LOGIT_TOL = 0.5
 
 
+_JSONL = None  # every emitted line, also kept in OUT_DIR/chip_smoke.jsonl
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if _JSONL is not None:
+        _JSONL.write(line + "\n")
+        _JSONL.flush()
 
 
 def fail(msg: str) -> None:
@@ -272,6 +297,38 @@ def decode_case(name, gen, dtype, hd, H, n_kv, seq_lens, window=None,
     return res
 
 
+def decode_width_case(gen, page=16):
+    """The engine pads page tables to a width bucket and a CUDA graph fixes
+    its bucket, so the same rows must decode to the same bits at table
+    width W and at a padded 2W: the extra entries point at trash page 0
+    and only add EMPTY splits to the merge."""
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    seq_lens, dtype = SERVING_DECODE, torch.bfloat16
+    B = len(seq_lens)
+    maxp = -(-max(seq_lens) // page)
+    table, P = _table([-(-s // page) for s in seq_lens], maxp)
+    kp, vp = _pool(gen, P, page, 8, 128, dtype)
+    table = table.cuda()
+    wide = torch.cat([table, torch.zeros_like(table)], dim=1)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    q = (torch.randn((B, 32, 128), generator=gen, device="cuda") * Q_STD).to(dtype)
+    out = ca.decode_attention_cuda(q, kp, vp, table, lens)
+    out2 = ca.decode_attention_cuda(q, kp, vp, wide, lens)
+    ref = pa.decode_attention_plain(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    live = [b for b, s in enumerate(seq_lens) if s > 0]
+    return {"case": "decode serving shape at width W and padded 2W",
+            "kernel": "decode_attention", "dtype": str(dtype),
+            **_errors(out[live], ref[live], dtype),
+            "finite": bool(torch.isfinite(out).all()),
+            "widths": [maxp, 2 * maxp],
+            "n_split": [ca.decode_num_splits(maxp, page),
+                        ca.decode_num_splits(2 * maxp, page)],
+            "bit_identical": bool(torch.equal(out, out2))}
+
+
 def prefill_case(name, gen, dtype, hd, H, n_kv, S, prefix, chunk, window=None,
                  with_sink=False, page=16, timed=False):
     from dynamo_tpu_torch.ops import cuda_attention as ca
@@ -386,8 +443,11 @@ def phase_kernels():
         prefill_case("prefill serving shape", gen, bf, 128, 32, 8, sp["S"],
                      sp["prefix"], sp["chunk"], timed=True),
     ]
+    results.append(decode_width_case(gen))
     for r in results:
         emit({"phase": "kernel_check", **r})
+        if not r.get("bit_identical", True):
+            fail(f"decode output depends on the table's padding: {r}")
         ok = (r["max_rel_err"] <= r["rtol"] and r["finite"]
               and r.get("zero_rows_ok", True) and r.get("padded_rows_zero", True))
         if not ok:
@@ -417,8 +477,8 @@ def phase_sampling():
         gum = [threefry.gumbel(keys[d], V).cpu() for d in ("cpu", "cuda")]
         # the sampler's own draw (host keys, one merged hash on the device)
         noise = [torch.cat([g.cpu() for g in sampling.gumbel_noise(
-            [seed], [counter], V, sampling.TOP_K_CAP, d, [0])], 1)
-                 for d in ("cpu", "cuda")]
+            torch.tensor([seed], device=d), torch.tensor([counter], device=d),
+            V, sampling.TOP_K_CAP)], 1) for d in ("cpu", "cuda")]
         checks.append({"seed": seed, "counter": counter,
                        "bits_equal": bool(torch.equal(bits[0], bits[1])),
                        "gumbel_max_abs_diff": max(
@@ -433,7 +493,8 @@ def phase_sampling():
                                           [1.0] * (B - 1) + [0.9], device="cuda")
     mix = sampling.SamplingParams.make([0.0] * 4 + [0.8], [0] * 5, [1.0] * 5,
                                        device="cuda")
-    seeds, ctrs = list(range(B)), [5] * B
+    seeds = torch.arange(B, device="cuda")
+    ctrs = torch.full((B,), 5, device="cuda")
 
     def host_ms(fn, iters=20):
         fn()
@@ -447,7 +508,7 @@ def phase_sampling():
     res = {"phase": "sampling", "vocab": V, "checks": checks,
            "gumbel_atol": GUMBEL_ATOL, "batch": B,
            "noise_ms_per_step": host_ms(lambda: sampling.gumbel_noise(
-               seeds, ctrs, V, sampling.TOP_K_CAP, "cuda", range(B))),
+               seeds, ctrs, V, sampling.TOP_K_CAP)),
            "sample_ms_per_step": host_ms(lambda: sampling.sample_tokens(
                logits, params, seeds, ctrs)),
            "sample_ms_one_of_5_rows": host_ms(lambda: sampling.sample_tokens(
@@ -1200,6 +1261,252 @@ def phase_http(model, cfg, direct):
 
 
 # --------------------------------------------------------------------------- #
+# phase 8: the engine's device loop
+# --------------------------------------------------------------------------- #
+
+# Four engines over the same weights and traffic: (a) the default one-step
+# blocks, (b) 8-step blocks with the ladder 1/2/4 and chains of 2, (c) the
+# same with the continuous loop and chunk rows (the loop runs at the
+# ladder's top rung), (d) speculative decoding with k = 4.
+DEVICE_LOOP_ARMS = {
+    "a_steps1": dict(decode_steps=1),
+    "b_steps8_ladder_chain2": dict(decode_steps=8, decode_block_ladder=[1, 2, 4],
+                                   decode_chain=2),
+    "c_continuous_chunk512": dict(decode_steps=8, decode_block_ladder=[1, 2, 4],
+                                  decode_chain=2, decode_continuous=True,
+                                  prefill_chunk_tokens=512),
+    "d_spec_ngram4": dict(speculative_ngram_k=4),
+}
+# rows held token-identical across arms (a), (b), (c): greedy, and never fed
+# through a chunk row or a verify
+GREEDY_ROWS = ("A_64", "B_shared+200", "C_2048", "E_300", "G_repeat")
+
+
+LONG_ROW, LONG_TOKENS = "G_repeat", 96
+
+
+def device_loop_requests(cfg):
+    """Phase 4's five prompts (32 tokens each), a greedy prompt of repeated
+    n-grams that decodes for longer (the drafts of arm (d) can match it),
+    and the arrival F, sent once the five are done and a decode block of
+    the long row is in flight: arm (c) then splices it into a running
+    chain that no other row's stop ends."""
+    shared, prompts = serving_prompts(cfg)
+    g = torch.Generator().manual_seed(SEED + 4)
+    pattern = torch.randint(0, cfg.vocab_size, (16,), generator=g).tolist()
+    wave = {n: _req(t, temperature=temp, seed=s) for n, (t, temp, s) in prompts.items()}
+    wave[LONG_ROW] = _req(pattern * 16, max_tokens=LONG_TOKENS)
+    arrival = _req(torch.randint(0, cfg.vocab_size, (64,), generator=g).tolist())
+    return shared, wave, arrival
+
+
+def reference_logits(model, cfg, tokens):
+    """f32 logits after `tokens` from the eager prefill path (512-token
+    chunks into a scratch pool): the yardstick of a flip's margin."""
+    from dynamo_tpu_torch.models import KVCache
+
+    page = 16
+    pages = -(-len(tokens) // page)
+    kv = KVCache.create(cfg, pages + 1, page, torch.bfloat16, "cuda")
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None]
+    for lo in range(0, len(tokens), 512):
+        chunk = tokens[lo:lo + 512]
+        logits = model.forward_prefill(
+            kv, torch.tensor([chunk], device="cuda"), table,
+            torch.tensor([lo], dtype=torch.int32, device="cuda"),
+            torch.tensor([len(chunk)], dtype=torch.int32, device="cuda"))
+    return logits[0]
+
+
+def first_flip(model, cfg, prompt, ref, got):
+    """None when `got` equals `ref`; else where they part and the margin
+    of the reference token over the other in logit std units."""
+    if got == ref:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+             min(len(ref), len(got)))
+    if j >= min(len(ref), len(got)):
+        return {"index": j, "margin_std": None, "lengths": [len(ref), len(got)]}
+    lg = reference_logits(model, cfg, prompt + ref[:j])
+    margin = ((lg[ref[j]] - lg[got[j]]) / lg.std()).item()
+    return {"index": j, "ref_token": ref[j], "arm_token": got[j],
+            "margin_std": margin}
+
+
+def phase_device_loop(model, cfg):
+    """Each arm: an engine of its own; two warm-up passes that capture the
+    graphs, a measured pass (TTFT, ITL, tokens/s; launches, captures and
+    replays counted from zero), a check that one block's replay equals an
+    uncaptured run bit for bit, and a traced pass for the device
+    breakdown.  Every pass starts from the same prefix-cache state.  Then
+    the arms' greedy rows against arm (a)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+
+    shared, wave, arrival = device_loop_requests(cfg)
+    warm = _req(shared + warm_suffix(cfg), max_tokens=4)
+    tokens, launches_by_arm = {}, {}
+
+    for arm, over in DEVICE_LOOP_ARMS.items():
+        ecfg = EngineConfig(page_size=16, num_pages=1024, max_num_seqs=8,
+                            max_prefill_tokens=512, max_model_len=4096, **over)
+        engine = TorchEngine(cfg, model, ecfg, device="cuda")
+        if over.get("decode_continuous"):
+            def in_flight(e):
+                return e.get("continuous")
+        else:
+            def in_flight(e):
+                return e["kind"] in ("decode", "spec")
+
+        async def one_pass():
+            engine.clear_kv_blocks()
+            await _collect(engine, warm)
+            torch.cuda.synchronize()
+            engine.dispatch_trace = trace = []
+            t0 = time.perf_counter()
+            tasks = {n: asyncio.ensure_future(_collect(engine, r))
+                     for n, r in wave.items()}
+            await asyncio.gather(*[t for n, t in tasks.items() if n != LONG_ROW])
+            seen = len(trace)
+            while not any(in_flight(e) for e in trace[seen:]):
+                if time.perf_counter() - t0 > 300 or tasks[LONG_ROW].done():
+                    fail(f"device_loop {arm}: no decode block of the long "
+                         "row in flight to send the arrival into")
+                await asyncio.sleep(0.002)
+            tasks["F_arrival"] = asyncio.ensure_future(_collect(engine, arrival))
+            res = {n: await t for n, t in tasks.items()}
+            torch.cuda.synchronize()
+            engine.dispatch_trace = None
+            return res, trace, time.perf_counter() - t0
+
+        async def run():
+            # warm-up, twice: when the arrival lands decides which (rung,
+            # variant, width) keys a pass visits, and two passes see the
+            # set the measured pass needs (the JAX tests warm twice too)
+            await one_pass()
+            await one_pass()
+            g = engine.graphs
+            captures0, replays0 = g.captures, g.replays
+            ca.reset_launches()
+            for k in g.replayed_launches:
+                g.replayed_launches[k] = 0
+            m0 = engine.metrics()
+            res, trace, wall = await one_pass()
+            measured = {
+                "launches": dict(ca.LAUNCHES),
+                "replayed_launches": dict(g.replayed_launches),
+                "new_captures": g.captures - captures0,
+                "replays": g.replays - replays0,
+                "last_key": repr(g.last_key),
+                "replay_equal": g.check_replay(
+                    g.last_key, ["packed"] if g.last_key[0] == "spec"
+                    else ["packed", "tok"]),
+            }
+            m1 = engine.metrics()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, _, traced_wall = await one_pass()
+            await engine.shutdown()
+            return res, trace, wall, measured, m0, m1, device_breakdown(
+                prof, traced_wall)
+
+        res, trace, wall, measured, m0, m1, breakdown = asyncio.run(run())
+        for name, r in res.items():
+            want = LONG_TOKENS if name == LONG_ROW else 32
+            if r["finish_reason"] != "length" or len(r["tokens"]) != want:
+                fail(f"device_loop {arm}: {name} ended {r['finish_reason']} "
+                     f"with {len(r['tokens'])} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+                fail(f"device_loop {arm}: {name} produced out-of-vocab tokens")
+        tokens[arm] = {n: r["tokens"] for n, r in res.items()}
+        # tokens/s over phase 4's five prompts, as phase 4 counts it
+        wave_rows = [r for n, r in res.items() if n not in ("F_arrival", LONG_ROW)]
+        first = min(r["t_first"] for r in wave_rows)
+        last = max(r["t_last"] for r in wave_rows)
+        decoded = sum(len(r["tokens"]) - 1 for r in wave_rows)
+        card = card_line()
+        emit({"phase": "device_loop", "arm": arm, "config": over,
+              "what": "latency", "requests": len(res), "wall_s": wall,
+              "ttft_ms": {n: r["ttft_ms"] for n, r in res.items()},
+              "itl_ms": {n: (r["t_last"] - r["t_first"]) / (len(r["tokens"]) - 1) * 1e3
+                         for n, r in res.items()},
+              "decode_tokens_per_s": decoded / (last - first),
+              "dispatches": {k: sum(e["kind"] == k for e in trace)
+                             for k in {e["kind"] for e in trace}},
+              "card": card})
+        emit({"phase": "device_loop", "arm": arm, "what": "trace",
+              "traced_pass": breakdown, "card": card})
+        emit({"phase": "device_loop", "arm": arm, "what": "graphs",
+              **engine.graphs.stats(), "new_captures_in_measured_pass":
+              measured["new_captures"], "replays_in_measured_pass":
+              measured["replays"], "per_graph": engine.graphs.graph_stats()})
+        delta = {k: v - getattr(m0, k) for k, v in vars(m1).items()
+                 if k.startswith(("decode_cc_", "spec_")) and isinstance(v, int)}
+        emit({"phase": "device_loop", "arm": arm, "what": "counters",
+              "measured_pass": delta,
+              "decode_cc_fallout_total": m1.decode_cc_fallout_total,
+              "spec_acceptance_rate": m1.spec_acceptance_rate,
+              "chunk_rows_fed_blocks": sum(e.get("chunk_rows", 0) > 0
+                                           for e in trace),
+              "rungs": engine.rung_histogram})
+        emit({"phase": "device_loop", "arm": arm, "what": "launches",
+              "launches": measured["launches"],
+              "through_replays": measured["replayed_launches"],
+              "replay_check": {"key": measured["last_key"],
+                               "bit_equal": measured["replay_equal"]}})
+        launches_by_arm[arm] = measured["launches"]
+        rl = measured["replayed_launches"]
+        if not all(measured["replay_equal"].values()):
+            fail(f"device_loop {arm}: a replayed block differs from its "
+                 f"uncaptured run: {measured['replay_equal']}")
+        if measured["new_captures"]:
+            fail(f"device_loop {arm}: {measured['new_captures']} graphs "
+                 "captured after the warm-up pass")
+        if rl["decode_attention"] <= 0 or measured["launches"]["prefill_attention"] <= 0:
+            fail(f"device_loop {arm}: a kernel did not launch: {measured}")
+        if arm.startswith("c_") and not (delta["decode_cc_blocks_total"] > 0 and any(
+                e.get("chunk_rows", 0) > 0 for e in trace)):
+            fail(f"device_loop {arm}: the arrival never rode the chain as chunk rows")
+        if arm.startswith("d_") and not (delta["spec_dispatches_total"] > 0
+                                         and rl["prefill_attention"] > 0):
+            fail(f"device_loop {arm}: no verify block ran")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the greedy rows across arms
+    ref = tokens["a_steps1"]
+    prompts = {n: r["token_ids"] for n, r in wave.items()}
+    prompts["F_arrival"] = arrival["token_ids"]
+    equal, flips = {}, {}
+    for arm in DEVICE_LOOP_ARMS:
+        if arm == "a_steps1":
+            continue
+        for n in (*GREEDY_ROWS, "F_arrival", "D_shared+500_seeded"):
+            exact = arm.startswith("b_") or (arm.startswith("c_") and n in GREEDY_ROWS)
+            same = tokens[arm][n] == ref[n]
+            equal[f"{arm}/{n}"] = same
+            if same:
+                continue
+            if exact and n != "D_shared+500_seeded":
+                fail(f"device_loop: {arm} {n} differs from arm (a) though it "
+                     "ran the same arithmetic")
+            flip = first_flip(model, cfg, prompts[n], ref[n], tokens[arm][n])
+            flips[f"{arm}/{n}"] = flip
+            if (n != "D_shared+500_seeded"
+                    and (flip["margin_std"] is None
+                         or abs(flip["margin_std"]) > LOGIT_TOL)):
+                fail(f"device_loop: {arm} {n} flips beyond a near-tie: {flip}")
+    emit({"phase": "device_loop", "what": "greedy_rows_across_arms",
+          "equal_to_a": equal, "flips": flips, "tol_in_std": LOGIT_TOL})
+    return launches_by_arm
+
+
+# --------------------------------------------------------------------------- #
 
 
 def package_versions() -> dict:
@@ -1221,6 +1528,9 @@ def main() -> int:
         return stream_client_main(sys.argv[2:])
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
+    global _JSONL
+    os.makedirs(OUT_DIR, exist_ok=True)
+    _JSONL = open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w")
     from dynamo_tpu_torch.models import LLAMA_3_1_8B, init_params
     from dynamo_tpu_torch.ops import _build
 
@@ -1256,9 +1566,12 @@ def main() -> int:
     phase_paths(model, cfg)
     golden_launches = phase_golden()
     http_launches = phase_http(model, cfg, direct)
+    loop_launches = phase_device_loop(model, cfg)
     by_path = {"serving (phase 4, generate)": serving_launches,
                "golden (phase 6)": golden_launches,
-               "http (phase 7, the main path)": http_launches}
+               "http (phase 7, the main path)": http_launches,
+               **{f"device_loop {arm} (phase 8)": n
+                  for arm, n in loop_launches.items()}}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),

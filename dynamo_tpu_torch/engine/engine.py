@@ -2,19 +2,30 @@
 
 The counterpart of the JAX package's `JaxEngine` for one device, with the
 same serving API (`generate`, `metrics`, `add_event_sink`,
-`clear_kv_blocks`, `shutdown`) and the same host side (the copied
-`Scheduler`, `PagePool` and block hashes):
+`clear_kv_blocks`, `shutdown`), the same host side (the copied
+`Scheduler`, `PagePool` and block hashes) and the same device loop, under
+the JAX engine's names:
 
 - an asyncio pump plans steps (continuous batching, chunked prefill,
   prefix cache, mixed plans) and runs each on ONE dedicated step thread;
-- prefill chunks and per-step decodes run the model eagerly over the
-  paged KV pool; a mixed plan runs its prefill part, then its decode part;
-- sampled tokens stream back as deltas into per-request queues.
+- prefill chunks run the model eagerly over the paged KV pool; their
+  sampled tokens can feed the first decode chain device-to-device
+  (`_maybe_fuse_decode`, `fuse_prefill_decode`);
+- every decode dispatch is a block of `n_steps` forward + sample steps
+  (`blocks.py`): `decode_steps`, or the rung the block ladder picks
+  (`decode_block_ladder`); blocks chain on their device-side carries
+  (`decode_chain`) or run the device-resident continuous loop with
+  on-device stop masks, chunk rows and splice admission
+  (`decode_continuous`, `prefill_chunk_tokens`; docs/device_loop.md), or
+  verify n-gram drafts in one forward (`speculative_ngram_k`);
+- on CUDA every decode block is a CUDA graph captured once per (kind,
+  rung, variant, table-width bucket) and replayed (`graphs.py`); on the
+  CPU the same block functions run eagerly over the plain kernels;
+- sampled tokens come back in one packed buffer per block and stream as
+  deltas into per-request queues.
 
-Not ported yet (later slices): multi-step decode blocks and the block
-ladder, the continuous device loop, fused prefill→decode, speculative
-decoding, park/resume, KVBM tiers, meshes (dp/tp/pp/sp), multihost,
-vision and int8 weights.
+Not ported yet (later slices): park/resume, KVBM tiers, meshes
+(dp/tp/pp/sp, kv_partition), multihost, vision and int8 weights.
 """
 
 from __future__ import annotations
@@ -24,46 +35,55 @@ import concurrent.futures as cf
 import logging
 import random
 import time
-from dataclasses import dataclass
-from typing import Any, AsyncIterator, Callable, Dict, List, Optional
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, Llama
-from ..ops.sampling import (
-    SamplingParams,
-    apply_penalties,
-    compute_logprobs,
-    sample_tokens,
-    top_logprobs,
-)
 from ..runtime.engine import Context
-from .config import EngineConfig
+from . import blocks
+from .blocks import TOPLP, Variant
+from .config import EngineConfig, bucket_for
+from .graphs import GraphRunner, HostFetch, PinnedRing
 from .page_pool import KvEvent, PagePool
 from .scheduler import PrefillItem, SamplingOptions, Scheduler, Sequence, StepPlan
 
 logger = logging.getLogger(__name__)
 
-# static top-k width for OpenAI `top_logprobs` responses (API max is 20)
-TOPLP = 20
+__all__ = ["ForwardPassMetrics", "TOPLP", "TorchEngine"]
 
 
 @dataclass
 class ForwardPassMetrics:
-    """Load snapshot published to the router (the JAX engine's fields
-    that a flat single-device engine fills; the rest stay 0)."""
+    """Load snapshot published to the router (the JAX engine's fields that
+    a flat single-device engine fills; the rest stay 0).  Per-rung
+    dispatch counts ride as dynamic `decode_rung{n}_dispatches_total`
+    attributes."""
 
     active_seqs: int = 0
     waiting_seqs: int = 0
     kv_usage: float = 0.0
     kv_total_pages: int = 0
     num_requests_total: int = 0
+    spec_draft_tokens_total: int = 0
+    spec_accepted_tokens_total: int = 0
+    spec_dispatches_total: int = 0
+    spec_acceptance_rate: float = 0.0
     ttft_block_wait_ms_total: float = 0.0
     ttft_queue_wait_ms_total: float = 0.0
     ttft_prefill_ms_total: float = 0.0
     ttft_attributed_total: int = 0
+    # device-resident decode loop: chains run and blocks dispatched
+    decode_cc_blocks_total: int = 0
+    decode_cc_chains_total: int = 0
+    # per-reason chain fall-out counts (a labeled counter
+    # decode_cc_fallout_total{reason} on /metrics)
+    decode_cc_fallout_total: Dict[str, int] = field(default_factory=dict)
     prefix_cached_tokens_total: int = 0
     batch_occupancy: float = 0.0
     kv_watermark_headroom_pages: int = 0
@@ -74,12 +94,6 @@ class ForwardPassMetrics:
 
 def _unported(cfg: EngineConfig) -> List[str]:
     return [name for name, on in {
-        "decode_steps > 1": cfg.decode_steps > 1,
-        "decode_chain > 1": cfg.decode_chain > 1,
-        "decode_continuous": cfg.decode_continuous,
-        "decode_block_ladder": bool(cfg.decode_block_ladder)
-        and len(cfg.block_ladder) > 1,
-        "speculative_ngram_k": cfg.speculative_ngram_k > 0,
         "kv_partition": cfg.kv_partition,
         "quantization": cfg.quantization != "none",
     }.items() if on]
@@ -115,6 +129,11 @@ class TorchEngine:
         self.pool = PagePool(self.cfg.num_pages, self.cfg.page_size,
                              event_sink=self._emit_event)
         self.scheduler = Scheduler(self.cfg, self.pool)
+        # the device loop: captured block graphs, pinned input staging,
+        # block functions per (kind, rung, variant)
+        self.graphs = GraphRunner(self.device)
+        self._stage = PinnedRing(self.device)
+        self._block_fns: Dict[tuple, Callable] = {}
         self._py_rng = random.Random(0xD1A)
         self._queues: Dict[str, asyncio.Queue] = {}
         self._contexts: Dict[str, Context] = {}
@@ -122,6 +141,9 @@ class TorchEngine:
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._pump_task: Optional[asyncio.Task] = None
         self._executor: Optional[cf.ThreadPoolExecutor] = None
+        # the continuous loop's drain thread (fetch + unpack of block k
+        # while the step thread dispatches block k+1), started lazily
+        self._drain_pool: Optional[cf.ThreadPoolExecutor] = None
         self._closed = False
         self._pending_aborts: set = set()
         self._pending_adds: List[Sequence] = []
@@ -130,6 +152,17 @@ class TorchEngine:
                       "prefill_ms": 0.0}
         self._ttft_attributed = 0
         self._cached_tokens_total = 0  # prompt tokens served by the prefix cache
+        self._cc_blocks_total = 0
+        self._cc_chains_total = 0
+        self._cc_fallout_by_reason: Dict[str, int] = {}
+        self._spec_draft_total = 0
+        self._spec_accepted_total = 0
+        self._spec_dispatch_total = 0
+        self._spec_window: deque = deque(maxlen=128)  # (drafted, accepted)
+        self._rung_dispatches: Dict[int, int] = {}
+        # optional dispatch trace (tests / chip checks): set to a list and
+        # every device dispatch appends {kind, n_steps, blocks, ...}
+        self.dispatch_trace: Optional[List[dict]] = None
 
     def _make_kv(self) -> KVCache:
         return KVCache.create(self.model_cfg, self.cfg.num_pages,
@@ -148,18 +181,32 @@ class TorchEngine:
     def add_event_sink(self, sink: Callable[[KvEvent], None]) -> None:
         self._extra_event_sinks.append(sink)
 
+    def _spec_acceptance_rate(self) -> float:
+        """Rolling acceptance over the recent verify dispatches."""
+        drafted = sum(d for d, _ in self._spec_window)
+        if not drafted:
+            return 0.0
+        return sum(a for _, a in self._spec_window) / drafted
+
     def metrics(self) -> ForwardPassMetrics:
         running, waiting = self.scheduler.num_requests()
-        return ForwardPassMetrics(
+        m = ForwardPassMetrics(
             active_seqs=running,
             waiting_seqs=waiting,
             kv_usage=self.pool.usage(),
             kv_total_pages=self.cfg.usable_pages,
             num_requests_total=self._requests_total,
+            spec_draft_tokens_total=self._spec_draft_total,
+            spec_accepted_tokens_total=self._spec_accepted_total,
+            spec_dispatches_total=self._spec_dispatch_total,
+            spec_acceptance_rate=self._spec_acceptance_rate(),
             ttft_block_wait_ms_total=self._ttft["block_wait_ms"],
             ttft_queue_wait_ms_total=self._ttft["queue_wait_ms"],
             ttft_prefill_ms_total=self._ttft["prefill_ms"],
             ttft_attributed_total=self._ttft_attributed,
+            decode_cc_blocks_total=self._cc_blocks_total,
+            decode_cc_chains_total=self._cc_chains_total,
+            decode_cc_fallout_total=dict(self._cc_fallout_by_reason),
             prefix_cached_tokens_total=self._cached_tokens_total,
             batch_occupancy=running / max(self.cfg.max_num_seqs, 1),
             kv_watermark_headroom_pages=max(
@@ -169,6 +216,22 @@ class TorchEngine:
             queued_total=self.scheduler.queued_total,
             preempted_total=self.scheduler.preempted_total,
         )
+        for rung, n in sorted(self._rung_dispatches.items()):
+            setattr(m, f"decode_rung{rung}_dispatches_total", n)
+        return m
+
+    @property
+    def rung_histogram(self) -> Dict[int, int]:
+        """Dispatch count per chosen decode-block rung (decode, mixed and
+        fused dispatches; chained blocks count once per block)."""
+        return dict(self._rung_dispatches)
+
+    @property
+    def graph_keys(self) -> List[tuple]:
+        """Keys of the block graphs captured so far (on the CPU: the keys
+        the blocks ran under) — the counterpart of the JAX engine's
+        `compiled_variants`."""
+        return self.graphs.keys
 
     def clear_kv_blocks(self) -> int:
         return self.pool.clear_cache()
@@ -258,10 +321,15 @@ class TorchEngine:
             self.scheduler.abort(self._pending_aborts.pop())
         for seq in list(self.scheduler.running) + list(self.scheduler.waiting):
             self.scheduler.abort(seq.request_id)
-        if self._executor is not None:
-            await asyncio.get_running_loop().run_in_executor(
-                None, self._executor.shutdown, True)
-            self._executor = None
+        if self.scheduler.deferred_free:
+            self.pool.free(self.scheduler.deferred_free)
+            self.scheduler.deferred_free = None
+        loop = asyncio.get_running_loop()
+        for name in ("_executor", "_drain_pool"):
+            pool = getattr(self, name)
+            if pool is not None:
+                await loop.run_in_executor(None, pool.shutdown, True)
+                setattr(self, name, None)
 
     def _plan_step(self) -> StepPlan:
         """Apply queued adds (before aborts, so an abort always finds its
@@ -300,116 +368,809 @@ class TorchEngine:
                 else:
                     await asyncio.sleep(0)
                 continue
+            run = {"prefill": self._run_prefill, "mixed": self._run_mixed,
+                   "decode": self._run_decode}[plan.kind]
+            arg = {"prefill": plan.prefill, "mixed": plan,
+                   "decode": plan.decode}[plan.kind]
             try:
-                await loop.run_in_executor(self._executor, self._run_plan, plan)
+                await loop.run_in_executor(self._executor, self._step, run, arg)
             except Exception:  # noqa: BLE001
                 logger.exception("engine step failed; resetting KV state")
                 self._recover_after_error()
             await asyncio.sleep(0)
 
-    # -- device steps (step thread) ---------------------------------------- #
-
-    def _run_plan(self, plan: StepPlan) -> None:
+    @staticmethod
+    def _step(run, arg) -> None:
         with torch.no_grad():
-            if plan.prefill:
-                self._run_prefill(plan.prefill)
-            decode = [s for s in plan.decode if s.status == "running"]
-            if decode:
-                self._run_decode(decode)
+            run(arg)
 
-    def _ints(self, values, dtype=torch.int32) -> torch.Tensor:
-        return torch.tensor(values, dtype=dtype).to(self.device, non_blocking=True)
+    # -- host arrays of a dispatch (row layouts) ---------------------------- #
 
-    def _table(self, seqs: List[Sequence]) -> torch.Tensor:
-        """Page-table batch [B, width], width = the longest row's pages;
-        unused entries point at trash page 0."""
-        width = max(1, max(len(s.pages) for s in seqs))
-        return self._ints([s.pages + [0] * (width - len(s.pages)) for s in seqs])
+    def _decode_rows(self, seqs: List[Sequence]) -> List[Optional[Sequence]]:
+        """Decode rows padded to `max_num_seqs` (None = padding: token 0 at
+        position 0 of trash page 0).  Every block then has the same matrix
+        shapes, so the GEMM library picks the same kernels whatever the
+        batch holds, a row's tokens do not depend on its batch-mates, and
+        one graph per key serves every batch."""
+        return list(seqs) + [None] * (self.cfg.max_num_seqs - len(seqs))
 
-    def _samp(self, seqs: List[Sequence]) -> SamplingParams:
-        return SamplingParams.make(
-            [s.opts.temperature for s in seqs],
-            [s.opts.top_k for s in seqs],
-            [s.opts.top_p for s in seqs],
-            [s.opts.frequency_penalty for s in seqs],
-            [s.opts.presence_penalty for s in seqs],
-            device=self.device,
-        )
+    def _seed_arrays(self, rows: List[Optional[Sequence]]):
+        seeds = [s.seed & 0xFFFFFFFF if s else 0 for s in rows]
+        counters = [len(s.output_tokens) if s else 0 for s in rows]
+        return np.asarray(seeds, np.int64), np.asarray(counters, np.int64)
 
-    def _sample(self, logits: torch.Tensor, seqs: List[Sequence]):
-        """Penalties → sample → logprobs (→ top logprobs) for one row per
-        sequence; returns host lists (tokens, logprobs, tops-or-None)."""
-        samp = self._samp(seqs)
-        if any(s.opts.penalized for s in seqs):
-            counts = torch.zeros(logits.shape, dtype=torch.float32)
-            for i, s in enumerate(seqs):
-                for t in s.output_tokens:
-                    counts[i, t] += 1.0
-            logits = apply_penalties(logits, counts.to(self.device),
-                                     samp.frequency_penalty,
-                                     samp.presence_penalty)
-        toks = sample_tokens(logits, samp, [s.seed for s in seqs],
-                             [len(s.output_tokens) for s in seqs])
-        logp = compute_logprobs(logits, toks)
-        tops = None
-        if any(s.opts.top_logprobs > 0 for s in seqs):
-            ids, lps = top_logprobs(logits, min(TOPLP, logits.shape[-1]))
-            tops = (ids.cpu().tolist(), lps.cpu().tolist())
-        return toks.cpu().tolist(), logp.cpu().tolist(), tops
+    @staticmethod
+    def _is_greedy(rows: List[Optional[Sequence]]) -> bool:
+        """True when every row is temperature 0: the dispatch takes the
+        STATIC greedy variant (no noise drawn)."""
+        return all(s is None or s.opts.temperature <= 0.0 for s in rows)
+
+    def _variant(self, rows: List[Optional[Sequence]]) -> Variant:
+        live = [s for s in rows if s is not None]
+        return Variant(penalized=any(s.opts.penalized for s in live),
+                       with_top=any(s.opts.top_logprobs > 0 for s in live),
+                       greedy=self._is_greedy(rows))
+
+    def _table_array(self, rows: List[Optional[Sequence]]) -> np.ndarray:
+        """Page-table batch, width bucketed to the longest row present
+        (`table_width_buckets`): the decode kernel's grid follows the
+        width, so a graph fixes its bucket.  Unused entries point at trash
+        page 0; padding changes only how many EMPTY splits the decode
+        merge sees, which leaves its output bit-identical."""
+        need = max((len(s.pages) for s in rows if s), default=1)
+        width = bucket_for(max(need, 1), self.cfg.table_width_buckets)
+        table = np.zeros((len(rows), width), np.int32)
+        for i, s in enumerate(rows):
+            if s is not None:
+                n = min(len(s.pages), width)
+                table[i, :n] = s.pages[:n]
+        return table
+
+    def _samp_arrays(self, rows: List[Optional[Sequence]]) -> Dict[str, np.ndarray]:
+        def col(get, default, dtype):
+            return np.asarray([get(s.opts) if s else default for s in rows], dtype)
+
+        return {
+            "temperature": col(lambda o: o.temperature, 0.0, np.float32),
+            "top_k": col(lambda o: o.top_k, 0, np.int64),
+            "top_p": col(lambda o: o.top_p, 1.0, np.float32),
+            "fp": col(lambda o: o.frequency_penalty, 0.0, np.float32),
+            "pp": col(lambda o: o.presence_penalty, 0.0, np.float32),
+        }
+
+    def _decode_arrays(self, rows: List[Optional[Sequence]]):
+        """(last tokens [B], positions [B]) for a decode row layout."""
+        tokens = np.zeros((len(rows),), np.int64)
+        positions = np.zeros((len(rows),), np.int64)
+        for i, s in enumerate(rows):
+            if s is None:
+                continue
+            tokens[i] = s.output_tokens[-1] if s.output_tokens else (
+                s.prompt[-1] if s.prompt else 0)
+            positions[i] = s.num_computed
+        return tokens, positions
+
+    def _counts_tensor(self, rows: List[Optional[Sequence]]) -> torch.Tensor:
+        """[B, vocab] output-token histograms on the device, built from
+        the rows' output tokens by one scatter-add (prompt tokens are not
+        penalized); blocks then update them on the device."""
+        rid, tid = [], []
+        for i, s in enumerate(rows):
+            if s is not None:
+                rid += [i] * len(s.output_tokens)
+                tid += s.output_tokens
+        counts = torch.zeros((len(rows), self.model_cfg.vocab_size),
+                             dtype=torch.float32, device=self.device)
+        if tid:
+            idx = self._to_device({"r": np.asarray(rid, np.int64),
+                                   "t": np.asarray(tid, np.int64)})
+            counts.index_put_((idx["r"], idx["t"]),
+                              torch.ones_like(idx["t"], dtype=torch.float32),
+                              accumulate=True)
+        return counts
+
+    def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host arrays → device tensors through the pinned staging ring."""
+        with self._stage.slot() as put:
+            return {k: put(a).to(self.device, non_blocking=True)
+                    for k, a in arrays.items()}
+
+    def _note_dispatch(self, kind: str, n_steps: int = 0, blocks: int = 1,
+                       **extra) -> None:
+        """Account one device dispatch: rung histogram (decode-bearing
+        kinds; a chained run counts once per block) + the optional
+        dispatch trace."""
+        if n_steps:
+            self._rung_dispatches[n_steps] = (
+                self._rung_dispatches.get(n_steps, 0) + blocks)
+        if self.dispatch_trace is not None:
+            self.dispatch_trace.append({
+                "kind": kind, "n_steps": n_steps, "blocks": blocks,
+                "pending": self.scheduler.prompts_pending(),
+                "t": time.monotonic(), **extra})
+
+    def _block_fn(self, kind: str, n: int, v: Variant) -> Callable:
+        key = (kind, n, v)
+        fn = self._block_fns.get(key)
+        if fn is None:
+            if kind == "spec":
+                fn = blocks.make_spec_block(self.model, self.kv, v.greedy)
+            else:
+                make = (blocks.make_cc_block if kind == "cc"
+                        else blocks.make_decode_block)
+                fn = make(self.model, self.kv, n, self.cfg.hard_cap, v)
+            self._block_fns[key] = fn
+        return fn
+
+    # -- prefill (eager) ----------------------------------------------------- #
+
+    def _prefill_pass(self, items: List[PrefillItem]):
+        """Run one prefill chunk per item eagerly and sample every row;
+        returns (device tokens [B], host fetch of the packed result,
+        with_top)."""
+        seqs = [it.seq for it in items]
+        S = max(it.chunk_len for it in items)
+        toks = np.zeros((len(items), S), np.int64)
+        for i, it in enumerate(items):
+            toks[i, :it.chunk_len] = it.seq.prompt[
+                it.chunk_start:it.chunk_start + it.chunk_len]
+        seeds, counters = self._seed_arrays(seqs)
+        samp = self._samp_arrays(seqs)
+        v = self._variant(seqs)
+        d = self._to_device({
+            "tokens": toks, "table": self._table_array(seqs),
+            "prefix": np.asarray([it.chunk_start for it in items], np.int32),
+            "chunk": np.asarray([it.chunk_len for it in items], np.int32),
+            "seeds": seeds, "ctr": counters, **samp})
+        logits = self.model.forward_prefill(
+            self.kv, d["tokens"], d["table"], d["prefix"], d["chunk"])
+        tok_d, packed = blocks.sample_pack(logits, d, d["ctr"],
+                                           Variant(with_top=v.with_top,
+                                                   greedy=v.greedy))
+        return tok_d, HostFetch(packed), v.with_top
+
+    def _consume_prefill(self, items: List[PrefillItem], fetch: HostFetch,
+                         with_top: bool) -> None:
+        out, logp, tids, tlps = blocks.unpack_out(fetch.numpy(), len(items),
+                                                  with_top)
+        for i, it in enumerate(items):
+            s = it.seq
+            if s.status != "running":  # preempted after planning
+                continue
+            self.scheduler.commit_full_pages(s)
+            if it.samples:
+                self._append_token(s, int(out[i]), float(logp[i]),
+                                   _tops_for(s, tids, tlps, i))
 
     def _run_prefill(self, items: List[PrefillItem]) -> None:
         items = [it for it in items if it.seq.status == "running"]
         if not items:
             return
-        seqs = [it.seq for it in items]
-        S = max(it.chunk_len for it in items)
-        tokens = [it.seq.prompt[it.chunk_start:it.chunk_start + it.chunk_len]
-                  for it in items]
-        tokens = self._ints([t + [0] * (S - len(t)) for t in tokens], torch.int64)
-        logits = self.model.forward_prefill(
-            self.kv, tokens, self._table(seqs),
-            self._ints([it.chunk_start for it in items]),
-            self._ints([it.chunk_len for it in items]),
-        )
-        sampling = [it for it in items if it.samples]
-        out = (self._sample(logits[[items.index(it) for it in sampling]],
-                            [it.seq for it in sampling])
-               if sampling else None)
+        self._note_dispatch("prefill")
+        tok_d, fetch, with_top = self._prefill_pass(items)
+        # the dispatch is committed: account the computed tokens NOW so a
+        # fused decode chain plans from current positions
         for it in items:
             it.seq.num_computed += it.chunk_len
-            self.scheduler.commit_full_pages(it.seq)
-        for j, it in enumerate(sampling):
-            toks, logp, tops = out
-            self._append_token(it.seq, toks[j], logp[j], _tops_for(it.seq, tops, j))
+        fused = self._maybe_fuse_decode(items, tok_d, with_top)
+        # frees are deferred while the fused chain is in flight: an EOS on
+        # the prefill token must not hand pages back under its table
+        deferred = [] if fused else None
+        self.scheduler.deferred_free = deferred
+        try:
+            self._consume_prefill(items, fetch, with_top)
+            if fused:
+                rows, fetches, v = fused
+                self._consume_decode(fetches, rows, v.with_top)
+        finally:
+            self.scheduler.deferred_free = None
+            if deferred:
+                self.pool.free(deferred)
+
+    def _maybe_fuse_decode(self, items, tok_d, with_top):
+        """Dispatch the first decode chain straight off the prefill's
+        device-side sampled tokens (copied device-to-device into the
+        decode graph's token input), with no host fetch between.  Returns
+        (rows, fetches, variant), or None when the batch is not
+        eligible."""
+        seqs = [it.seq for it in items]
+        hard_cap = self.cfg.hard_cap
+        if (
+            not self.cfg.fuse_prefill_decode
+            or self.cfg.speculative_ngram_k > 0  # drafts need the fetched token
+            or not all(it.samples for it in items)
+            or any(s.status != "running" for s in seqs)
+            or any(s.opts.penalized for s in seqs)  # counts need the token
+            or any(s.opts.max_tokens <= 1 for s in seqs)
+            or any(s.num_computed >= hard_cap for s in seqs)
+        ):
+            return None
+        # same gating as _chain_ok block 0: nothing else needs the pump,
+        # and no other running prompt waits behind the chain
+        if self._pending_aborts or self.scheduler.waiting:
+            return None
+        if any(not s.prefill_done for s in self.scheduler.running
+               if s not in seqs):
+            return None
+        T, allow_chain = self.scheduler.peek_decode_rung()
+        if not all(self.scheduler.try_extend_pages(
+                s, min(s.num_computed + T, hard_cap)) for s in seqs):
+            return None
+        self.scheduler.commit_decode_rung()
+        chain_len = 1
+        while (allow_chain and chain_len < max(1, self.cfg.decode_chain)
+               and self._chain_ok(seqs, chain_len, T, hard_cap)):
+            chain_len += 1
+        self._note_dispatch("fused", T, blocks=chain_len)
+        rows = self._decode_rows(seqs)
+        v = Variant(False, with_top, self._is_greedy(seqs))
+        d = self._decode_inputs(rows, v)
+        d["tok"] = torch.cat([tok_d, tok_d.new_zeros(len(rows) - len(seqs))])
+        d["ctr"][:len(seqs)] += 1  # past the prefill sample
+        return rows, self._dispatch_decode(d, v, chain_len, T), v
+
+    # -- decode blocks ------------------------------------------------------- #
+
+    def _dispatch_decode(self, d: Dict[str, torch.Tensor], v: Variant,
+                         chain_len: int, T: int) -> List[HostFetch]:
+        """Issue `chain_len` decode blocks of T steps: block k+1 takes
+        block k's device-side token, position, counter (and counts)
+        carries.  Returns one host fetch per block."""
+        key = ("decode", T, v.greedy, v.penalized, v.with_top,
+               d["table"].shape[1])
+        fn = self._block_fn("decode", T, v)
+        fetches, ups = [], d
+        for _ in range(chain_len):
+            outs = self.graphs.run(key, fn, ups)
+            fetches.append(HostFetch(outs["packed"]))
+            ups = {k: outs[k] for k in ("tok", "pos", "ctr", "counts")
+                   if k in outs}
+        return fetches
+
+    def _decode_inputs(self, rows, v: Variant) -> Dict[str, torch.Tensor]:
+        tokens, positions = self._decode_arrays(rows)
+        seeds, counters = self._seed_arrays(rows)
+        d = self._to_device({"tok": tokens, "pos": positions, "ctr": counters,
+                             "table": self._table_array(rows), "seeds": seeds,
+                             **self._samp_arrays(rows)})
+        if v.penalized:
+            d["counts"] = self._counts_tensor(rows)
+        return d
+
+    def _chain_ok(self, seqs: List[Sequence], k: int, T: int, hard_cap: int) -> bool:
+        """May decode block k be dispatched before block k-1's results are
+        fetched?  Only when nothing else needs the pump, no running prompt
+        waits for its prefill, at least one sequence can still use the
+        block, and every page can grow without preemption (preempting
+        would invalidate in-flight tables)."""
+        if self._pending_aborts or self.scheduler.waiting:
+            return False
+        if any(not s.prefill_done for s in self.scheduler.running):
+            return False
+        if all(min(s.opts.max_tokens - len(s.output_tokens),
+                   hard_cap - s.num_computed) <= k * T for s in seqs):
+            return False
+        return all(self.scheduler.try_extend_pages(
+            s, min(s.num_computed + (k + 1) * T, hard_cap)) for s in seqs)
 
     def _run_decode(self, seqs: List[Sequence]) -> None:
-        """One decode step.  The batch is padded to `max_num_seqs` rows
-        (token 0 at position 0 of trash page 0): every step then has the
-        same matrix shapes, and the GEMM library picks the same kernels
-        whatever the batch holds, so a row's tokens do not depend on its
-        batch-mates."""
-        pad = self.cfg.max_num_seqs - len(seqs)
-        tokens = self._ints([s.output_tokens[-1] for s in seqs] + [0] * pad,
-                            torch.int64)
-        positions = self._ints([s.num_computed for s in seqs] + [0] * pad,
-                               torch.int64)
-        table = self._table(seqs)
-        if pad:
-            table = torch.cat([table, table.new_zeros(pad, table.shape[1])])
-        logits = self.model.forward_decode(self.kv, tokens, positions, table)
-        toks, logp, tops = self._sample(logits[:len(seqs)], seqs)
-        for i, s in enumerate(seqs):
-            s.num_computed += 1
+        # a sequence the planner scheduled may have stopped since
+        seqs = [s for s in seqs if s.status == "running"]
+        if not seqs:
+            return
+        if self._spec_ok(seqs):
+            return self._run_spec_decode(seqs)
+        # block ladder: the scheduler picks this dispatch's block size
+        T, allow_chain = self.scheduler.select_decode_rung()
+        if allow_chain and self._cc_ok():
+            return self._run_decode_continuous(seqs, T)
+        hard_cap = self.cfg.hard_cap
+        # the chain length is decided upfront and pages pre-reserved for
+        # the whole horizon, so ONE page table serves every block
+        chain_len = 1
+        while (allow_chain and chain_len < max(1, self.cfg.decode_chain)
+               and self._chain_ok(seqs, chain_len, T, hard_cap)):
+            chain_len += 1
+        self._note_dispatch("decode", T, blocks=chain_len)
+        rows = self._decode_rows(seqs)
+        v = self._variant(rows)
+        fetches = self._dispatch_decode(self._decode_inputs(rows, v), v,
+                                        chain_len, T)
+        # page frees deferred until the whole chain drains: an in-flight
+        # block must never see its table's pages reallocated
+        deferred = [] if len(fetches) > 1 else None
+        self.scheduler.deferred_free = deferred
+        try:
+            self._consume_decode(fetches, rows, v.with_top)
+        finally:
+            self.scheduler.deferred_free = None
+            if deferred:
+                self.pool.free(deferred)
+
+    def _consume_decode(self, fetches: List[HostFetch], rows, with_top) -> None:
+        """Fetch + account a decode chain's blocks.  Rows that cannot stop
+        inside a block take one extend + one page commit + one delivery
+        for the whole block instead of T per-token iterations."""
+        B = len(rows)
+        for fetch in fetches:
+            out, logp, tids, tlps = blocks.unpack_out(fetch.numpy(), B, with_top)
+            T = out.shape[0]
+            for i, s in enumerate(rows):
+                if s is None or s.status != "running":
+                    continue
+                if (s.opts.ignore_eos and not s.opts.stop_token_ids
+                        and not s.opts.stop_sequences
+                        and len(s.output_tokens) + T < s.opts.max_tokens
+                        and s.total_len + T < self.cfg.max_model_len
+                        and s.num_computed + T <= self.cfg.hard_cap):
+                    first = not s.output_tokens
+                    s.num_computed += T
+                    s.output_tokens.extend(int(x) for x in out[:, i])
+                    if first:
+                        self._note_first_token(s)
+                    self.scheduler.commit_full_pages(s)
+                    self._deliver_block(s, out[:, i], logp[:, i], tids, tlps,
+                                        i, with_top)
+                    continue
+                for t in range(T):
+                    s.num_computed += 1
+                    self.scheduler.commit_full_pages(s)
+                    self._append_token(s, int(out[t, i]), float(logp[t, i]),
+                                       _tops_for(s, tids, tlps, (t, i)))
+                    if s.status != "running":
+                        break  # stop hit mid-block; rest discarded
+
+    def _run_mixed(self, plan: StepPlan) -> None:
+        """One dispatch of the mixed plan: a bounded prefill chunk (eager),
+        then a decode block of the rung the ladder picks (a graph).  Decode
+        rows' pages were reserved preemptively at planning, prefill rows
+        extended non-preemptively, so neither side invalidates the other."""
+        items, dseqs = plan.prefill, plan.decode
+        # a mixed plan means prompts are pending: the ladder picks the
+        # shortest rung, and the next chunk rides the following dispatch
+        T, _ = self.scheduler.select_decode_rung()
+        self._note_dispatch("mixed", T)
+        _, p_fetch, p_top = self._prefill_pass(items)
+        rows = self._decode_rows(dseqs)
+        v = self._variant(rows)
+        d_fetch = self._dispatch_decode(self._decode_inputs(rows, v), v, 1, T)
+        for it in items:
+            if it.seq.status == "running":
+                it.seq.num_computed += it.chunk_len
+        self._consume_prefill(items, p_fetch, p_top)
+        self._consume_decode(d_fetch, rows, v.with_top)
+
+    # -- speculative decoding (n-gram draft + fused verify) ------------------ #
+
+    def _spec_ok(self, seqs: List[Sequence]) -> bool:
+        """May this decode batch take the draft-verify path?  Penalties
+        need sequential count updates the fused verify cannot thread,
+        top-logprobs rows want the full packed layout, and rows within
+        k+1 tokens of the context cap would write drafts past their
+        page-table horizon."""
+        k = self.cfg.speculative_ngram_k
+        if k <= 0:
+            return False
+        if any(s.opts.penalized or s.opts.top_logprobs > 0 for s in seqs):
+            return False
+        return all(s.num_computed + k + 1 <= self.cfg.hard_cap for s in seqs)
+
+    def _run_spec_decode(self, seqs: List[Sequence]) -> None:
+        """One draft-verify dispatch: host n-gram drafts feed the fused
+        (k+1)-position verify; the accepted prefix plus the model's own
+        sample at the first divergence come back in one fetch and go
+        through the per-token stop path."""
+        k = self.cfg.speculative_ngram_k
+        self._note_dispatch("spec")
+        rows = self._decode_rows(seqs)
+        B = len(rows)
+        tokens = np.zeros((B, k + 1), np.int64)
+        positions = np.zeros((B,), np.int64)
+        for i, s in enumerate(rows):
+            if s is None:
+                continue
+            tokens[i, 0] = s.output_tokens[-1] if s.output_tokens else (
+                s.prompt[-1] if s.prompt else 0)
+            tokens[i, 1:] = blocks.ngram_draft(
+                s.all_tokens(), k, self.cfg.speculative_min_match,
+                self.cfg.speculative_max_match, self.cfg.speculative_history)
+            positions[i] = s.num_computed
+        seeds, counters = self._seed_arrays(rows)
+        table = self._table_array(rows)
+        greedy = self._is_greedy(rows)
+        d = self._to_device({"tokens": tokens, "pos": positions,
+                             "ctr": counters, "table": table, "seeds": seeds,
+                             **self._samp_arrays(rows)})
+        key = ("spec", k, greedy, table.shape[1])
+        outs = self.graphs.run(key, self._block_fn("spec", k, Variant(greedy=greedy)), d)
+        out, logp, n_acc = blocks.unpack_spec(HostFetch(outs["packed"]).numpy(),
+                                              B, k + 1)
+        self._spec_dispatch_total += 1
+        drafted = accepted = 0
+        live = []
+        for i, s in enumerate(rows):
+            if s is None or s.status != "running":
+                continue
+            a = int(n_acc[i])
+            drafted += k
+            accepted += a
+            s.spec_draft_tokens += k
+            s.spec_accepted_tokens += a
+            live.append((i, s, a))
+        # totals published before any token is appended (a consumer woken
+        # by the finishing token may read metrics() at once)
+        self._spec_draft_total += drafted
+        self._spec_accepted_total += accepted
+        self._spec_window.append((drafted, accepted))
+        for i, s, a in live:
+            for t in range(a + 1):
+                s.num_computed += 1
+                self.scheduler.commit_full_pages(s)
+                self._append_token(s, int(out[i, t]), float(logp[i, t]))
+                if s.status != "running":
+                    break  # stop inside the accepted run; rest discarded
+
+    # -- the device-resident decode loop (continuous chaining) --------------- #
+
+    def _cc_ok(self) -> bool:
+        return self.cfg.decode_continuous
+
+    def _ensure_drain_pool(self) -> cf.ThreadPoolExecutor:
+        if self._drain_pool is None:
+            self._drain_pool = cf.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="torch-engine-drain")
+        return self._drain_pool
+
+    def _stop_arrays(self, rows: List[Optional[Sequence]]) -> np.ndarray:
+        """Per-row device stop-token ids ([B, K] int64, -1-padded, K a pow2
+        bucket): the row's stop_token_ids plus the engine eos set unless
+        ignore_eos.  Multi-token stop SEQUENCES stay with the host, which
+        detects them at consume and forces chain fall-out."""
+        sets = []
+        for s in rows:
+            if s is None:
+                sets.append([])
+                continue
+            ids = set(s.opts.stop_token_ids)
+            if not s.opts.ignore_eos:
+                ids.update(self.eos_token_ids)
+            sets.append(sorted(ids))
+        K = max(1, max((len(x) for x in sets), default=1))
+        K = 1 << (K - 1).bit_length()
+        out = np.full((len(rows), K), -1, np.int64)
+        for i, ids in enumerate(sets):
+            out[i, :len(ids)] = ids
+        return out
+
+    def _seq_budget(self, s: Sequence) -> int:
+        """Tokens `s` may still emit before a LENGTH stop — the bound
+        `check_stop` enforces (max_tokens, model window, page-table
+        horizon); ONE definition shared by the device budget and the
+        horizon pre-reservation.  A chunk row still mid-prompt emits only
+        after its prompt completes, so the page-table term counts from
+        prompt_len."""
+        return max(0, min(
+            s.opts.max_tokens - len(s.output_tokens),
+            self.cfg.max_model_len - s.total_len,
+            self.cfg.hard_cap - max(s.num_computed, s.prompt_len),
+        ))
+
+    def _budget_array(self, rows: List[Optional[Sequence]]) -> np.ndarray:
+        out = np.zeros((len(rows),), np.int64)
+        for i, s in enumerate(rows):
+            if s is not None:
+                out[i] = self._seq_budget(s)
+        return out
+
+    def _cc_reserve(self, seqs: List[Sequence], T: int,
+                    inflight_blocks: int = 0) -> int:
+        """Watermark page pre-reservation: grow every running row's pages
+        up to `cc_horizon_blocks` blocks ahead WITHOUT preemption and
+        without dipping into the admission watermark; returns how many
+        more whole blocks the tables cover for every row.
+        `inflight_blocks` counts dispatched-but-undrained blocks."""
+        ps = self.cfg.page_size
+        hard_cap = self.cfg.hard_cap
+        horizon = self.cfg.cc_horizon_blocks
+        allowance = horizon
+        for s in seqs:
+            if s.status != "running":
+                continue
+            remaining = (max(0, s.prompt_len - s.num_computed)
+                         + self._seq_budget(s))
+            target = min(s.num_computed + (inflight_blocks + horizon) * T,
+                         s.num_computed + remaining, hard_cap)
+            self.scheduler.try_extend_pages(s, target, keep_watermark=True)
+            covered = (min(len(s.pages) * ps, hard_cap) - s.num_computed
+                       - inflight_blocks * T)
+            if remaining - inflight_blocks * T > covered:
+                allowance = min(allowance, max(0, covered) // T)
+        return allowance
+
+    def _cc_fall_out(self, seqs: List[Sequence], splice: bool = False) -> Optional[str]:
+        """The chain's fall-out signals (None = keep feeding the loop).
+        With `splice` (chunked prefill in-chain) new adds and admissible
+        waiting prompts are not fall-outs: `_cc_intake` splices them at
+        the next block and falls out itself when it cannot."""
+        if self._closed:
+            return "shutdown"
+        if (self._pending_adds and not splice) or self._pending_aborts:
+            return "pending_work"
+        if (not splice and self.scheduler.waiting
+                and self.scheduler.admission_ready()):
+            return "admit"
+        if self.scheduler.preempt_ready():
+            return "preempted"
+        if any(s.status != "running" for s in seqs):
+            return "stop"
+        for s in seqs:
+            ctx = self._contexts.get(s.request_id)
+            if ctx is not None and ctx.is_stopped() and not ctx.is_killed():
+                return "cancel"
+        return None
+
+    def _fetch_packed_cc(self, fetch: HostFetch, B: int, with_top: bool):
+        """Drain-thread half of the double buffer: wait for block k's host
+        copy and unpack it while block k+1 runs.  Scheduler state is not
+        touched here."""
+        return blocks.unpack_out_cc(fetch.numpy(), B, with_top)
+
+    def _cc_intake(self, rows: List[Optional[Sequence]], seqs: List[Sequence],
+                   v: Variant) -> Tuple[List[int], Optional[str]]:
+        """Admission intake for the running chain (step thread): move new
+        adds into the scheduler, then splice every admissible waiting
+        prompt into a free padding slot.  Returns (spliced slots, fall-out
+        reason): "admit" when an admissible prompt cannot ride this chain
+        (no free slot, or its sampling needs another variant)."""
+        while self._pending_adds:
+            self.scheduler.add(self._pending_adds.pop(0))
+        spliced: List[int] = []
+        while self.scheduler.waiting and self.scheduler.admission_ready():
+            head = self.scheduler.waiting[0]
+            if head.parked:
+                return spliced, "admit"
+            so = head.opts
+            if ((v.greedy and so.temperature > 0)
+                    or (not v.penalized and so.penalized)
+                    or (not v.with_top and so.top_logprobs > 0)):
+                return spliced, "admit"
+            try:
+                slot = rows.index(None)
+            except ValueError:
+                return spliced, "admit"
+            seq = self.scheduler.splice_admit()
+            if seq is None:
+                break
+            rows[slot] = seq
+            seqs.append(seq)
+            spliced.append(slot)
+        return spliced, None
+
+    def _cc_plan_feed(self, rows: List[Optional[Sequence]], T: int,
+                      needs_reset: set, fed_complete: set):
+        """Plan this block's chunk-row feeds: every mid-prompt row gets up
+        to T prompt tokens from the per-block `prefill_chunk_tokens`
+        budget, clamped to its page coverage.  Fed tokens count into
+        `num_computed` at dispatch, except the prompt-completing one,
+        which the first emission's drain accounts (the split engine's
+        prefill→decode handoff).  Rows in `needs_reset` carry their
+        splice reset on their first fed block.  None on a quiet block."""
+        ps = self.cfg.page_size
+        hard_cap = self.cfg.hard_cap
+        budget = int(self.cfg.prefill_chunk_tokens)
+        B = len(rows)
+        feed = None
+        for i, s in enumerate(rows):
+            if s is None or s.status != "running" or id(s) in fed_complete:
+                continue
+            left = s.prompt_len - s.num_computed
+            if left <= 0 or budget <= 0:
+                continue
+            n = min(T, left, budget)
+            self.scheduler.try_extend_pages(
+                s, min(s.num_computed + T, hard_cap), keep_watermark=True)
+            n = min(n, max(0, len(s.pages) * ps - s.num_computed))
+            if n <= 0:
+                continue
+            if feed is None:
+                feed = {"chunk_toks": np.zeros((B, T), np.int64),
+                        "chunk_rem": np.zeros((B,), np.int64),
+                        "chunk_samples": np.zeros((B,), bool),
+                        "reset": np.zeros((B,), bool),
+                        "init_pos": np.zeros((B,), np.int64),
+                        "init_budget": np.zeros((B,), np.int64)}
+            feed["chunk_toks"][i, :n] = s.prompt[s.num_computed:s.num_computed + n]
+            feed["chunk_rem"][i] = n
+            completing = n == left
+            feed["chunk_samples"][i] = completing
+            if i in needs_reset:
+                feed["reset"][i] = True
+                feed["init_pos"][i] = s.num_computed
+                feed["init_budget"][i] = self._seq_budget(s)
+                needs_reset.discard(i)
+            budget -= n
+            if completing:
+                s.num_computed += n - 1
+                fed_complete.add(id(s))
+            else:
+                s.num_computed += n
+        return feed
+
+    def _run_decode_continuous(self, seqs: List[Sequence], T: int) -> None:
+        """The device-resident decode loop (docs/device_loop.md): an
+        open-ended chain of blocks whose varying inputs (last token,
+        positions, counters, active mask, budgets, penalty counts) stay on
+        the device.  Per block the host only issues the next replay, hands
+        the previous block to the drain thread and checks the fall-out
+        signals; stops latch on the device; pages are pre-reserved
+        `cc_horizon_blocks` ahead; the chain ends on a fall-out signal or
+        when every row finishes."""
+        rows = self._decode_rows(seqs)
+        seqs = list(seqs)  # chain-local: splices append
+        B = len(rows)
+        v = self._variant(rows)
+        budget = self._budget_array(rows)
+        active = np.array([s is not None and budget[i] > 0
+                           for i, s in enumerate(rows)])
+        fn = self._block_fn("cc", T, v)
+        drain = self._ensure_drain_pool()
+        splice_on = self.cfg.prefill_chunk_tokens > 0
+        allowance = max(1, self._cc_reserve(seqs, T))
+        tokens, positions = self._decode_arrays(rows)
+        seeds, counters = self._seed_arrays(rows)
+        table = self._table_array(rows)
+        cur = self._to_device({
+            "tok": tokens, "pos": positions, "ctr": counters, "act": active,
+            "budget": budget, "stops": self._stop_arrays(rows),
+            "table": table, "seeds": seeds, **self._samp_arrays(rows)})
+        if v.penalized:
+            cur["counts"] = self._counts_tensor(rows)
+        # quiet-block chunk operands, made once and reused
+        quiet = self._to_device({
+            "chunk_toks": np.zeros((B, T), np.int64),
+            "chunk_rem": np.zeros((B,), np.int64),
+            "chunk_samples": np.zeros((B,), bool), "reset": np.zeros((B,), bool),
+            "init_pos": np.zeros((B,), np.int64),
+            "init_budget": np.zeros((B,), np.int64)})
+        needs_reset: set = set()
+        fed_complete: set = set()
+        inflight: deque = deque()
+        deferred: List[int] = []
+        self.scheduler.deferred_free = deferred
+        fallout = None
+        self._cc_chains_total += 1
+        try:
+            while True:
+                splice_fall = None
+                spliced: List[int] = []
+                if splice_on:
+                    spliced, splice_fall = self._cc_intake(rows, seqs, v)
+                    needs_reset.update(spliced)
+                    if spliced:
+                        # per-row operands now cover the new rows; their
+                        # carried state is reset in-step by the overlay
+                        cur.update(self._to_device({
+                            "seeds": self._seed_arrays(rows)[0],
+                            "stops": self._stop_arrays(rows),
+                            **self._samp_arrays(rows)}))
+                feed = (self._cc_plan_feed(rows, T, needs_reset, fed_complete)
+                        if splice_on else None)
+                chunk_rows = 0
+                if feed is not None:
+                    cur.update(self._to_device(feed))
+                    chunk_rows = int((feed["chunk_rem"] > 0).sum())
+                else:
+                    cur.update(quiet)
+                if spliced or feed is not None:
+                    # splices and feeds may have grown page lists
+                    table = self._table_array(rows)
+                    cur.update(self._to_device({"table": table}))
+                key = ("cc", T, v.greedy, v.penalized, v.with_top,
+                       table.shape[1], cur["stops"].shape[1])
+                outs = self.graphs.run(key, fn, cur)
+                for k in ("tok", "pos", "ctr", "act", "budget", "counts"):
+                    if k in outs:
+                        cur[k] = outs[k]
+                fetch = HostFetch(outs["packed"])
+                allowance -= 1
+                self._cc_blocks_total += 1
+                self._note_dispatch("decode", T, blocks=1, continuous=True,
+                                    chunk_rows=chunk_rows,
+                                    spliced=len(spliced))
+                # pair each drain with the rows it was dispatched against
+                inflight.append((list(rows), drain.submit(
+                    self._fetch_packed_cc, fetch, B, v.with_top)))
+                # double buffer: with two blocks undrained, consume the
+                # older one (its host copy overlapped this dispatch)
+                while len(inflight) >= 2:
+                    rows_snap, fut = inflight.popleft()
+                    self._consume_cc_block(fut.result(), rows_snap, v.with_top)
+                fallout = splice_fall or self._cc_fall_out(seqs, splice=splice_on)
+                if fallout is not None:
+                    break
+                if allowance < 1:
+                    # rolling horizon exhausted: re-reserve, push a table
+                    allowance = self._cc_reserve(seqs, T,
+                                                 inflight_blocks=len(inflight))
+                    if allowance < 1:
+                        fallout = ("admission" if self.scheduler.waiting
+                                   else "pages")
+                        break
+                    table = self._table_array(rows)
+                    cur.update(self._to_device({"table": table}))
+        finally:
+            err = None
+            while inflight:
+                rows_snap, fut = inflight.popleft()
+                try:
+                    self._consume_cc_block(fut.result(), rows_snap, v.with_top)
+                except Exception as e:  # noqa: BLE001 — drain the window first
+                    err = err or e
+            self.scheduler.deferred_free = None
+            if deferred:
+                self.pool.free(deferred)
+            reason = fallout or "error"
+            self._cc_fallout_by_reason[reason] = (
+                self._cc_fallout_by_reason.get(reason, 0) + 1)
+            if err is not None:
+                raise err
+
+    def _consume_cc_block(self, fetched, rows: List[Optional[Sequence]],
+                          with_top: bool) -> None:
+        """Account one drained continuous block: the emitted flags say
+        which tokens are real and where each row stopped, so rows without
+        host-only stop sequences take one extend + one stop check + one
+        delivery per block.  A stop found here was latched on the device
+        in the same step, so the row's pages free at once."""
+        out, logp, flags, tids, tlps = fetched  # [T, B] each
+        for i, s in enumerate(rows):
+            if s is None or s.status != "running":
+                continue
+            # a chunk row completing MID-block emits on the tail only:
+            # index by the flags, never by an assumed prefix
+            steps = np.nonzero(flags[:, i])[0]
+            if steps.size == 0:
+                continue
+            if s.opts.stop_sequences:
+                for t in steps:
+                    s.num_computed += 1
+                    self.scheduler.commit_full_pages(s)
+                    self._append_token(s, int(out[t, i]), float(logp[t, i]),
+                                       _tops_for(s, tids, tlps, (t, i)))
+                    if s.status != "running":
+                        break
+                continue
+            first = not s.output_tokens
+            s.num_computed += int(steps.size)
+            s.output_tokens.extend(int(x) for x in out[steps, i])
+            if first:
+                self._note_first_token(s)
             self.scheduler.commit_full_pages(s)
-            self._append_token(s, toks[i], logp[i], _tops_for(s, tops, i))
+            reason = self.scheduler.check_stop(s, self.eos_token_ids)
+            if reason:
+                # device-latched stop: no later block writes these pages
+                saved = self.scheduler.deferred_free
+                self.scheduler.deferred_free = None
+                try:
+                    self.scheduler.finish(s, reason)
+                finally:
+                    self.scheduler.deferred_free = saved
+            self._deliver_block(s, out[steps, i], logp[steps, i],
+                                tids[steps] if tids is not None else None,
+                                tlps[steps] if tlps is not None else None,
+                                i, with_top, finish_reason=reason)
 
     def _recover_after_error(self) -> None:
         """A failed step may have left the pool half-written: error out the
-        running sequences, rebuild the pool, and re-prefill the waiting."""
+        running sequences, zero the pool IN PLACE (captured graphs hold
+        its addresses), rebuild the page pool and re-prefill the
+        waiting."""
         for seq in list(self.scheduler.running):
             self.scheduler.finish(seq, "error")
             self._deliver(seq, [], "error")
-        self.kv = self._make_kv()
+        self.scheduler.deferred_free = None
+        self.kv.k.zero_()
+        self.kv.v.zero_()
         self.pool = PagePool(self.cfg.num_pages, self.cfg.page_size,
                              event_sink=self._emit_event)
         self._emit_event(KvEvent("cleared", []))
@@ -436,6 +1197,8 @@ class TorchEngine:
     def _note_first_token(self, seq: Sequence) -> None:
         """Attribute this request's TTFT (block-wait / queue-wait /
         prefill); the first delta carries the per-request dict."""
+        if seq.t_first_token is not None:
+            return
         now = time.monotonic()
         seq.t_first_token = now
         seen = seq.t_seen if seq.t_seen is not None else seq.t_arrival
@@ -464,6 +1227,31 @@ class TorchEngine:
             out["log_probs"] = [logprob]
         if tops is not None:
             out["top_logprobs"] = [tops]
+        self._post(seq, queue, out)
+
+    def _deliver_block(self, seq: Sequence, toks, logps, tids, tlps,
+                       col: int, with_top: bool,
+                       finish_reason: Optional[str] = None) -> None:
+        """One queue item for a whole decode block (the block was appended
+        without per-token stop checks: either none can hit, or the device
+        mask already cut it and `finish_reason` rides the same delta)."""
+        queue = self._queues.get(seq.request_id)
+        if queue is None:
+            return
+        out: Dict[str, Any] = {"token_ids": [int(x) for x in toks],
+                               "finish_reason": finish_reason}
+        if seq.opts.logprobs:
+            out["log_probs"] = [float(x) for x in logps]
+        if with_top and seq.opts.top_logprobs and tids is not None:
+            out["top_logprobs"] = [_tops_for(seq, tids, tlps, (t, col))
+                                   for t in range(len(out["token_ids"]))]
+        self._post(seq, queue, out)
+
+    def _post(self, seq: Sequence, queue, out: Dict[str, Any]) -> None:
+        if seq.spec_draft_tokens:
+            # cumulative per-request speculative stats ride every delta
+            out["spec"] = {"draft_tokens": seq.spec_draft_tokens,
+                           "accepted_tokens": seq.spec_accepted_tokens}
         if seq.ttft_attr is not None:
             out["ttft"] = seq.ttft_attr
             seq.ttft_attr = None
@@ -474,13 +1262,14 @@ class TorchEngine:
                 raise
 
 
-def _tops_for(seq: Sequence, tops, i: int):
-    """This row's requested top-k [[id, logprob], ...], or None."""
+def _tops_for(seq: Sequence, tids, tlps, idx):
+    """This row's requested top-k [[id, logprob], ...] out of the packed
+    TOPLP-wide arrays (idx a row, or a (step, row) pair), or None."""
     k = seq.opts.top_logprobs
-    if not k or tops is None:
+    if not k or tids is None:
         return None
-    ids, lps = tops
-    return [[int(ids[i][j]), float(lps[i][j])] for j in range(min(k, len(ids[i])))]
+    ids, lps = tids[idx], tlps[idx]
+    return [[int(ids[j]), float(lps[j])] for j in range(min(k, len(ids)))]
 
 
 def _opts_from_request(request: Dict[str, Any]) -> SamplingOptions:

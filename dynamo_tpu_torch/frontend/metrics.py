@@ -157,6 +157,35 @@ class Registry:
         return ("\n".join(lines) + "\n").encode()
 
 
+def engine_stats_exposition(stats: dict, namespace: str = "",
+                            component: str = "") -> bytes:
+    """The worker's ``dynamo_tpu_worker_*`` families from a live
+    engine-stats dict (``vars(engine.metrics())``), as the JAX package's
+    `EngineStatsCollector` builds them on every scrape: ``*_total`` stats
+    are counters -- a dict-valued one (``decode_cc_fallout_total``) one
+    counter family labelled by ``reason`` -- and the other numbers
+    gauges."""
+    reg = Registry()
+    labels = ("dynamo_namespace", "dynamo_component")
+    for key, value in stats.items():
+        name = f"dynamo_tpu_worker_{key}"
+        if isinstance(value, dict) and key.endswith("_total"):
+            fam = Counter(name[:-len("_total")], f"engine {key} (live), by reason",
+                          labels + ("reason",), registry=reg)
+            for reason, n in sorted(value.items()):
+                fam.labels(namespace, component, reason).inc(n)
+            continue
+        if not isinstance(value, (int, float)) or isinstance(value, bool):
+            continue
+        if key.endswith("_total"):
+            fam = Counter(name[:-len("_total")], f"engine {key} (live)", labels,
+                          registry=reg)
+        else:
+            fam = Gauge(name, f"engine {key} (live)", labels, registry=reg)
+        fam.labels(namespace, component).inc(value)
+    return reg.exposition()
+
+
 class FrontendMetrics:
     def __init__(self, registry: Optional[Registry] = None):
         self.registry = r = registry or Registry()

@@ -163,12 +163,11 @@ class Llama(nn.Module):
         head = self.lm_head if self.lm_head is not None else self.embed.t()
         return (x @ head).float()
 
-    @torch.no_grad()
-    def forward_prefill(self, kv: KVCache, tokens, page_table, prefix_lens,
+    def _prefill_layers(self, kv: KVCache, tokens, page_table, prefix_lens,
                         chunk_lens) -> torch.Tensor:
-        """Run a prefill chunk (tokens [B, S]); returns f32 logits at each
-        row's last valid position [B, V]."""
-        B, S = tokens.shape
+        """Embed a chunk (tokens [B, S]) and run every layer's prefill
+        over it; returns the last hidden states [B, S, h]."""
+        S = tokens.shape[1]
         positions = prefix_lens.long()[:, None] + torch.arange(
             S, device=tokens.device)[None, :]
         rope = (*rope_cos_sin(positions, self.inv_freq), self.rope_scale)
@@ -177,9 +176,29 @@ class Llama(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer.prefill(x, (kv.k[i], kv.v[i]), rope, page_table,
                               prefix_lens, chunk_lens, slot)
+        return x
+
+    @torch.no_grad()
+    def forward_prefill(self, kv: KVCache, tokens, page_table, prefix_lens,
+                        chunk_lens) -> torch.Tensor:
+        """Run a prefill chunk (tokens [B, S]); returns f32 logits at each
+        row's last valid position [B, V]."""
+        x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens)
         last = torch.clamp(chunk_lens.long() - 1, min=0)
-        x_last = x[torch.arange(B, device=x.device), last]
+        x_last = x[torch.arange(tokens.shape[0], device=x.device), last]
         return self.lm_logits(x_last)
+
+    @torch.no_grad()
+    def forward_verify(self, kv: KVCache, tokens, page_table, prefix_lens,
+                       chunk_lens) -> torch.Tensor:
+        """Score EVERY position of a short draft chunk (tokens [B, S]: the
+        last accepted token, then S-1 drafts) in one forward: the verify
+        step of self-speculative decoding.  `forward_prefill` with the
+        logits of all S positions, f32 [B, S, V].  The whole chunk's KV is
+        written; slots of rejected drafts are never attended (positions
+        mask them) and are overwritten as decode advances."""
+        x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens)
+        return self.lm_logits(x)
 
     @torch.no_grad()
     def forward_decode(self, kv: KVCache, tokens, positions,

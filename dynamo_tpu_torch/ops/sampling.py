@@ -6,6 +6,10 @@ the batch, following the JAX package's `ops/sampling.py` rules:
 - top-k / top-p rows work on a top-``TOP_K_CAP`` slice; top-p mass is
   measured against the FULL softmax and conditioned on the slice.
 
+Nothing here reads a tensor back to the host: seeds and counters are [B]
+device tensors and greedy is a static flag, so the engine's decode blocks
+capture the whole sampling tail into their CUDA graphs.
+
 Each row draws from its own stream keyed by ``(seed, counter)``, exactly
 as the JAX package does: ``fold_in(PRNGKey(seed), counter)``, ``split``
 into a full-vocab key and a top-K key, and ``gumbel`` under each
@@ -17,8 +21,6 @@ worker's tokens.  The whole batch is keyed and drawn at once.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
-
 import torch
 
 from . import threefry
@@ -53,47 +55,91 @@ class SamplingParams:
         )
 
 
-def gumbel_noise(seeds: Sequence[int], counters: Sequence[int], V: int, K: int,
-                 device, full_rows: Sequence[int]) -> tuple:
+def _rows(x, device) -> torch.Tensor:
+    """[B] int64 on `device` from a tensor or a host sequence."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64)
+    return torch.as_tensor([int(v) for v in x], dtype=torch.int64, device=device)
+
+
+def gumbel_noise(seeds: torch.Tensor, counters: torch.Tensor, V: int,
+                 K: int) -> tuple:
     """Per-row Gumbel noise for the full vocab [B, V] and the top-K slice
     [B, K] from each row's (seed, counter) key, as the JAX package's
-    `_sample_nongreedy` draws it (seeds taken modulo 2**32).  Only
-    `full_rows` get full-vocab noise (the others' stays 0): the full draw
-    is the costly one, and only unconstrained rows read it.  The keys are
-    [B, 2] words derived on the host; both draws are one hash on
-    `device`."""
-    seeds = torch.tensor([int(s) & threefry.MASK for s in seeds], dtype=torch.int64)
-    counters = torch.tensor([int(c) & threefry.MASK for c in counters],
-                            dtype=torch.int64)
+    `_sample_nongreedy` draws it (seeds taken modulo 2**32).  `seeds` and
+    `counters` are [B] tensors on the device the noise is drawn on; every
+    row gets both draws (a row that does not read one discards it), so
+    the draw has no data-dependent shape and can sit in a CUDA graph.
+    Both draws are one hash."""
     sub = threefry.split(threefry.fold_in(threefry.prng_key(seeds), counters))
-    full_rows = list(full_rows)
-    g_full = torch.zeros((len(seeds), V), dtype=torch.float32, device=device)
-    if not full_rows:
-        return g_full, threefry.gumbel_parts([(sub[:, 1], K)], device)[0]
-    g_sub, drawn = threefry.gumbel_parts([(sub[:, 1], K), (sub[full_rows, 0], V)], device)
-    g_full[torch.tensor(full_rows, dtype=torch.int64).to(device)] = drawn
-    return g_full, g_sub
+    return tuple(threefry.gumbel_parts([(sub[:, 0], V), (sub[:, 1], K)],
+                                       seeds.device))
 
 
 def sample_tokens(
     logits: torch.Tensor,  # [B, V]
     params: SamplingParams,
-    seeds: Sequence[int],  # [B] per-request seed
-    counters: Sequence[int],  # [B] tokens generated so far
+    seeds,  # [B] per-request seed (tensor, or a host sequence)
+    counters,  # [B] tokens generated so far
 ) -> torch.Tensor:
-    """One token per row ([B] int64). Greedy rows take argmax."""
+    """One token per row ([B] int64). Greedy rows take argmax; the others
+    draw from their own (seed, counter) stream.  No host branch: the
+    sampled tail runs for every row and `torch.where` picks greedy rows,
+    which gives the JAX function's tokens (its all-greedy `lax.cond`
+    short-cut returns the same argmax)."""
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
-    temp = params.temperature.tolist()
-    if all(t <= 0.0 for t in temp):
-        return greedy
     B, V = logits.shape
     K = min(TOP_K_CAP, V)
-    top_k, top_p = params.top_k.tolist(), params.top_p.tolist()
-    full_rows = [i for i in range(B)
-                 if temp[i] > 0.0 and top_k[i] <= 0 and top_p[i] >= 1.0]
-    g_full, g_sub = gumbel_noise(seeds, counters, V, K, logits.device, full_rows)
+    g_full, g_sub = gumbel_noise(_rows(seeds, logits.device),
+                                 _rows(counters, logits.device), V, K)
     return _sample_nongreedy(logits, greedy, params, g_full, g_sub)
+
+
+def sample_tokens_maybe_greedy(logits, params, seeds, counters,
+                               greedy: bool = False) -> torch.Tensor:
+    """`sample_tokens`, or a STATICALLY greedy argmax when the caller knows
+    every row is temperature 0 (the JAX function of the same name): the
+    engine keeps a separate greedy variant of each step, so an all-greedy
+    batch never draws noise."""
+    if greedy:
+        return torch.argmax(logits.float(), dim=-1)
+    return sample_tokens(logits, params, seeds, counters)
+
+
+def sample_tokens_block(logits: torch.Tensor, params: SamplingParams, seeds,
+                        counters, greedy: bool = False):
+    """One token per POSITION of a logits block [B, S, V]: position j of
+    row b draws from the row's stream at counter ``counters[b] + j`` --
+    the tokens S sequential decode steps would sample (the verify tail of
+    self-speculative decoding).  Returns (tokens [B, S] int64, logprobs
+    [B, S] float32)."""
+    B, S, V = logits.shape
+    flat = logits.reshape(B * S, V)
+    if greedy:
+        out = torch.argmax(flat.float(), dim=-1)
+    else:
+        def rep(t):  # [B] -> [B*S], row-major (a view expanded, no sync)
+            return t[:, None].expand(B, S).reshape(-1)
+
+        flat_params = SamplingParams(*(rep(t) for t in (
+            params.temperature, params.top_k, params.top_p,
+            params.frequency_penalty, params.presence_penalty)))
+        dev = logits.device
+        ctr = (_rows(counters, dev)[:, None]
+               + torch.arange(S, device=dev)[None, :]).reshape(-1)
+        out = sample_tokens(flat, flat_params, rep(_rows(seeds, dev)), ctr)
+    logp = compute_logprobs(flat, out)
+    return out.reshape(B, S), logp.reshape(B, S)
+
+
+def speculative_accept(sampled: torch.Tensor, fed: torch.Tensor) -> torch.Tensor:
+    """Length of the accepted draft prefix per row ([B] int64): draft j
+    (``fed[:, j+1]``) is accepted iff every earlier draft matched and the
+    model's own sample at its position (``sampled[:, j]``) equals it --
+    for a deterministic drafter, exactly rejection sampling."""
+    match = (sampled[:, :-1] == fed[:, 1:]).to(torch.int64)
+    return torch.cumprod(match, dim=1).sum(dim=1)
 
 
 def _sample_nongreedy(logits, greedy, params, g_full, g_sub):

@@ -82,8 +82,9 @@ def _uniform_of_bits(bits: torch.Tensor, minval: float,
     """The top 23 bits become the mantissa of a float in [1, 2), minus 1,
     scaled to [minval, maxval) in float32."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    # filled on the device (no host copy), so a CUDA graph can hold it
+    lo = torch.full((), minval, dtype=torch.float32, device=bits.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 

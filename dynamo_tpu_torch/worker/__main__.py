@@ -7,11 +7,13 @@ and serves it as a discovered model endpoint, then prints ``READY worker
 config.json + tokenizer.json), ``tiny`` (the test model and tokenizer) or
 a canned config name (``llama-3.1-8b``, ...; random weights from
 ``--seed`` and a seeded byte-level tokenizer of the model's vocabulary).
-The engine flags of the JAX worker that the port has not taken
-(multi-step decode, chains, the block ladder, speculative decoding, int8,
-KV partitioning) are accepted and refused by `TorchEngine`; vision,
-disagg, KVBM, meshes, multihost, mock engines and the status server are
-later slices.  Runs on CUDA unless given ``--device cpu``.
+The engine's device-loop flags are the JAX worker's (multi-step decode
+blocks, chains or ``--decode-chain continuous``, the block ladder, chunk
+rows, mixed dispatches, speculative decoding); int8 and KV partitioning
+are accepted and refused by `TorchEngine`; vision, disagg, KVBM, meshes,
+multihost and mock engines are later slices.  ``--status-port`` serves the
+engine's counters on ``/metrics``.  Runs on CUDA unless given ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,19 @@ def _ladder_arg(s: str):
             f"invalid ladder {s!r}: expected comma-separated ints") from None
 
 
+def _chain_arg(s: str):
+    """--decode-chain takes an int (fixed chain depth) or the literal
+    `continuous` (the device-resident loop, docs/device_loop.md)."""
+    if s.strip().lower() == "continuous":
+        return "continuous"
+    try:
+        return int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"invalid --decode-chain {s!r}: expected an int or "
+            f"'continuous'") from None
+
+
 def add_model_args(ap: argparse.ArgumentParser) -> None:
     """Model, device and engine flags shared by the worker and `run`."""
     ap.add_argument("--model", default="tiny",
@@ -54,16 +69,41 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--max-model-len", type=int, default=4096)
     ap.add_argument("--max-num-seqs", type=int, default=8)
     ap.add_argument("--max-prefill-tokens", type=int, default=512)
-    ap.add_argument("--mixed-prefill-tokens", type=int, default=None)
+    ap.add_argument("--mixed-prefill-tokens", type=int, default=None,
+                    help="prefill token budget inside a mixed "
+                         "(prefill + decode block) dispatch; default "
+                         "--max-prefill-tokens, 0 disables mixed plans")
     ap.add_argument("--no-prefix-caching", action="store_true")
     ap.add_argument("--priority-class", default="interactive",
                     choices=["interactive", "batch"])
+    # the device loop (TorchEngine; every decode block is a CUDA graph)
+    ap.add_argument("--decode-steps", type=int, default=1,
+                    help="tokens decoded per dispatch (one block); up to "
+                         "N-1 tokens past a stop are computed and dropped")
+    ap.add_argument("--decode-chain", type=_chain_arg, default=1,
+                    help="decode blocks chained on their device-side "
+                         "carries before fetching, or 'continuous' for the "
+                         "device-resident loop (--decode-continuous)")
+    ap.add_argument("--decode-continuous", action="store_true",
+                    help="device-resident decode loop: open-ended chaining "
+                         "with on-device stop detection and a drain "
+                         "thread; with an integer --decode-chain N, N is "
+                         "the page pre-reservation horizon in blocks")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=None,
+                    help="chunked prefill inside the continuous chain: a "
+                         "per-block budget of prompt tokens fed as chunk "
+                         "rows, so an admission splices into the running "
+                         "chain; default --max-prefill-tokens, 0 disables")
+    ap.add_argument("--decode-block-ladder", type=_ladder_arg, default=None,
+                    help="comma-separated block sizes (e.g. 1,4,16) beside "
+                         "--decode-steps: full blocks while no prompt "
+                         "waits, the shortest rung (no chaining) while "
+                         "one does")
+    ap.add_argument("--speculative-ngram-k", type=int, default=0,
+                    help="self-speculative decoding: draft K tokens from "
+                         "the sequence's own n-grams and verify them in "
+                         "one forward; 0 disables")
     # JAX engine flags the port refuses (TorchEngine names them)
-    ap.add_argument("--decode-steps", type=int, default=1)
-    ap.add_argument("--decode-chain", type=int, default=1)
-    ap.add_argument("--decode-continuous", action="store_true")
-    ap.add_argument("--decode-block-ladder", type=_ladder_arg, default=None)
-    ap.add_argument("--speculative-ngram-k", type=int, default=0)
     ap.add_argument("--quantization", default="none", choices=["none", "int8"])
     ap.add_argument("--kv-partition", action="store_true")
 
@@ -81,8 +121,12 @@ def engine_config_from_args(args):
         enable_prefix_caching=not args.no_prefix_caching,
         default_priority=args.priority_class,
         decode_steps=args.decode_steps,
-        decode_chain=args.decode_chain,
-        decode_continuous=args.decode_continuous,
+        # 'continuous': the default double-buffer horizon of 2 blocks
+        decode_chain=(args.decode_chain
+                      if isinstance(args.decode_chain, int) else 2),
+        decode_continuous=(args.decode_continuous
+                           or args.decode_chain == "continuous"),
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
         decode_block_ladder=args.decode_block_ladder,
         speculative_ngram_k=args.speculative_ngram_k,
         quantization=args.quantization,
@@ -143,8 +187,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--component", default="backend")
     ap.add_argument("--endpoint", default="generate")
     ap.add_argument("--log-level", default="info")
+    ap.add_argument("--status-port", type=int, default=0,
+                    help="status server port (0 = ephemeral, -1 = disabled); "
+                         "serves /health /live /metrics /metrics.json")
     add_model_args(ap)
     return ap
+
+
+async def start_status_server(engine, args):
+    """/health, /live, /metrics (the engine's ``dynamo_tpu_worker_*``
+    families) and /metrics.json on `--status-port`."""
+    from ..frontend.http_server import HttpServer, Response, json_response
+    from ..frontend.metrics import engine_stats_exposition
+
+    def stats():
+        return vars(engine.metrics())
+
+    async def ok(_req):
+        return json_response({"status": "healthy"})
+
+    async def live(_req):
+        return json_response({"status": "live"})
+
+    async def metrics(_req):
+        return Response(engine_stats_exposition(stats(), args.namespace,
+                                                args.component))
+
+    async def metrics_json(_req):
+        return json_response(stats())
+
+    return await HttpServer({("GET", "/health"): ok, ("GET", "/live"): live,
+                             ("GET", "/metrics"): metrics,
+                             ("GET", "/metrics.json"): metrics_json},
+                            port=args.status_port).start()
 
 
 def main(argv=None) -> None:
@@ -164,12 +239,18 @@ async def _run(args) -> None:
     runtime = await DistributedRuntime.connect(args.control)
     await serve_engine(runtime, engine, mdc, namespace=args.namespace,
                        component=args.component, endpoint=args.endpoint)
+    status = None
+    if args.status_port >= 0:
+        status = await start_status_server(engine, args)
+        print(f"STATUS http://0.0.0.0:{status.port}", flush=True)
     print(f"READY worker {mdc.name}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
+    if status is not None:
+        await status.stop()
     await runtime.shutdown()
     await engine.shutdown()
 

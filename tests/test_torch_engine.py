@@ -155,9 +155,12 @@ async def test_kill_cancels_and_pool_balanced(jax_params):
     assert sum(engine.pool._refs.values()) == 0
 
 
-def test_unported_engine_options_refused(jax_params):
+@pytest.mark.parametrize("over", [{"quantization": "int8"},
+                                  {"kv_partition": True}],
+                         ids=["int8", "kv_partition"])
+def test_unported_engine_options_refused(jax_params, over):
     with pytest.raises(ValueError, match="not ported"):
-        make_engine(jax_params, decode_steps=4)
+        make_engine(jax_params, **over)
 
 
 def test_batch_launcher_on_cpu(tmp_path):
