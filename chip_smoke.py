@@ -19,7 +19,8 @@ final line):
    version and `scaled_dot_product_attention` over the gathered KV (the
    library yardstick, never used by the port), for the first slice's
    cases and for the serving shapes (decode: 8 padded rows of up to 2080
-   tokens; prefill: a 512-token chunk after a 1536-token prefix).  Then
+   tokens; prefill: a 512-token chunk after a 1536-token prefix, and the
+   speculative verify's 5-token chunks on 8 rows, one of them padding).  Then
    the seeded sampler's threefry bits on the card against the CPU's, and
    the sampler's time per step;
 4. serving: `TorchEngine` at Llama-3.1-8B full width and depth (random bf16
@@ -70,7 +71,9 @@ final line):
    bit-equal to its uncaptured run, and a `torch.profiler` pass.  Greedy
    rows that ran the same arithmetic must equal arm (a)'s; a chunk-row or
    verified row may part from it only at a near-tie (its margin in logit
-   std units, measured on the prefill path, within LOGIT_TOL).
+   std units, measured on the prefill path, within LOGIT_TOL).  Last, a
+   2-layer model whose drafts are accepted (`spec_accepting`): the
+   speculative engine's tokens and KV against the one-step engine's.
 
 On the card every decode block is a replayed CUDA graph; the wrappers
 count launches in Python, so the graph runner adds each graph's recorded
@@ -330,13 +333,16 @@ def decode_width_case(gen, page=16):
 
 
 def prefill_case(name, gen, dtype, hd, H, n_kv, S, prefix, chunk, window=None,
-                 with_sink=False, page=16, timed=False):
+                 with_sink=False, page=16, timed=False, trash_rows=()):
+    """`trash_rows`: padding rows whose whole table points at trash page 0,
+    as the engine pads a batch (the speculative verify's empty rows)."""
     from dynamo_tpu_torch.ops import cuda_attention as ca
     from dynamo_tpu_torch.ops import paged_attention as pa
 
     B = len(prefix)
     maxp = max(1, -(-max(p + S for p in prefix) // page))
     table, P = _table([maxp] * B, maxp)
+    table[list(trash_rows)] = 0
     kp, vp = _pool(gen, P, page, n_kv, hd, dtype)
     table = table.cuda()
     pre = torch.tensor(prefix, dtype=torch.int32, device="cuda")
@@ -410,6 +416,10 @@ def prefill_case(name, gen, dtype, hd, H, n_kv, S, prefix, chunk, window=None,
 # three of them empty) and a prefill chunk after a cached prefix
 SERVING_DECODE = [96, 1256, 2080, 1556, 332, 0, 0, 0]
 SERVING_PREFILL = dict(S=512, prefix=[1536], chunk=[512])
+# the speculative verify of phase 8 (k 4): S = k+1 on every row of a batch
+# padded to max_num_seqs, the padding row's table all trash
+SERVING_VERIFY = dict(S=5, prefix=[96, 1256, 2080, 1556, 332, 300, 64, 0],
+                      chunk=[5] * 8, trash_rows=(7,))
 
 
 def phase_kernels():
@@ -442,6 +452,8 @@ def phase_kernels():
                      200, [37, 0], [200, 131], window=100, with_sink=True),
         prefill_case("prefill serving shape", gen, bf, 128, 32, 8, sp["S"],
                      sp["prefix"], sp["chunk"], timed=True),
+        prefill_case("prefill speculative verify shape", gen, bf, 128, 32, 8,
+                     **SERVING_VERIFY, timed=True),
     ]
     results.append(decode_width_case(gen))
     for r in results:
@@ -1280,6 +1292,7 @@ DEVICE_LOOP_ARMS = {
 # rows held token-identical across arms (a), (b), (c): greedy, and never fed
 # through a chunk row or a verify
 GREEDY_ROWS = ("A_64", "B_shared+200", "C_2048", "E_300", "G_repeat")
+SEEDED_ROW = "D_shared+500_seeded"
 
 
 LONG_ROW, LONG_TOKENS = "G_repeat", 96
@@ -1486,24 +1499,125 @@ def phase_device_loop(model, cfg):
     for arm in DEVICE_LOOP_ARMS:
         if arm == "a_steps1":
             continue
-        for n in (*GREEDY_ROWS, "F_arrival", "D_shared+500_seeded"):
-            exact = arm.startswith("b_") or (arm.startswith("c_") and n in GREEDY_ROWS)
+        for n in (*GREEDY_ROWS, "F_arrival", SEEDED_ROW):
+            # (b) runs every row's arithmetic of (a); (c) too, but for the
+            # arrival, which it feeds through chunk rows.  The seeded row
+            # is held exactly there: its tokens ride the counter carried
+            # between chained replays and the noise captured in the graphs
+            exact = arm.startswith("b_") or (arm.startswith("c_")
+                                             and n != "F_arrival")
             same = tokens[arm][n] == ref[n]
             equal[f"{arm}/{n}"] = same
             if same:
                 continue
-            if exact and n != "D_shared+500_seeded":
+            if exact:
                 fail(f"device_loop: {arm} {n} differs from arm (a) though it "
                      "ran the same arithmetic")
+            if n == SEEDED_ROW:
+                # (d) samples it from the verify's logits, a different
+                # bf16 arithmetic; a sampled token has no greedy margin
+                flips[f"{arm}/{n}"] = {"index": next(
+                    (i for i, (a, b) in enumerate(zip(ref[n], tokens[arm][n]))
+                     if a != b), None), "margin_std": None, "sampled": True}
+                continue
             flip = first_flip(model, cfg, prompts[n], ref[n], tokens[arm][n])
             flips[f"{arm}/{n}"] = flip
-            if (n != "D_shared+500_seeded"
-                    and (flip["margin_std"] is None
-                         or abs(flip["margin_std"]) > LOGIT_TOL)):
+            if flip["margin_std"] is None or abs(flip["margin_std"]) > LOGIT_TOL:
                 fail(f"device_loop: {arm} {n} flips beyond a near-tie: {flip}")
     emit({"phase": "device_loop", "what": "greedy_rows_across_arms",
           "equal_to_a": equal, "flips": flips, "tol_in_std": LOGIT_TOL})
+    spec_accepting(cfg)
     return launches_by_arm
+
+
+def spec_accepting(cfg):
+    """Arm (d) where its drafts are accepted, which random weights never
+    allow: a 2-layer model at full width (phase 4's sharpened weights)
+    whose LM head is its own embedding, scaled, with the columns of a few
+    tokens rotated along a cycle, so greedy decoding after a prompt that
+    ends on the cycle walks it and the n-gram drafts match.  A 3-cycle
+    gives three accepted drafts a verify and rejects the fourth (its KV
+    slot is written, then overwritten by the next verify); a 4-cycle
+    accepts all four and samples the fifth token from the verify's last
+    position.  Each request runs through a fresh one-step engine and a
+    fresh k-4 speculative one: the same tokens, accepted drafts, verify
+    graphs launching the prefill kernel, and the KV the verifies wrote --
+    at every position both engines fed, in every layer -- equal to the KV
+    the one-step decode wrote, within RTOL of the layer's largest value (a
+    fresh engine hands its one sequence pages 1, 2, ... in order, so a
+    position has the same slot in both pools).  Layer 1's KV comes from
+    layer 0's attention, so it also reads back what earlier verifies
+    wrote."""
+    import dataclasses
+    import math
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models import init_params
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = init_params(small, torch.Generator(device="cuda").manual_seed(SEED + 8),
+                        dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    g = torch.Generator().manual_seed(SEED + 9)
+    ids = torch.randperm(cfg.vocab_size, generator=g).tolist()
+    cycles = {3: ids[:3], 4: ids[3:7]}
+    prompts = {n: ids[100 + 64 * n:164 + 64 * n] + [c[0]] for n, c in cycles.items()}
+    with torch.no_grad():
+        model.lm_head.copy_(model.embed.t() / math.sqrt(cfg.hidden_size))
+        for c in cycles.values():  # token c[i] scores c[i+1] first
+            model.lm_head[:, c[1:] + c[:1]] = model.lm_head[:, c].clone()
+
+    def serve(over, prompt):
+        ecfg = EngineConfig(page_size=16, num_pages=64, max_num_seqs=8,
+                            max_prefill_tokens=512, max_model_len=4096, **over)
+        engine = TorchEngine(small, model, ecfg, device="cuda")
+
+        async def run():
+            r = await _collect(engine, _req(prompt, max_tokens=64))
+            await engine.shutdown()
+            return r
+
+        r = asyncio.run(run())
+        torch.cuda.synchronize()
+        m = engine.metrics()
+        fed = len(prompt) + len(r["tokens"]) - 1  # positions both engines wrote
+        kv = {n: t[:, 1:].reshape(small.num_hidden_layers, -1,
+                                  *t.shape[3:])[:, :fed].float()
+              for n, t in (("k", engine.kv.k), ("v", engine.kv.v))}
+        return {"tokens": r["tokens"], "kv": kv, "fed": fed,
+                "accepted": m.spec_accepted_tokens_total,
+                "drafted": m.spec_draft_tokens_total,
+                "verifies": m.spec_dispatches_total,
+                "replayed_launches": dict(engine.graphs.replayed_launches)}
+
+    results = []
+    for n, prompt in prompts.items():
+        one = serve(dict(decode_steps=1), prompt)
+        spec = serve(dict(speculative_ngram_k=4), prompt)
+        kv_err = {f"{k}{layer}": ((spec["kv"][k][layer] - one["kv"][k][layer]).abs().max()
+                                  / one["kv"][k][layer].abs().max()).item()
+                  for k in ("k", "v") for layer in range(small.num_hidden_layers)}
+        res = {"phase": "device_loop", "what": "spec_accepting", "cycle": n,
+               "tokens_equal": spec["tokens"] == one["tokens"],
+               "distinct_tokens": len(set(one["tokens"])),
+               "accepted": spec["accepted"], "drafted": spec["drafted"],
+               "verifies": spec["verifies"], "positions_compared": one["fed"],
+               "kv_max_rel_err": kv_err, "rtol": RTOL[torch.bfloat16],
+               "replayed_launches": spec["replayed_launches"]}
+        emit(res)
+        results.append(res)
+        del one, spec
+    del model
+    torch.cuda.empty_cache()
+    for res in results:
+        if not res["tokens_equal"]:
+            fail(f"spec_accepting: the speculative tokens differ from one-step decode: {res}")
+        if res["accepted"] <= 0 or res["replayed_launches"]["prefill_attention"] <= 0:
+            fail(f"spec_accepting: no draft accepted through a verify graph: {res}")
+        if max(res["kv_max_rel_err"].values()) > res["rtol"]:
+            fail(f"spec_accepting: the KV the verifies wrote differs: {res}")
+    return results
 
 
 # --------------------------------------------------------------------------- #

@@ -49,7 +49,7 @@ from ..runtime.engine import Context
 from . import blocks
 from .blocks import TOPLP, Variant
 from .config import EngineConfig, bucket_for
-from .graphs import GraphRunner, HostFetch, PinnedRing
+from .graphs import GraphRunner, HostFetch
 from .page_pool import KvEvent, PagePool
 from .scheduler import PrefillItem, SamplingOptions, Scheduler, Sequence, StepPlan
 
@@ -129,10 +129,9 @@ class TorchEngine:
         self.pool = PagePool(self.cfg.num_pages, self.cfg.page_size,
                              event_sink=self._emit_event)
         self.scheduler = Scheduler(self.cfg, self.pool)
-        # the device loop: captured block graphs, pinned input staging,
-        # block functions per (kind, rung, variant)
+        # the device loop: captured block graphs, block functions per
+        # (kind, rung, variant)
         self.graphs = GraphRunner(self.device)
-        self._stage = PinnedRing(self.device)
         self._block_fns: Dict[tuple, Callable] = {}
         self._py_rng = random.Random(0xD1A)
         self._queues: Dict[str, asyncio.Queue] = {}
@@ -469,11 +468,21 @@ class TorchEngine:
                               accumulate=True)
         return counts
 
+    def _host(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host arrays as tensors to copy from without a sync: page-locked
+        on CUDA.  PyTorch's caching host allocator keeps each pinned block
+        from reuse until the non_blocking copy that reads it has run, so a
+        graph's static input can take the copy straight from here."""
+        out = {k: torch.from_numpy(np.ascontiguousarray(a))
+               for k, a in arrays.items()}
+        if self.device.type == "cuda":
+            out = {k: t.pin_memory() for k, t in out.items()}
+        return out
+
     def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host arrays → device tensors through the pinned staging ring."""
-        with self._stage.slot() as put:
-            return {k: put(a).to(self.device, non_blocking=True)
-                    for k, a in arrays.items()}
+        """Host arrays → device tensors, for the eager paths."""
+        return {k: t.to(self.device, non_blocking=True)
+                for k, t in self._host(arrays).items()}
 
     def _note_dispatch(self, kind: str, n_steps: int = 0, blocks: int = 1,
                        **extra) -> None:
@@ -630,9 +639,9 @@ class TorchEngine:
     def _decode_inputs(self, rows, v: Variant) -> Dict[str, torch.Tensor]:
         tokens, positions = self._decode_arrays(rows)
         seeds, counters = self._seed_arrays(rows)
-        d = self._to_device({"tok": tokens, "pos": positions, "ctr": counters,
-                             "table": self._table_array(rows), "seeds": seeds,
-                             **self._samp_arrays(rows)})
+        d = self._host({"tok": tokens, "pos": positions, "ctr": counters,
+                        "table": self._table_array(rows), "seeds": seeds,
+                        **self._samp_arrays(rows)})
         if v.penalized:
             d["counts"] = self._counts_tensor(rows)
         return d
@@ -778,9 +787,9 @@ class TorchEngine:
         seeds, counters = self._seed_arrays(rows)
         table = self._table_array(rows)
         greedy = self._is_greedy(rows)
-        d = self._to_device({"tokens": tokens, "pos": positions,
-                             "ctr": counters, "table": table, "seeds": seeds,
-                             **self._samp_arrays(rows)})
+        d = self._host({"tokens": tokens, "pos": positions,
+                        "ctr": counters, "table": table, "seeds": seeds,
+                        **self._samp_arrays(rows)})
         key = ("spec", k, greedy, table.shape[1])
         outs = self.graphs.run(key, self._block_fn("spec", k, Variant(greedy=greedy)), d)
         out, logp, n_acc = blocks.unpack_spec(HostFetch(outs["packed"]).numpy(),
@@ -1019,14 +1028,14 @@ class TorchEngine:
         tokens, positions = self._decode_arrays(rows)
         seeds, counters = self._seed_arrays(rows)
         table = self._table_array(rows)
-        cur = self._to_device({
+        cur = self._host({
             "tok": tokens, "pos": positions, "ctr": counters, "act": active,
             "budget": budget, "stops": self._stop_arrays(rows),
             "table": table, "seeds": seeds, **self._samp_arrays(rows)})
         if v.penalized:
             cur["counts"] = self._counts_tensor(rows)
         # quiet-block chunk operands, made once and reused
-        quiet = self._to_device({
+        quiet = self._host({
             "chunk_toks": np.zeros((B, T), np.int64),
             "chunk_rem": np.zeros((B,), np.int64),
             "chunk_samples": np.zeros((B,), bool), "reset": np.zeros((B,), bool),
@@ -1049,7 +1058,7 @@ class TorchEngine:
                     if spliced:
                         # per-row operands now cover the new rows; their
                         # carried state is reset in-step by the overlay
-                        cur.update(self._to_device({
+                        cur.update(self._host({
                             "seeds": self._seed_arrays(rows)[0],
                             "stops": self._stop_arrays(rows),
                             **self._samp_arrays(rows)}))
@@ -1057,14 +1066,14 @@ class TorchEngine:
                         if splice_on else None)
                 chunk_rows = 0
                 if feed is not None:
-                    cur.update(self._to_device(feed))
+                    cur.update(self._host(feed))
                     chunk_rows = int((feed["chunk_rem"] > 0).sum())
                 else:
                     cur.update(quiet)
                 if spliced or feed is not None:
                     # splices and feeds may have grown page lists
                     table = self._table_array(rows)
-                    cur.update(self._to_device({"table": table}))
+                    cur.update(self._host({"table": table}))
                 key = ("cc", T, v.greedy, v.penalized, v.with_top,
                        table.shape[1], cur["stops"].shape[1])
                 outs = self.graphs.run(key, fn, cur)
@@ -1097,7 +1106,7 @@ class TorchEngine:
                                    else "pages")
                         break
                     table = self._table_array(rows)
-                    cur.update(self._to_device({"table": table}))
+                    cur.update(self._host({"table": table}))
         finally:
             err = None
             while inflight:

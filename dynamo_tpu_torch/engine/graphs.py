@@ -1,4 +1,4 @@
-"""CUDA-graph runner of the engine's device loop, and pinned host staging.
+"""CUDA-graph runner of the engine's device loop, and pinned host fetches.
 
 The counterpart of the JAX engine's compiled-step caches (`_ljit` and
 `compiled_variants` / `compiled_decode_rungs` / `rung_histogram`): the
@@ -8,9 +8,9 @@ per key -- (kind, rung, greedy, penalized, with_top, table-width bucket,
 ...) -- into a `torch.cuda.CUDAGraph` and replayed for every later block.
 
 - Each graph owns static input and output tensors.  A dispatch copies its
-  changed inputs into the static inputs (host arrays through the pinned
-  ring below, device carries device-to-device) and replays; the outputs
-  stay valid until the next replay of any graph.
+  changed inputs straight into the static inputs (page-locked host
+  tensors host-to-device, device carries device-to-device) and replays;
+  the outputs stay valid until the next replay of any graph.
 - All captures share one memory pool (`torch.cuda.graph_pool_handle()`),
   so a later capture reuses the intermediates an earlier one freed.
   That is safe because graphs replay one at a time on one stream and a
@@ -37,8 +37,6 @@ fixed the way the JAX tests hold compiles fixed.
 
 from __future__ import annotations
 
-import contextlib
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Hashable, List, Optional
@@ -144,8 +142,8 @@ class GraphRunner:
     def _capture(self, g: _Graph, inputs: Dict[str, torch.Tensor]) -> None:
         t0 = time.perf_counter()
         stream = torch.cuda.current_stream(self.device)
-        g.inputs = {k: v.to(self.device, non_blocking=True).clone()
-                    for k, v in inputs.items()}
+        g.inputs = {k: torch.empty_like(v, device=self.device).copy_(
+                        v, non_blocking=True) for k, v in inputs.items()}
         side = self._side
         side.wait_stream(stream)
         with torch.cuda.stream(side):
@@ -189,69 +187,6 @@ class GraphRunner:
         eager = {k: v.clone() for k, v in g.fn(saved).items()}
         replayed = self.run(key, g.fn, {})
         return {n: bool(torch.equal(eager[n], replayed[n])) for n in names}
-
-
-class PinnedRing:
-    """Host→device staging for block inputs built on the host (tables,
-    chunk tokens, stop ids, resets): a ring of page-locked buffers, each
-    reused only after the event recorded behind its last copies has
-    completed -- a pinned buffer overwritten before its copy ran would
-    silently hand the next block the wrong inputs.  On the CPU the arrays
-    are wrapped as they are."""
-
-    def __init__(self, device: torch.device, slots: int = 4,
-                 nbytes: int = 1 << 20):
-        self.device = device
-        self.cuda = device.type == "cuda"
-        self._slots = slots
-        self._nbytes = nbytes
-        self._bufs: List[Optional[torch.Tensor]] = [None] * slots
-        self._events: List[Optional["torch.cuda.Event"]] = [None] * slots
-        self._next = 0
-        self._lock = threading.Lock()
-
-    @contextlib.contextmanager
-    def slot(self):
-        """Stage one dispatch's arrays: ``with ring.slot() as put:
-        t = put(array)`` gives pinned tensors to copy from; leaving the
-        block records the slot's event on the current stream, after the
-        copies the dispatch enqueued."""
-        if not self.cuda:
-            yield lambda a: torch.from_numpy(np.ascontiguousarray(a))
-            return
-        with self._lock:
-            i = self._next
-            self._next = (i + 1) % self._slots
-        if self._events[i] is not None:
-            self._events[i].synchronize()
-        used = [0]
-
-        def put(a: np.ndarray) -> torch.Tensor:
-            a = np.ascontiguousarray(a)
-            off = -(-used[0] // 64) * 64
-            end = off + a.nbytes
-            buf = self._bufs[i]
-            if buf is None or end > buf.numel():
-                if used[0]:
-                    raise ValueError("pinned staging slot outgrown mid-dispatch")
-                size = max(self._nbytes, 1 << int(end - 1).bit_length())
-                buf = self._bufs[i] = torch.empty(size, dtype=torch.uint8,
-                                                  pin_memory=True)
-            view = buf[off:end]
-            view.numpy()[:] = a.view(np.uint8).reshape(-1)
-            used[0] = end
-            return view.view(_TORCH_OF[a.dtype]).view(a.shape)
-
-        try:
-            yield put
-        finally:
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            self._events[i] = ev
-
-
-_TORCH_OF = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
-             np.dtype(np.float32): torch.float32, np.dtype(np.bool_): torch.bool}
 
 
 class HostFetch:
