@@ -73,14 +73,33 @@ final line):
    verified row may part from it only at a near-tie (its margin in logit
    std units, measured on the prefill path, within LOGIT_TOL).  Last, a
    2-layer model whose drafts are accepted (`spec_accepting`): the
-   speculative engine's tokens and KV against the one-step engine's.
+   speculative engine's tokens and KV against the one-step engine's;
+9. kv_tiers: KV off the device at phase 4's width, depth and weights.
+   (a) 128 pages (256 MiB) exported to host memory, imported into 128
+   other pages and exported again: equal bytes, the pool's storage
+   unchanged, and the GB/s each way of the engine's page-locked host
+   blocks against ordinary memory behind a pinned staging buffer; (b) one
+   decode slot, a batch victim (1224-token prompt, 64 tokens) parked for
+   a 64-token interactive arrival and resumed, greedy (twice), seeded at
+   0.8, greedy without a prefix cache (all 77 pages imported at resume)
+   and in the continuous loop: the victim's tokens equal an uncontended
+   run's, every park resumed, the lot empty, the continuous chain fallen
+   out with reason ``preempted``; (c) a 256-page pool serving a
+   2049-token prompt (128 full pages) cold with no tier, then with a
+   2 GiB host tier and a disk tier under ``build/`` (cold, a device-cache
+   hit, and onboarded from host after filler prompts evicted it), then
+   with a 4-block host tier (onboarded from disk): equal tokens in every
+   run, at least 127 blocks onboarded each time, every committed block
+   offloaded, the onboarded blocks byte-equal to the offloaded ones.
+   Park and resume ms with their pages, the TTFTs, and decode ITL with
+   offload on and off go on a line of their own.
 
 On the card every decode block is a replayed CUDA graph; the wrappers
 count launches in Python, so the graph runner adds each graph's recorded
 launches at every replay.  Every JSON line is also written to
 ``chip_smoke.jsonl`` in the output directory below, for the lines a
 terminal's scrollback loses.  Launch counts are read per path (phases 4, 6
-and 7, and each arm of 8, each zeroed just before it): the kernel summary
+and 7, each arm of 8, and 9, each zeroed just before it): the kernel summary
 line's ``launches`` are those of the HTTP traffic, the main path.  Then the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.
@@ -1621,6 +1640,428 @@ def spec_accepting(cfg):
 
 
 # --------------------------------------------------------------------------- #
+# phase 9: KV off the device
+# --------------------------------------------------------------------------- #
+
+KV_ROOT = os.path.join(ROOT, "build", "kv_tiers")
+TRANSFER_PAGES = 128  # a 2048-token prompt at page 16: 256 MiB of K+V at 8B
+TRANSFER_ITERS = 4
+
+
+def _gbps(nbytes, seconds):
+    return nbytes / seconds / 1e9
+
+
+def kv_transfers(cfg, model):
+    """(a) Export 128 pages to host memory and import them into 128 other
+    pages, then export those: equal bytes, same pool storage.  Times the
+    engine's design (host blocks in page-locked memory: the park's one
+    tensor per plane, and the offload drain's tensor per block) against
+    ordinary host memory behind one pinned staging buffer per direction,
+    each direction from a synchronised start to its last copy landing."""
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.kvbm.host_pool import fetch_blocks, to_host
+
+    n = TRANSFER_PAGES
+    engine = TorchEngine(cfg, model, EngineConfig(
+        page_size=16, num_pages=2 * n + 1, max_num_seqs=1,
+        max_prefill_tokens=512, max_model_len=4096), device="cuda")
+    kv = engine.kv
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for t in (kv.k, kv.v):
+        t[:, 1:n + 1].copy_(torch.randn(t[:, 1:n + 1].shape, generator=g,
+                                        device="cuda", dtype=t.dtype))
+    ptrs = (kv.k.data_ptr(), kv.v.data_ptr())
+    src, dst = list(range(1, n + 1)), list(range(n + 1, 2 * n + 1))
+    nbytes = 2 * kv.k[:, :n].numel() * kv.k.element_size()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    shape = kv.k[:, :n].shape
+    stage_d2h = torch.empty((2, *shape), dtype=kv.k.dtype, pin_memory=True)
+    stage_h2d = torch.empty((2, *shape), dtype=kv.k.dtype, pin_memory=True)
+
+    def d2h_staged():
+        k, v = engine._export_dev(src)  # noqa: SLF001
+        stage_d2h[0].copy_(k, non_blocking=True)
+        stage_d2h[1].copy_(v, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        out = torch.empty(stage_d2h.shape, dtype=stage_d2h.dtype)  # ordinary
+        out.copy_(stage_d2h)
+        return out
+
+    def h2d_staged(host):
+        stage_h2d.copy_(host)
+        dev = stage_h2d.to("cuda", non_blocking=True)
+        engine._import_dev(dst, dev[0], dev[1])  # noqa: SLF001
+
+    def d2h_blocks():
+        return fetch_blocks(*engine._export_dev(src))  # noqa: SLF001
+
+    times = {k: [] for k in ("d2h_pinned", "h2d_pinned", "d2h_pinned_blocks",
+                             "h2d_pinned_blocks", "d2h_staged", "h2d_staged")}
+    first = None
+    for it in range(TRANSFER_ITERS):
+        host, s = timed(lambda: to_host(list(engine._export_dev(src))))  # noqa: SLF001
+        times["d2h_pinned"].append(s)
+        if first is None:
+            first = [h.clone() for h in host]
+        _, s = timed(lambda: engine._import_dev(dst, *host))  # noqa: SLF001
+        times["h2d_pinned"].append(s)
+        again = to_host(list(engine._export_dev(dst)))  # noqa: SLF001
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail("kv_tiers: pages imported from pinned host memory differ "
+                 "from their export")
+        blocks, s = timed(d2h_blocks)
+        times["d2h_pinned_blocks"].append(s)
+        _, s = timed(lambda: engine._import_blocks(dst, *blocks))  # noqa: SLF001
+        times["h2d_pinned_blocks"].append(s)
+        staged, s = timed(d2h_staged)
+        times["d2h_staged"].append(s)
+        _, s = timed(lambda: h2d_staged(staged))
+        times["h2d_staged"].append(s)
+        again = to_host(list(engine._export_dev(dst)))  # noqa: SLF001
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail("kv_tiers: pages imported through the staged path or per "
+                 "block differ from their export")
+    if (kv.k.data_ptr(), kv.v.data_ptr()) != ptrs:
+        fail("kv_tiers: an import reallocated the KV pool")
+    # graph captures empty the device allocator's cache: does that drop
+    # the page-locked host memory the caching host allocator holds too?
+    del host, again, blocks
+    torch.cuda.empty_cache()
+    _, after_empty = timed(lambda: to_host(list(engine._export_dev(src))))  # noqa: SLF001
+    del engine, kv
+    # the first iteration pays the page-locked allocations; the rest reuse
+    # the caching host allocator's blocks
+    out = {"what": "transfers", "pages": n, "bytes": nbytes,
+           "iters": TRANSFER_ITERS, "pool_storage_unchanged": True,
+           "exports_equal": True}
+    for k, ts in times.items():
+        out[f"{k}_gbps_first"] = _gbps(nbytes, ts[0])
+        out[f"{k}_gbps"] = _gbps(nbytes, sorted(ts[1:])[len(ts[1:]) // 2])
+        out[f"{k}_ms"] = [t * 1e3 for t in ts]
+    out["d2h_pinned_after_empty_cache_gbps"] = _gbps(nbytes, after_empty)
+    return out
+
+
+async def _storm(engine, victim, inter, after):
+    """Send `inter` once `victim` has streamed `after` tokens.  Returns
+    (victim result, interactive result, finish order)."""
+    order, inter_task = [], None
+    t0 = time.perf_counter()
+    toks, reason, t_first = [], None, None
+
+    async def run_inter():
+        out = await _collect(engine, inter)
+        order.append("interactive")
+        return out
+
+    async for d in engine.generate(victim):
+        if d["token_ids"] and t_first is None:
+            t_first = time.perf_counter()
+        toks.extend(d["token_ids"])
+        reason = d["finish_reason"]
+        if inter_task is None and len(toks) >= after:
+            inter_task = asyncio.ensure_future(run_inter())
+    order.append("victim")
+    if inter_task is None:
+        fail("kv_tiers: the park victim never reached mid-decode")
+    return ({"tokens": toks, "finish_reason": reason,
+             "ttft_ms": (t_first - t0) * 1e3}, await inter_task, order)
+
+
+PARK_ARMS = {
+    "greedy": ({}, 0.0, None, 2),
+    # the same again on the same engine: its graphs are captured and the
+    # first park's page-locked memory is back in the caching host
+    # allocator, so this park times the copy alone
+    "greedy_again": ({}, 0.0, None, 2),
+    "seeded": ({}, 0.8, 7, 2),
+    # no prefix cache: the victim's full pages cannot be found again in
+    # the device cache at resume, so all of them come back from the lot
+    "greedy_full_import": (dict(enable_prefix_caching=False), 0.0, None, 2),
+    # past the fused chain (1 + 2 blocks of 8), so the arrival lands in the
+    # running continuous loop
+    "continuous": (dict(decode_steps=8, decode_chain=2, decode_continuous=True),
+                   0.0, None, 24),
+}
+
+
+def park_resume(cfg, model):
+    """(b) One decode slot, one-step graphs: a batch victim (1224-token
+    prompt, 64 tokens) mid-decode when a 64-token interactive request
+    arrives, twice greedy, once seeded at 0.8, once greedy with no prefix
+    cache (every page comes back from the lot), once in the continuous
+    loop; each against an uncontended run of the same engine from the
+    same (empty) cache."""
+    import gc
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+
+    g = torch.Generator().manual_seed(SEED + 10)
+    victim_prompt = torch.randint(0, cfg.vocab_size, (1224,), generator=g).tolist()
+    inter = _req(torch.randint(0, cfg.vocab_size, (64,), generator=g).tolist(),
+                 max_tokens=16)
+    results = []
+
+    async def run(engine, victim, after):
+        engine.clear_kv_blocks()
+        oracle = await _collect(engine, victim)
+        engine.clear_kv_blocks()
+        m0 = engine.metrics()
+        engine.dispatch_trace = trace = []
+        got, inter_out, order = await _storm(engine, victim, inter, after)
+        torch.cuda.synchronize()
+        engine.dispatch_trace = None
+        return oracle, got, inter_out, order, trace, m0, engine.metrics()
+
+    async def arms():
+        engines, out = {}, {}
+        for arm, (over, temp, seed, after) in PARK_ARMS.items():
+            key = tuple(sorted(over.items()))
+            if key not in engines:
+                engines[key] = TorchEngine(cfg, model, EngineConfig(
+                    page_size=16, num_pages=1024, max_num_seqs=1,
+                    max_prefill_tokens=512, max_model_len=4096, **over),
+                    device="cuda")
+            victim = _req(victim_prompt, temperature=temp, seed=seed,
+                          max_tokens=64)
+            victim["priority"] = "batch"
+            out[arm] = (engines[key], *await run(engines[key], victim, after))
+        for engine in engines.values():
+            await engine.shutdown()
+        return out
+
+    for arm, (engine, oracle, got, inter_out, order, trace, m0,
+              m1) in asyncio.run(arms()).items():
+        parked = m1.preempted_total - m0.preempted_total
+        resumed = m1.resumed_total - m0.resumed_total
+        fallout = (m1.decode_cc_fallout_total.get("preempted", 0)
+                   - m0.decode_cc_fallout_total.get("preempted", 0))
+        moves = [{k: e[k] for k in ("kind", "pages", "ms", "cached") if k in e}
+                 for e in trace if e["kind"] in ("park", "resume")]
+        row = {"what": "park_resume", "arm": arm, "config": PARK_ARMS[arm][0],
+               "victim_tokens_equal_oracle": got["tokens"] == oracle["tokens"],
+               "preempted": parked, "resumed": resumed,
+               "parked_seqs_after": m1.parked_seqs,
+               "parked_pages_after": m1.parked_pages,
+               "finish_order": order, "moves": moves,
+               "interactive_ttft_ms": inter_out["ttft_ms"],
+               "victim_ttft_ms": got["ttft_ms"],
+               "fallout_preempted": fallout, "card": card_line()}
+        emit({"phase": "kv_tiers", **row})
+        results.append(row)
+        if got["tokens"] != oracle["tokens"] or got["finish_reason"] != "length":
+            fail(f"kv_tiers park {arm}: the resumed victim's tokens differ "
+                 "from the uncontended run")
+        if not parked >= 1 or parked != resumed:
+            fail(f"kv_tiers park {arm}: preempted {parked}, resumed {resumed}")
+        if m1.parked_seqs or m1.parked_pages or len(engine.parking):
+            fail(f"kv_tiers park {arm}: the parking lot is not empty")
+        if order != ["interactive", "victim"]:
+            fail(f"kv_tiers park {arm}: finish order {order}")
+        if arm == "continuous" and fallout < 1:
+            fail("kv_tiers park continuous: no chain fell out with reason "
+                 f"preempted: {m1.decode_cc_fallout_total}")
+        if inter_out["finish_reason"] != "length" or len(inter_out["tokens"]) != 16:
+            fail(f"kv_tiers park {arm}: the interactive request ended "
+                 f"{inter_out['finish_reason']}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+TIER_PROMPT = 2049  # 128 full pages + 1 token
+TIER_FILLERS = 3
+
+
+def tier_prompts(cfg):
+    """The tier phase's prompt, fillers and warm-up prompt, 2049 tokens
+    each.  The prompt's 128 full pages (256 MiB of K+V at 8B) onboard, and
+    the cold run's last prefill chunk is the same single token the cached
+    runs compute, so every run does the same arithmetic and greedy tokens
+    must be equal."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    prompts = [torch.randint(0, cfg.vocab_size, (TIER_PROMPT,), generator=g).tolist()
+               for _ in range(TIER_FILLERS + 2)]
+    return prompts[0], prompts[1:-1], prompts[-1]
+
+
+def kv_tier_runs(cfg, model):
+    """(c) A 256-page pool: the prompt cold with no tier, then with a 2 GiB
+    host tier and a disk tier: cold, device-cache hit, and after filler
+    prompts evicted it, onboarded from host; then with a host tier of 4
+    blocks, cold and onboarded from disk.  Every engine serves a warm-up
+    prompt first.  Every offload must land."""
+    import gc
+    import shutil
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.kvbm import DiskTier, HostBlockPool, TieredKvCache
+
+    prompt, fillers, warm_prompt = tier_prompts(cfg)
+    target = _req(prompt, max_tokens=32)
+    # captures the engine's decode graphs at the prompt's table width, so
+    # no timed run pays a capture
+    warm = _req(warm_prompt, max_tokens=4)
+    shutil.rmtree(KV_ROOT, ignore_errors=True)
+    block_bytes = 2 * cfg.num_hidden_layers * 16 * cfg.num_key_value_heads \
+        * cfg.head_dim_ * 2
+
+    def engine_with(tiered):
+        return TorchEngine(cfg, model, EngineConfig(
+            page_size=16, num_pages=256, max_num_seqs=8,
+            max_prefill_tokens=512, max_model_len=4096), device="cuda",
+            tiered=tiered)
+
+    def itl_ms(r):
+        return (r["t_last"] - r["t_first"]) / (len(r["tokens"]) - 1) * 1e3
+
+    async def drained(tiered):
+        t0 = time.perf_counter()
+        while tiered.offload_backlog:
+            if time.perf_counter() - t0 > 120:
+                fail(f"kv_tiers: offloads stuck: {tiered.offload_backlog}")
+            await asyncio.sleep(0.005)
+
+    async def offload_off():
+        engine = engine_with(None)
+        await _collect(engine, warm)
+        r = await _collect(engine, target)
+        await engine.shutdown()
+        return r
+
+    async def tiers(host_bytes, disk_dir, with_hit):
+        tiered = TieredKvCache(HostBlockPool(capacity_bytes=host_bytes),
+                               DiskTier(disk_dir))
+        engine = engine_with(tiered)
+        committed = set()
+        engine.add_event_sink(lambda ev: committed.update(ev.block_hashes)
+                              if ev.kind == "stored" else None)
+        await _collect(engine, warm)
+        await drained(tiered)
+        engine.dispatch_trace = trace = []
+        runs = {}
+        cached = engine.pool._cached  # noqa: SLF001 — hash → page
+        before = set(cached)
+        runs["cold"] = await _collect(engine, target)
+        await drained(tiered)
+        hashes = sorted(set(cached) - before, key=cached.get)  # the prompt's
+        ref = engine.export_cached_blocks(hashes)
+        if with_hit:
+            runs["device_hit"] = await _collect(engine, target)
+            await drained(tiered)
+        for f in fillers:
+            await _collect(engine, _req(f, max_tokens=1))
+            await drained(tiered)
+        if any(engine.pool.cached_page(h) is not None for h in hashes):
+            fail("kv_tiers: the fillers left the prompt's pages cached")
+        onboard0 = tiered.onboarded_blocks
+        host_hits0 = tiered.host.hits
+        disk_hits0 = tiered.disk.hits
+        runs["onboard"] = await _collect(engine, target)
+        await drained(tiered)
+        back = engine.export_cached_blocks(ref[0])
+        engine.dispatch_trace = None
+        m = engine.metrics()
+        await engine.shutdown()
+        same = (back[0] == ref[0] and torch.equal(back[1], ref[1])
+                and torch.equal(back[2], ref[2]))
+        return {
+            "runs": runs, "committed": len(committed),
+            "offloaded": tiered.offloaded_blocks,
+            "landed": sum(h in tiered.host or tiered.disk.has_verified(h)
+                          for h in committed),
+            "onboarded": tiered.onboarded_blocks - onboard0,
+            "host_hits": tiered.host.hits - host_hits0,
+            "disk_hits": tiered.disk.hits - disk_hits0,
+            "disk_blocks": len(tiered.disk), "host_blocks": len(tiered.host),
+            "bytes_equal": same, "kvbm_metrics": {
+                k: v for k, v in vars(m).items() if k.startswith("kvbm_")},
+            "onboard_moves": [{k: e[k] for k in ("pages", "ms")}
+                              for e in trace if e["kind"] == "onboard"],
+        }
+
+    off = asyncio.run(offload_off())
+    host = asyncio.run(tiers(2 << 30, os.path.join(KV_ROOT, "host_run"), True))
+    disk = asyncio.run(tiers(4 * block_bytes, os.path.join(KV_ROOT, "disk_run"),
+                             False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = {"cold_no_tier": off["tokens"],
+              **{f"host_tier_{k}": r["tokens"] for k, r in host["runs"].items()},
+              **{f"disk_tier_{k}": r["tokens"] for k, r in disk["runs"].items()}}
+    ref_tokens = off["tokens"]
+    row = {
+        "what": "tiers", "prompt_tokens": TIER_PROMPT, "fillers": TIER_FILLERS,
+        "ttft_ms": {"cold_no_tier": off["ttft_ms"],
+                    **{f"host_tier_{k}": r["ttft_ms"] for k, r in host["runs"].items()},
+                    **{f"disk_tier_{k}": r["ttft_ms"] for k, r in disk["runs"].items()}},
+        "itl_ms": {"offload_off": itl_ms(off),
+                   "offload_on": itl_ms(host["runs"]["cold"]),
+                   "offload_on_disk_run": itl_ms(disk["runs"]["cold"])},
+        "tokens_equal": {k: t == ref_tokens for k, t in tokens.items()},
+        **{f"{name}_{k}": v for name, res in (("host", host), ("disk", disk))
+           for k, v in res.items() if k != "runs"},
+        "card": card_line(),
+    }
+    emit({"phase": "kv_tiers", **row})
+    if not all(row["tokens_equal"].values()):
+        fail(f"kv_tiers: tokens differ across runs: {row['tokens_equal']}")
+    for name, res in (("host", host), ("disk", disk)):
+        if res["onboarded"] < TIER_PROMPT // 16 - 1:
+            fail(f"kv_tiers {name}: onboarded {res['onboarded']} blocks")
+        if not (res["offloaded"] == res["committed"] == res["landed"]):
+            fail(f"kv_tiers {name}: offloads dropped: committed "
+                 f"{res['committed']}, offloaded {res['offloaded']}, landed "
+                 f"{res['landed']}")
+        if not res["bytes_equal"]:
+            fail(f"kv_tiers {name}: onboarded blocks differ from the "
+                 "blocks offloaded")
+    if host["host_hits"] < TIER_PROMPT // 16 - 1:
+        fail(f"kv_tiers: the host run onboarded from host {host['host_hits']} times")
+    if disk["disk_hits"] < TIER_PROMPT // 16 - 1:
+        fail(f"kv_tiers: the disk run read {disk['disk_hits']} blocks from disk")
+    shutil.rmtree(KV_ROOT, ignore_errors=True)
+    return row
+
+
+def phase_kv_tiers(model, cfg):
+    """Phase 9: (a) transfers, (b) park/resume, (c) host and disk tiers.
+    Launches are counted over (b) and (c), the serving paths of the
+    phase."""
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+
+    t0 = time.perf_counter()
+    transfers = kv_transfers(cfg, model)
+    emit({"phase": "kv_tiers", **transfers, "card": card_line()})
+    ca.reset_launches()
+    park = park_resume(cfg, model)
+    tier = kv_tier_runs(cfg, model)
+    launches = dict(ca.LAUNCHES)
+    if launches["decode_attention"] <= 0 or launches["prefill_attention"] <= 0:
+        fail(f"kv_tiers: a kernel did not launch: {launches}")
+    gb = {k: v for k, v in transfers.items() if k.endswith("_gbps")}
+    emit({"phase": "kv_tiers", "what": "summary",
+          "seconds": time.perf_counter() - t0, "transfer_gbps": gb,
+          "park_ms": [m for r in park for m in r["moves"] if m["kind"] == "park"],
+          "resume_ms": [m for r in park for m in r["moves"] if m["kind"] == "resume"],
+          "interactive_ttft_ms": {r["arm"]: r["interactive_ttft_ms"] for r in park},
+          "tier_ttft_ms": tier["ttft_ms"], "tier_itl_ms": tier["itl_ms"],
+          "onboarded": {"host": tier["host_onboarded"],
+                        "disk": tier["disk_onboarded"]},
+          "launches": launches, "card": card_line()})
+    return launches
+
+
+# --------------------------------------------------------------------------- #
 
 
 def package_versions() -> dict:
@@ -1681,11 +2122,13 @@ def main() -> int:
     golden_launches = phase_golden()
     http_launches = phase_http(model, cfg, direct)
     loop_launches = phase_device_loop(model, cfg)
+    tier_launches = phase_kv_tiers(model, cfg)
     by_path = {"serving (phase 4, generate)": serving_launches,
                "golden (phase 6)": golden_launches,
                "http (phase 7, the main path)": http_launches,
                **{f"device_loop {arm} (phase 8)": n
-                  for arm, n in loop_launches.items()}}
+                  for arm, n in loop_launches.items()},
+               "kv_tiers (phase 9)": tier_launches}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),

@@ -22,10 +22,18 @@ the JAX engine's names:
   rung, variant, table-width bucket) and replayed (`graphs.py`); on the
   CPU the same block functions run eagerly over the plain kernels;
 - sampled tokens come back in one packed buffer per block and stream as
-  deltas into per-request queues.
+  deltas into per-request queues;
+- KV leaves the device two ways (`kvbm/`): a batch-class decode preempted
+  for an interactive arrival parks its pages byte-exact in host memory
+  and resumes from them (`_park_seq`, `_resume_parked`), and an attached
+  tier (`attach_connector`) offloads committed blocks to host and disk on
+  a drain thread and onboards them into the prefix cache at admission.
+  Pages move with a gather (`index_select`) and an in-place scatter
+  (`index_copy_`): the pool tensors are never reallocated, since every
+  captured graph holds their addresses.
 
-Not ported yet (later slices): park/resume, KVBM tiers, meshes
-(dp/tp/pp/sp, kv_partition), multihost, vision and int8 weights.
+Not ported yet (later slices): disagg KV transfer, the object-store tier,
+meshes (dp/tp/pp/sp, kv_partition), multihost, vision and int8 weights.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kvbm.host_pool import to_host
+from ..kvbm.park import ParkedSeq, ParkingLot
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, Llama
 from ..runtime.engine import Context
@@ -50,7 +60,7 @@ from . import blocks
 from .blocks import TOPLP, Variant
 from .config import EngineConfig, bucket_for
 from .graphs import GraphRunner, HostFetch
-from .page_pool import KvEvent, PagePool
+from .page_pool import KvEvent, NoPagesError, PagePool
 from .scheduler import PrefillItem, SamplingOptions, Scheduler, Sequence, StepPlan
 
 logger = logging.getLogger(__name__)
@@ -87,9 +97,15 @@ class ForwardPassMetrics:
     prefix_cached_tokens_total: int = 0
     batch_occupancy: float = 0.0
     kv_watermark_headroom_pages: int = 0
+    # overload control: batch-class sheds, batch adds that queued,
+    # mid-decode preemptions parked to host and parked sequences resumed,
+    # plus the parking lot's live footprint
     shed_total: int = 0
     queued_total: int = 0
     preempted_total: int = 0
+    resumed_total: int = 0
+    parked_seqs: int = 0
+    parked_pages: int = 0
 
 
 def _unported(cfg: EngineConfig) -> List[str]:
@@ -110,6 +126,7 @@ class TorchEngine:
         eos_token_ids: Optional[List[int]] = None,
         event_sink: Optional[Callable[[KvEvent], None]] = None,
         device=None,
+        tiered=None,  # kvbm.TieredKvCache — host/disk KV tiers
     ):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -122,6 +139,11 @@ class TorchEngine:
         if bad:
             raise ValueError(f"not ported to TorchEngine yet: {', '.join(bad)}")
         self.eos_token_ids = eos_token_ids or []
+        # every device op of the engine goes to ONE stream, whichever
+        # thread issues it: a park on the event-loop thread is then
+        # ordered after the step thread's last replay into those pages
+        self._stream = (torch.cuda.default_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.kv = self._make_kv()
         self._extra_event_sinks: List[Callable[[KvEvent], None]] = []
         if event_sink:
@@ -129,6 +151,14 @@ class TorchEngine:
         self.pool = PagePool(self.cfg.num_pages, self.cfg.page_size,
                              event_sink=self._emit_event)
         self.scheduler = Scheduler(self.cfg, self.pool)
+        # preemption parking lot (overload control): batch-class victims
+        # preempted mid-decode park byte-exact KV here and resume through
+        # ordinary admission
+        self.parking = ParkingLot(self.cfg.park_max_pages)
+        self.scheduler.park_fn = self._park_seq
+        self.scheduler.resume_fn = self._resume_parked
+        self.scheduler.unpark_fn = self._unpark_seq
+        self.tiered = None
         # the device loop: captured block graphs, block functions per
         # (kind, rung, variant)
         self.graphs = GraphRunner(self.device)
@@ -160,8 +190,11 @@ class TorchEngine:
         self._spec_window: deque = deque(maxlen=128)  # (drafted, accepted)
         self._rung_dispatches: Dict[int, int] = {}
         # optional dispatch trace (tests / chip checks): set to a list and
-        # every device dispatch appends {kind, n_steps, blocks, ...}
+        # every device dispatch appends {kind, n_steps, blocks, ...}; KV
+        # moves (park, resume, onboard) add their pages and host ms
         self.dispatch_trace: Optional[List[dict]] = None
+        if tiered is not None:
+            self.attach_connector(tiered)
 
     def _make_kv(self) -> KVCache:
         return KVCache.create(self.model_cfg, self.cfg.num_pages,
@@ -214,9 +247,30 @@ class TorchEngine:
             shed_total=self.scheduler.shed_total,
             queued_total=self.scheduler.queued_total,
             preempted_total=self.scheduler.preempted_total,
+            resumed_total=self.scheduler.resumed_total,
+            parked_seqs=len(self.parking),
+            parked_pages=self.parking.pages_held,
         )
         for rung, n in sorted(self._rung_dispatches.items()):
             setattr(m, f"decode_rung{rung}_dispatches_total", n)
+        if self.tiered is not None:
+            # KVBM tier stats ride the same snapshot as dynamic attrs
+            t = self.tiered
+            m.kvbm_host_blocks = len(t.host)
+            m.kvbm_pending_offloads = t.pending_offloads
+            m.kvbm_inflight_offloads = t.inflight_offloads
+            m.kvbm_offload_total = t.offloaded_blocks
+            m.kvbm_onboard_total = t.onboarded_blocks
+            m.kvbm_evict_total = t.host.evicted
+            m.kvbm_host_hits_total = t.host.hits
+            m.kvbm_host_misses_total = t.host.misses
+            m.kvbm_host_bytes = t.host.bytes_used
+            m.kvbm_host_capacity_bytes = t.host.capacity_bytes
+            if t.disk is not None:
+                m.kvbm_disk_blocks = len(t.disk)
+                m.kvbm_disk_hits_total = t.disk.hits
+                m.kvbm_disk_misses_total = t.disk.misses
+                m.kvbm_disk_bytes = t.disk.bytes_used
         return m
 
     @property
@@ -329,6 +383,10 @@ class TorchEngine:
             if pool is not None:
                 await loop.run_in_executor(None, pool.shutdown, True)
                 setattr(self, name, None)
+        if self.tiered is not None:
+            # join the kvbm-offload drain thread: no tier write outlives
+            # shutdown(); a tier shared with a later engine reopens it
+            await loop.run_in_executor(None, self.tiered.close)
 
     def _plan_step(self) -> StepPlan:
         """Apply queued adds (before aborts, so an abort always finds its
@@ -348,6 +406,15 @@ class TorchEngine:
     async def _pump(self) -> None:
         loop = asyncio.get_running_loop()
         while not self._closed:
+            # launch one batch of queued offloads (KVBM): the gather runs
+            # on the step thread between steps, the copy on the drain
+            if self.tiered is not None and self.tiered.pending_offloads:
+                try:
+                    await loop.run_in_executor(
+                        self._executor, self._step,
+                        self.tiered.pump_offloads, self)
+                except Exception:  # noqa: BLE001
+                    logger.exception("kv offload failed")
             plan = self._plan_step()
             for seq in self.scheduler.drain_errored():
                 self._deliver(seq, [], "error")
@@ -360,6 +427,14 @@ class TorchEngine:
             if plan.kind == "idle":
                 if not (self.scheduler.has_work or self._pending_adds
                         or self._pending_aborts):
+                    if self.tiered is not None and self.tiered.pending_offloads:
+                        # only offload work remains: keep pumping batches,
+                        # with a real sleep — a backpressured dispatch
+                        # (drain busy) would otherwise spin the step thread
+                        await asyncio.sleep(0.002)
+                        continue
+                    # shutdown() may have set _closed while this iteration
+                    # was suspended: clearing _wake would eat its wakeup
                     if self._closed:
                         break
                     self._wake.clear()
@@ -378,10 +453,9 @@ class TorchEngine:
                 self._recover_after_error()
             await asyncio.sleep(0)
 
-    @staticmethod
-    def _step(run, arg) -> None:
-        with torch.no_grad():
-            run(arg)
+    def _step(self, run, arg):
+        with torch.no_grad(), torch.cuda.stream(self._stream):
+            return run(arg)
 
     # -- host arrays of a dispatch (row layouts) ---------------------------- #
 
@@ -601,6 +675,8 @@ class TorchEngine:
         if any(not s.prefill_done for s in self.scheduler.running
                if s not in seqs):
             return None
+        if self._offloads_pending():
+            return None
         T, allow_chain = self.scheduler.peek_decode_rung()
         if not all(self.scheduler.try_extend_pages(
                 s, min(s.num_computed + T, hard_cap)) for s in seqs):
@@ -655,6 +731,8 @@ class TorchEngine:
         if self._pending_aborts or self.scheduler.waiting:
             return False
         if any(not s.prefill_done for s in self.scheduler.running):
+            return False
+        if self._offloads_pending():
             return False
         if all(min(s.opts.max_tokens - len(s.output_tokens),
                    hard_cap - s.num_computed) <= k * T for s in seqs):
@@ -912,6 +990,8 @@ class TorchEngine:
             return "preempted"
         if any(s.status != "running" for s in seqs):
             return "stop"
+        if self._offloads_pending():
+            return "offload"
         for s in seqs:
             ctx = self._contexts.get(s.request_id)
             if ctx is not None and ctx.is_stopped() and not ctx.is_killed():
@@ -1168,6 +1248,203 @@ class TorchEngine:
                                 tids[steps] if tids is not None else None,
                                 tlps[steps] if tlps is not None else None,
                                 i, with_top, finish_reason=reason)
+
+    def _offloads_pending(self) -> bool:
+        """Queued offloads need the pump (their gather runs between
+        steps): chains, fusion and the continuous loop yield to them."""
+        return self.tiered is not None and self.tiered.pending_offloads > 0
+
+    # -- KV off the device: export/import, park/resume, KVBM ----------------- #
+
+    def _page_index(self, pages: List[int]) -> torch.Tensor:
+        return torch.tensor(pages, dtype=torch.int64, device=self.device)
+
+    def _export_dev(self, pages: List[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gather of page ids → fresh device tensors k, v [L, n, page, n_kv,
+        hd] (exactly n pages: no padding width to bound recompiles)."""
+        idx = self._page_index(pages)
+        return self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
+
+    def _import_dev(self, pages: List[int], k: torch.Tensor,
+                    v: torch.Tensor) -> None:
+        """Scatter k, v [L, n, page, n_kv, hd] (host or device) into page ids
+        IN PLACE: the captured graphs hold the pool's addresses, so the
+        pool tensors are never replaced."""
+        idx = self._page_index(pages)
+        self.kv.k.index_copy_(1, idx, k.to(self.device, non_blocking=True))
+        self.kv.v.index_copy_(1, idx, v.to(self.device, non_blocking=True))
+
+    def _note_move(self, kind: str, pages: int, t0: float, **extra) -> None:
+        if self.dispatch_trace is not None:
+            self._note_dispatch(kind, pages=pages,
+                                ms=(time.perf_counter() - t0) * 1e3, **extra)
+
+    def _park_seq(self, seq: Sequence) -> bool:
+        """Scheduler park hook: copy the victim's live KV pages —
+        including the partial tail page — device→host byte-exact into the
+        parking lot.  Byte-exact restore (not recompute) is what makes the
+        preempt→park→resume round trip token-identical: the resumed decode
+        sees the same KV bytes at the same positions, the same
+        ``output_tokens[-1]`` input, and PRNG counters derived from
+        ``len(output_tokens)``.  Returns False (victim keeps running) when
+        the lot is at budget."""
+        ps = self.cfg.page_size
+        n_used = -(-seq.num_computed // ps)
+        if n_used <= 0 or n_used > len(seq.pages):
+            return False
+        if not self.parking.can_park(n_used):
+            return False
+        t0 = time.perf_counter()
+        # parking IS a synchronous device→host copy: the victim's pages
+        # are freed the moment park_fn returns
+        with torch.cuda.stream(self._stream):
+            k, v = to_host(list(self._export_dev(seq.pages[:n_used])))
+        ok = self.parking.park(ParkedSeq(
+            request_id=seq.request_id, k=k, v=v, n_pages=n_used,
+            num_computed=seq.num_computed, kv_rank=seq.kv_rank,
+            block_hashes=list(seq.block_hashes),
+        ))
+        if ok:
+            self._note_move("park", n_used, t0)
+        return ok
+
+    def _resume_parked(self, seq: Sequence) -> None:
+        """Scheduler resume hook (admission time): restore a parked
+        sequence's KV into fresh pages — device prefix-cache hits first
+        (full blocks committed at park time may still be cached), the
+        rest imported from the lot's host bytes.  Full blocks re-commit to
+        the prefix cache; the partial tail page stays uncommitted.  The
+        import is waited for, so a failure raises here: the scheduler then
+        errors the request (a silent recompute would break token
+        identity)."""
+        entry = self.parking.take(seq.request_id)
+        if entry is None:
+            raise KeyError(f"no parked KV for {seq.request_id}")
+        t0 = time.perf_counter()
+        full = len(entry.block_hashes)
+        hit: List[int] = []
+        if self.cfg.enable_prefix_caching and entry.block_hashes:
+            hit = self.pool.lookup_on(seq.kv_rank, entry.block_hashes)
+        rest = entry.n_pages - len(hit)
+        try:
+            fresh = (self.pool.allocate_on(seq.kv_rank, rest)
+                     if rest else [])
+        except NoPagesError:
+            self.pool.free(hit)
+            raise
+        if fresh:
+            try:
+                with torch.cuda.stream(self._stream):
+                    self._import_dev(fresh, entry.k[:, len(hit):],
+                                     entry.v[:, len(hit):])
+                    if self._stream is not None:
+                        self._stream.synchronize()
+            except Exception:
+                self.pool.free(hit + fresh)
+                raise
+            if self.cfg.enable_prefix_caching:
+                for off, page in enumerate(fresh):
+                    idx = len(hit) + off
+                    if idx >= full:
+                        break  # partial tail page — never committed
+                    parent = (entry.block_hashes[idx - 1] if idx > 0
+                              else None)
+                    self.pool.commit(page, entry.block_hashes[idx], parent)
+        seq.pages = list(hit) + list(fresh)
+        seq.committed_pages = full
+        seq.num_computed = entry.num_computed
+        seq.block_hashes = list(entry.block_hashes)
+        self._note_move("resume", len(fresh), t0, cached=len(hit))
+
+    def _unpark_seq(self, seq: Sequence) -> None:
+        """Scheduler unpark hook: a parked request was aborted/shed —
+        drop its lot entry."""
+        self.parking.discard(seq.request_id)
+
+    def attach_connector(self, connector) -> None:
+        """Attach a KVBM connector (`kvbm.TieredKvCache` shape: on_event /
+        pump_offloads / onboard).  The engine pumps its offload queue and
+        routes admission-time cache misses through it."""
+        self.tiered = connector
+        self.add_event_sink(connector.on_event)
+
+        # onboarding runs inside admission (the pump's planning, or a
+        # splice on the step thread), between device steps; it leaves the
+        # scheduler's watermark reserve untouched (onboarding must not
+        # eat the pages `_admit_check` holds back for decode growth)
+        def _onboard(hashes, rank=0):
+            t0 = time.perf_counter()
+            pages = connector.onboard(
+                self, hashes, rank=rank,
+                headroom=self.scheduler._watermark_pages() + 1,  # noqa: SLF001
+            )
+            if pages:
+                self._note_move("onboard", len(pages), t0)
+            return pages
+
+        self.scheduler.onboard_fn = _onboard
+
+    def export_cached_blocks_device(self, hashes):
+        """Device half of the offload export (step thread between steps, or
+        the planning loop; never the drain thread).  Returns chunks
+        ``[(hashes, k_dev, v_dev)]`` WITHOUT copying to the host: the
+        outputs are fresh device tensors, so the copy can run on the KVBM
+        drain thread while later steps run.  Hashes no longer cached are
+        skipped."""
+        resolved, pages = [], []
+        for h in hashes:
+            page = self.pool.cached_page(h)
+            if page is not None:
+                resolved.append(h)
+                pages.append(page)
+        if not pages:
+            return []
+        with torch.cuda.stream(self._stream):
+            k, v = self._export_dev(pages)
+        return [(resolved, k, v)]
+
+    def export_cached_blocks(self, hashes):
+        """SYNC device→host export of committed blocks (pump/executor
+        thread only — never concurrent with a step).  Returns
+        (resolved_hashes, k, v) with k/v host tensors [L, n, page, n_kv,
+        hd]; hashes no longer cached are skipped."""
+        chunks = self.export_cached_blocks_device(hashes)
+        if not chunks:
+            return [], None, None
+        (out_h, k, v), = chunks
+        with torch.cuda.stream(self._stream):
+            k, v = to_host([k, v])
+        return out_h, k, v
+
+    def import_committed_blocks(self, blocks, rank: Optional[int] = None
+                                ) -> List[int]:
+        """Import (hash, parent_hash, k, v) blocks (k, v host tensors [L,
+        page, n_kv, hd]) into freshly allocated pages, committed to the
+        prefix cache (between device steps).  Returns the page ids."""
+        if not blocks:
+            return []
+        pages = (self.pool.allocate(len(blocks)) if rank is None
+                 else self.pool.allocate_on(rank, len(blocks)))
+        self._import_blocks(pages, [b[2] for b in blocks],
+                            [b[3] for b in blocks])
+        for (h, parent, _, _), page in zip(blocks, pages):
+            self.pool.commit(page, h, parent)
+        return pages
+
+    def _import_blocks(self, pages: List[int], ks: List[torch.Tensor],
+                       vs: List[torch.Tensor]) -> None:
+        """Import per-block host tensors [L, page, n_kv, hd] into `pages`
+        through a block-major staging tensor on the device: one
+        host→device copy per block plane, straight from the host tier's
+        tensors, then one in-place scatter per plane."""
+        with torch.cuda.stream(self._stream):
+            kd = torch.empty((len(ks), *ks[0].shape), dtype=ks[0].dtype,
+                             device=self.device)
+            vd = torch.empty_like(kd)
+            for i, (k, v) in enumerate(zip(ks, vs)):
+                kd[i].copy_(k, non_blocking=True)
+                vd[i].copy_(v, non_blocking=True)
+            self._import_dev(pages, kd.transpose(0, 1), vd.transpose(0, 1))
 
     def _recover_after_error(self) -> None:
         """A failed step may have left the pool half-written: error out the

@@ -9,11 +9,15 @@ a canned config name (``llama-3.1-8b``, ...; random weights from
 ``--seed`` and a seeded byte-level tokenizer of the model's vocabulary).
 The engine's device-loop flags are the JAX worker's (multi-step decode
 blocks, chains or ``--decode-chain continuous``, the block ladder, chunk
-rows, mixed dispatches, speculative decoding); int8 and KV partitioning
-are accepted and refused by `TorchEngine`; vision, disagg, KVBM, meshes,
-multihost and mock engines are later slices.  ``--status-port`` serves the
-engine's counters on ``/metrics``.  Runs on CUDA unless given ``--device
-cpu``.
+rows, mixed dispatches, speculative decoding), and so are its overload
+flags (priority class, shedding, batch deadline, ``--park-max-pages`` for
+the preemption parking lot) and its KVBM flags (``--kvbm``: host and disk
+KV tiers through the leader/worker bootstrap; the object-store tier,
+``--kvbm-g4-bucket``, is refused as not ported yet).  int8 and KV
+partitioning are accepted and refused by `TorchEngine`; vision, disagg,
+meshes, multihost and mock engines are later slices.  ``--status-port``
+serves the engine's counters on ``/metrics``.  Runs on CUDA unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -74,8 +78,25 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                          "(prefill + decode block) dispatch; default "
                          "--max-prefill-tokens, 0 disables mixed plans")
     ap.add_argument("--no-prefix-caching", action="store_true")
+    # overload control: priority classes + the shed / queue-deadline /
+    # preemption-parking knobs
     ap.add_argument("--priority-class", default="interactive",
-                    choices=["interactive", "batch"])
+                    choices=["interactive", "batch"],
+                    help="default priority class for requests that don't "
+                         "set one (per-request `priority` wins)")
+    ap.add_argument("--overload-queue-depth", type=int, default=0,
+                    help="shed NEW batch-class requests once the waiting "
+                         "queue is this deep AND watermark headroom is at "
+                         "or under --overload-headroom-pages (0 disables)")
+    ap.add_argument("--overload-headroom-pages", type=int, default=0,
+                    help="watermark-headroom floor (pages) below which "
+                         "the queue-depth threshold counts as pressure")
+    ap.add_argument("--batch-deadline-s", type=float, default=0.0,
+                    help="shed a batch request queued this long without "
+                         "ever being admitted (0 disables)")
+    ap.add_argument("--park-max-pages", type=int, default=0,
+                    help="cap on KV pages the decode-preemption parking "
+                         "lot may hold host-side (0 = unbounded)")
     # the device loop (TorchEngine; every decode block is a CUDA graph)
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="tokens decoded per dispatch (one block); up to "
@@ -120,6 +141,10 @@ def engine_config_from_args(args):
         mixed_prefill_tokens=args.mixed_prefill_tokens,
         enable_prefix_caching=not args.no_prefix_caching,
         default_priority=args.priority_class,
+        overload_queue_depth=args.overload_queue_depth,
+        overload_headroom_pages=args.overload_headroom_pages,
+        batch_deadline_s=args.batch_deadline_s,
+        park_max_pages=args.park_max_pages,
         decode_steps=args.decode_steps,
         # 'continuous': the default double-buffer horizon of 2 blocks
         decode_chain=(args.decode_chain
@@ -190,6 +215,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--status-port", type=int, default=0,
                     help="status server port (0 = ephemeral, -1 = disabled); "
                          "serves /health /live /metrics /metrics.json")
+    # distributed KVBM: shared host/disk KV tiers
+    ap.add_argument("--kvbm", action="store_true",
+                    help="attach shared KV tiers via the kvbm bootstrap")
+    ap.add_argument("--kvbm-leader", type=int, default=0, metavar="WORLD",
+                    help="also run the kvbm leader, barriering WORLD workers")
+    ap.add_argument("--kvbm-disk-root", default=None)
+    ap.add_argument("--kvbm-g4-bucket", default=None,
+                    help="object-store tier (G4): not ported yet, refused")
+    ap.add_argument("--kvbm-host-bytes", type=int, default=1 << 30)
     add_model_args(ap)
     return ap
 
@@ -223,7 +257,11 @@ async def start_status_server(engine, args):
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.kvbm_g4_bucket:
+        ap.error("--kvbm-g4-bucket: the object-store KV tier (G4) is not "
+                 "ported yet; use --kvbm-disk-root for a shared tier")
     logging.basicConfig(level=args.log_level.upper(),
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     asyncio.run(_run(args))
@@ -237,6 +275,20 @@ async def _run(args) -> None:
     # than the lease TTL
     engine, mdc = build_engine(args)
     runtime = await DistributedRuntime.connect(args.control)
+    if args.kvbm:
+        from ..kvbm import KvbmConfig, KvbmLeader, KvbmWorker
+
+        leader_task = None
+        if args.kvbm_leader > 0:
+            leader_task = asyncio.ensure_future(KvbmLeader(
+                runtime,
+                KvbmConfig(disk_root=args.kvbm_disk_root,
+                           host_bytes=args.kvbm_host_bytes),
+                world=args.kvbm_leader, namespace=args.namespace,
+            ).start())
+        await KvbmWorker(runtime, engine, namespace=args.namespace).start()
+        if leader_task is not None:
+            await leader_task
     await serve_engine(runtime, engine, mdc, namespace=args.namespace,
                        component=args.component, endpoint=args.endpoint)
     status = None

@@ -349,25 +349,48 @@ async def test_graph_keys_fixed_after_warmup(jax_params):
 
 
 def test_worker_flags_match_jax_worker():
-    """The worker's device-loop flags build the JAX worker's EngineConfig
-    fields, `--decode-chain continuous` included."""
+    """The worker's device-loop, overload and park flags build the JAX
+    worker's EngineConfig fields, `--decode-chain continuous` included,
+    and its KVBM flags parse to the JAX worker's values."""
     from dynamo_tpu.worker.__main__ import build_parser as jax_parser
     from dynamo_tpu.worker.__main__ import engine_config_from_args as jax_cfg
     from dynamo_tpu_torch.worker.__main__ import build_parser, engine_config_from_args
 
     fields = ("decode_steps", "decode_chain", "decode_continuous",
               "prefill_chunk_tokens", "decode_block_ladder",
-              "speculative_ngram_k", "mixed_prefill_tokens")
+              "speculative_ngram_k", "mixed_prefill_tokens",
+              "default_priority", "overload_queue_depth",
+              "overload_headroom_pages", "batch_deadline_s", "park_max_pages")
+    kvbm = ("kvbm", "kvbm_leader", "kvbm_disk_root", "kvbm_host_bytes")
     for argv in (["--decode-steps", "8", "--decode-chain", "continuous",
                   "--prefill-chunk-tokens", "256"],
                  ["--decode-steps", "8", "--decode-chain", "3",
                   "--decode-block-ladder", "1,2,4", "--mixed-prefill-tokens", "64"],
-                 ["--speculative-ngram-k", "4"]):
+                 ["--speculative-ngram-k", "4"],
+                 ["--priority-class", "batch", "--overload-queue-depth", "8",
+                  "--overload-headroom-pages", "16", "--batch-deadline-s", "2.5",
+                  "--park-max-pages", "512"],
+                 ["--kvbm", "--kvbm-leader", "2", "--kvbm-disk-root", "/tmp/g3",
+                  "--kvbm-host-bytes", "4096"]):
         argv = ["--control", "127.0.0.1:1", *argv]
-        got = engine_config_from_args(build_parser().parse_args(argv))
-        want = jax_cfg(jax_parser().parse_args(argv))
+        ours, theirs = build_parser().parse_args(argv), jax_parser().parse_args(argv)
+        got = engine_config_from_args(ours)
+        want = jax_cfg(theirs)
         assert {f: getattr(got, f) for f in fields} == \
             {f: getattr(want, f) for f in fields}
+        assert {f: getattr(ours, f) for f in kvbm} == \
+            {f: getattr(theirs, f) for f in kvbm}
+
+
+def test_worker_refuses_object_store_tier(capsys):
+    """`--kvbm-g4-bucket` names a tier the port does not have: the worker
+    refuses it before it starts anything."""
+    from dynamo_tpu_torch.worker.__main__ import main
+
+    with pytest.raises(SystemExit) as exc:
+        main(["--control", "127.0.0.1:1", "--kvbm", "--kvbm-g4-bucket", "b"])
+    assert exc.value.code == 2
+    assert "not ported yet" in capsys.readouterr().err
 
 
 def test_worker_metrics_match_jax_collector():
@@ -383,9 +406,19 @@ def test_worker_metrics_match_jax_collector():
 
     stats = {"active_seqs": 2, "kv_usage": 0.25, "decode_cc_blocks_total": 7,
              "decode_cc_chains_total": 2,
-             "decode_cc_fallout_total": {"stop": 3, "admit": 1},
+             "decode_cc_fallout_total": {"stop": 3, "admit": 1, "preempted": 2,
+                                         "offload": 5},
              "spec_draft_tokens_total": 12, "spec_acceptance_rate": 0.5,
-             "decode_rung8_dispatches_total": 4}
+             "decode_rung8_dispatches_total": 4,
+             "preempted_total": 3, "resumed_total": 2, "parked_seqs": 1,
+             "parked_pages": 77, "kvbm_host_blocks": 9,
+             "kvbm_pending_offloads": 16, "kvbm_inflight_offloads": 32,
+             "kvbm_offload_total": 140, "kvbm_onboard_total": 127,
+             "kvbm_evict_total": 3, "kvbm_host_hits_total": 127,
+             "kvbm_host_misses_total": 1, "kvbm_host_bytes": 1 << 28,
+             "kvbm_host_capacity_bytes": 1 << 31, "kvbm_disk_blocks": 5,
+             "kvbm_disk_hits_total": 4, "kvbm_disk_misses_total": 2,
+             "kvbm_disk_bytes": 1 << 22}
     reg = CollectorRegistry()
     reg.register(EngineStatsCollector(lambda: stats, "dynamo", "backend"))
 
