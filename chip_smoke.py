@@ -92,14 +92,37 @@ final line):
    run, at least 127 blocks onboarded each time, every committed block
    offloaded, the onboarded blocks byte-equal to the offloaded ones.
    Park and resume ms with their pages, the TTFTs, and decode ITL with
-   offload on and off go on a line of their own.
+   offload on and off go on a line of their own;
+10. kv_router: the KV-aware router at phase 4's width, depth and weights.
+   Two `TorchEngine`s share the weights, each with its own 512-page pool
+   (1 GiB of K+V), served by `serve_engine` (KV events, load metrics) on
+   an embedded control plane; `python -m dynamo_tpu_torch.frontend
+   --router-mode kv` in a process of its own routes, a second frontend
+   process in round_robin is the contrast, and an observer `KvRouter` in
+   this process reads the same event stream.  Pre-tokenized greedy SSE
+   /v1/completions of 16 tokens: four 1024-token prefixes with a 64-token
+   suffix, one at a time, cold; each again with a new suffix (each must
+   go to the worker holding its prefix, whose prefix-cache counter rises
+   by 1024, with the observer's decision at 64 blocks of overlap); the
+   same four through the round-robin frontend.  Then the observer's block
+   count per worker must equal its pool's cached hashes and fall to 0
+   after `clear_kv_blocks`; last, worker A (which the router's tie-break
+   never picks) gets a 2 GiB host tier and a `TierSummaryPublisher`,
+   prefix 0 served straight into A, filler prompts evict it from A's
+   device pool, and the returning prompt must go to A by tier overlap
+   (at least 63 blocks), onboard at least 63 blocks and give round 2's
+   tokens.  The whole phase runs twice: with the control plane embedded
+   in this process (the main path), and in a process of its own
+   (`python -m dynamo_tpu_torch.runtime`).  The TTFT of each round and
+   arm (KV hits and misses against round-robin's) goes on a line of its
+   own with the card.
 
 On the card every decode block is a replayed CUDA graph; the wrappers
 count launches in Python, so the graph runner adds each graph's recorded
 launches at every replay.  Every JSON line is also written to
 ``chip_smoke.jsonl`` in the output directory below, for the lines a
 terminal's scrollback loses.  Launch counts are read per path (phases 4, 6
-and 7, each arm of 8, and 9, each zeroed just before it): the kernel summary
+and 7, each arm of 8, 9 and 10, each zeroed just before it): the kernel summary
 line's ``launches`` are those of the HTTP traffic, the main path.  Then the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.
@@ -2062,6 +2085,419 @@ def phase_kv_tiers(model, cfg):
 
 
 # --------------------------------------------------------------------------- #
+# phase 10: the KV-aware router
+# --------------------------------------------------------------------------- #
+
+ROUTER_PREFIX = 1024  # 64 pages, the part each returning prompt shares
+ROUTER_SUFFIX = 64
+ROUTER_PREFIXES = 4
+ROUTER_FILLERS = 5  # 2048-token prompts, 128 pages each: past a 511-page pool
+ROUTER_HOST_BYTES = 2 << 30  # 1024 blocks: the fillers' 640 and the prefix
+ROUTER_TOKENS = 16
+ROUTER_WAIT_S = 60
+
+
+def router_prompts(cfg):
+    """Four 1024-token prefixes, each with a first and a second 64-token
+    suffix, the fillers and two warm-up prompts, drawn from the seed."""
+    g = torch.Generator().manual_seed(SEED + 21)
+
+    def draw(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    prefixes = [draw(ROUTER_PREFIX) for _ in range(ROUTER_PREFIXES)]
+    first = [p + draw(ROUTER_SUFFIX) for p in prefixes]
+    again = [p + draw(ROUTER_SUFFIX) for p in prefixes]
+    fillers = [draw(2048) for _ in range(ROUTER_FILLERS)]
+    return prefixes, first, again, fillers, [draw(64), draw(64)]
+
+
+def phase_kv_router(model, cfg):
+    """Phase 10: two engines over the same weights (B served first, A
+    second), each with its own 512-page pool, served by `serve_engine`;
+    the frontend in `--router-mode kv` as a process of its own, another
+    in round_robin for the contrast, and an observer `KvRouter` in this
+    process on the same event stream.  Pre-tokenized greedy SSE
+    /v1/completions of 16 tokens:
+
+    1. four 1024-token prefixes with a first suffix, one at a time, cold;
+    2. once the observer indexes each prefix's 64 blocks on one worker,
+       each prefix with a second suffix: it must go to its holder
+       (`prefix_cached_tokens_total` up by 1024, the observer's decision
+       with 64 blocks of overlap);
+    3. the same four through the round-robin frontend;
+
+    then the observer's count per worker must equal its pool's cached
+    hashes, and fall to 0 after `clear_kv_blocks` through each worker's
+    control op.  4. A gets a host tier and a `TierSummaryPublisher`;
+    prefix 0 with its first suffix goes straight into A (cold again: the
+    round 1 tokens), filler prompts evict it from A's device pool, and
+    prefix 0 with its second suffix, through the KV frontend, must go to A
+    (which the router's tie-break never picks) by tier overlap, onboard
+    64 blocks and give round 2's tokens.
+
+    Two arms, the same rounds and checks: the control plane embedded in
+    this process (the main path; its launches are the path's), then in a
+    process of its own (`python -m dynamo_tpu_torch.runtime`), which
+    takes its serving of the KV-event stream off the engines' process.
+    Returns {arm: launches}."""
+    return {cp: kv_router_arm(model, cfg, cp) for cp in ("embedded", "process")}
+
+
+def kv_router_arm(model, cfg, control):
+    """One arm of phase 10 (see there) with the control plane `control`:
+    ``"embedded"`` in this process, or ``"process"``."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.kvbm import (
+        HostBlockPool,
+        TieredKvCache,
+        TierSummaryPublisher,
+    )
+    from dynamo_tpu_torch.llm import ModelDeploymentCard
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.router import KvRouter
+    from dynamo_tpu_torch.router.worker_key import pack_worker
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.testing import synthetic_tokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hash_for_seq
+    from dynamo_tpu_torch.worker import serve_engine
+
+    t_phase = time.perf_counter()
+    device = model.embed.device
+    # only the frontends tokenize: this process keeps the card's JSON and
+    # drops the tokenizer's millions of objects, whose traversal by a full
+    # garbage collection would otherwise stall the step threads
+    tok = synthetic_tokenizer(cfg.vocab_size, SEED)
+    tok_json, eos = tok.to_json_str(), list(tok.eos_token_ids)
+    del tok
+    gc.collect()
+    pauses = []  # full collections during the rounds: (start, ms)
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                pauses.append([time.perf_counter(), None])
+            elif pauses and pauses[-1][1] is None:
+                pauses[-1][1] = (time.perf_counter() - pauses[-1][0]) * 1e3
+
+    name = cfg.name
+    prefixes, first, again, fillers, warm = router_prompts(cfg)
+    ecfg = EngineConfig(page_size=16, num_pages=512, max_num_seqs=8,
+                        max_prefill_tokens=512, max_model_len=4096)
+    engines = {n: TorchEngine(cfg, model, ecfg, eos_token_ids=eos,
+                              device=device) for n in ("B", "A")}
+    # which engine served what: the worker calls engine.generate
+    log = []
+
+    def record(n, engine):
+        inner = engine.generate
+
+        async def generate(request, context=None):
+            toks, t0, info = [], time.perf_counter(), {}
+            async for d in inner(request, context):
+                if d["token_ids"] and not toks:
+                    info["engine_ttft_ms"] = (time.perf_counter() - t0) * 1e3
+                if "ttft" in d:
+                    info["attribution_ms"] = d["ttft"]
+                toks.extend(d["token_ids"])
+                yield d
+            log.append((n, list(request["token_ids"]), toks, info))
+
+        engine.generate = generate
+
+    for n, e in engines.items():
+        record(n, e)
+
+    def hashes(toks):
+        return compute_block_hash_for_seq(toks, 16)
+
+    def body(toks):
+        return {"model": name, "prompt": toks, "max_tokens": ROUTER_TOKENS,
+                "temperature": 0.0, "nvext": {"ignore_eos": True}}
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        pool = ThreadPoolExecutor(max_workers=4)
+        out = {"checks": {}}
+        checks = out["checks"]
+
+        async def until(cond, what):
+            t0 = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t0 > ROUTER_WAIT_S:
+                    fail(f"kv_router ({control}): timed out waiting for {what}")
+                await asyncio.sleep(0.02)
+
+        cp_proc = None
+        if control == "embedded":
+            rt_b = await DistributedRuntime.detached()
+        else:
+            cp_proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "dynamo_tpu_torch.runtime", "--host",
+                "127.0.0.1", "--port", "0", "--log-level", "warning",
+                cwd=ROOT, stdout=asyncio.subprocess.PIPE)
+            ready = (await asyncio.wait_for(cp_proc.stdout.readline(), 120)).decode()
+            if not ready.startswith("READY "):
+                fail(f"kv_router ({control}): the control plane process printed {ready!r}")
+            rt_b = await DistributedRuntime.connect(ready.split()[1])
+        rt_a = await DistributedRuntime.connect(rt_b.control_address)
+        addr = rt_b.control_address
+        mdc = dict(tokenizer_json=tok_json, eos_token_ids=eos,
+                   context_length=4096)
+        served = {"B": await serve_engine(rt_b, engines["B"],
+                                          ModelDeploymentCard(name=name, **mdc)),
+                  "A": await serve_engine(rt_a, engines["A"],
+                                          ModelDeploymentCard(name=name, **mdc))}
+        iid = {n: s.instance.instance_id for n, s in served.items()}
+        wid = {n: pack_worker(i) for n, i in iid.items()}
+        fronts = {}
+        front_rt = await DistributedRuntime.connect(addr)
+        client = await front_rt.namespace("dynamo").component("backend") \
+            .endpoint("generate").client().start()
+        observer = None
+        try:
+            for mode in ("kv", "round_robin"):
+                fronts[mode] = await asyncio.create_subprocess_exec(
+                    sys.executable, "-m", "dynamo_tpu_torch.frontend",
+                    "--control", addr, "--host", "127.0.0.1", "--port", "0",
+                    "--router-mode", mode, "--log-level", "warning", cwd=ROOT,
+                    stdout=asyncio.subprocess.PIPE)
+            # the first decode of each engine captures its graphs
+            for n, prompt in zip(engines, warm):
+                await _collect(engines[n], _req(prompt, max_tokens=4))
+            await client.wait_for_instances()
+            await until(lambda: len(client.instances()) == 2, "both workers")
+            observer = await KvRouter(front_rt, "dynamo", "backend", client,
+                                      block_size=16).start()
+            ports = {}
+            for mode, proc in fronts.items():
+                ready = (await asyncio.wait_for(proc.stdout.readline(), 180)).decode()
+                if not ready.startswith("READY http://"):
+                    fail(f"kv_router ({control}): the {mode} frontend printed {ready!r}")
+                ports[mode] = int(ready.strip().rsplit(":", 1)[1])
+                for _ in range(1800):
+                    st, models = await loop.run_in_executor(
+                        pool, _http, ports[mode], "GET", "/v1/models")
+                    if st == 200 and name.encode() in models:
+                        break
+                    await asyncio.sleep(0.1)
+                else:
+                    fail(f"kv_router ({control}): the {mode} frontend never listed {name}")
+
+            def idle():
+                """Each worker's latest load publication taken while it
+                idled: one taken inside a request counts its 68 pages as
+                load, as much as the 64-block overlap."""
+                return len(observer.worker_states) == 2 and all(
+                    st.kv_usage == 0 for st in observer.worker_states.values())
+
+            timing = {}  # what the serving engine saw of chosen requests
+
+            async def send(mode, toks, what=None):
+                """One SSE request: (serving engine, tokens, TTFT ms).
+                With `what`, the engine's own TTFT, its attribution and
+                its dispatches (KV moves with their ms) go to `timing`."""
+                await until(idle, "idle load publications")
+                await asyncio.sleep(0.3)  # the frontend's router reads them too
+                n = len(log)
+                for e in engines.values():
+                    e.dispatch_trace = [] if what else None
+                st, _, finish, t0, stamps = await loop.run_in_executor(
+                    pool, _http_stream, ports[mode], "/v1/completions",
+                    body(toks))
+                if st != 200 or finish != "length" or len(stamps) != ROUTER_TOKENS:
+                    fail(f"kv_router ({control}): {mode} answered {st}, {finish}, "
+                         f"{len(stamps)} tokens")
+                await until(lambda: len(log) > n, "the worker's log")
+                who, prompt, got, info = log[n]
+                if prompt != toks:
+                    fail(f"kv_router ({control}): the log holds another prompt")
+                if what:
+                    trace = engines[who].dispatch_trace
+                    t_first = trace[0]["t"] if trace else 0.0
+                    timing[what] = {**info, "dispatches": [
+                        {k: (round((v - t_first) * 1e3, 3) if k == "t" else v)
+                         for k, v in e.items() if k in ("kind", "t", "ms",
+                                                        "pages", "n_steps")}
+                        for e in trace[:12]]}
+                    for e in engines.values():
+                        e.dispatch_trace = None
+                return who, got, (stamps[0] - t0) * 1e3
+
+            async def decide(toks):
+                await observer.choose({"token_ids": toks, "request_id": "obs"})
+                observer.mark_finished("obs")
+                d = observer.last_decision
+                return {"worker": next(n for n, w in wid.items()
+                                       if w == d.worker_id),
+                        "overlap_blocks": d.overlap_blocks,
+                        "tier_overlap_blocks": d.tier_overlap_blocks,
+                        "costs": {n: d.costs.get(w) for n, w in wid.items()}}
+
+            cached = {n: (lambda e=e: e.metrics().prefix_cached_tokens_total)
+                      for n, e in engines.items()}
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            gc.callbacks.append(on_gc)
+            ca.reset_launches()
+            # round 1: cold, one at a time
+            r1 = [await send("kv", p) for p in first]
+            holder = [who for who, _, _ in r1]
+            for i, p in enumerate(prefixes):
+                await until(lambda p=p, i=i: observer.index.find_matches(
+                    hashes(p)) == {wid[holder[i]]: 64},
+                    f"prefix {i}'s 64 blocks on one worker")
+            # round 2: each prefix again, with a new suffix
+            r2, decisions2 = [], []
+            for i, p in enumerate(again):
+                await until(idle, "idle load publications")
+                decisions2.append(await decide(p))
+                c0 = cached[holder[i]]()
+                r2.append(await send("kv", p, what=f"round2_{i}" if i == 0 else None)
+                          + (cached[holder[i]]() - c0,))
+            checks["round2_to_holder"] = [
+                who == holder[i] for i, (who, _, _, _) in enumerate(r2)]
+            checks["round2_cached_tokens"] = [c for *_, c in r2]
+            checks["round2_observer"] = decisions2
+            # round 3: the same through the round-robin frontend
+            r3 = []
+            for i, p in enumerate(again):
+                c0 = {n: f() for n, f in cached.items()}
+                who, got, ttft = await send("round_robin", p)
+                r3.append((who, got, ttft, cached[who]() - c0[who]))
+            # the index mirrors each pool, and a clear empties it
+            for n, e in engines.items():
+                await until(lambda n=n, e=e: observer.index.num_blocks(wid[n])
+                            == len(e.pool._cached),  # noqa: SLF001
+                            f"{n}'s index count == its pool's")
+            checks["index_equals_pool"] = {
+                n: observer.index.num_blocks(wid[n]) for n in engines}
+            checks["cleared_pages"] = {}
+            for n in ("A", "B"):
+                outs = [o async for o in client.direct(
+                    {"control": "clear_kv_blocks"}, iid[n])]
+                checks["cleared_pages"][n] = outs[0]["pages_cleared"]
+                await until(lambda n=n: observer.index.num_blocks(wid[n]) == 0,
+                            f"{n}'s index count to fall to 0")
+            # round 4: A's host tier holds prefix 0, its device pool not
+            tiered = TieredKvCache(HostBlockPool(capacity_bytes=ROUTER_HOST_BYTES))
+            engines["A"].attach_connector(tiered)
+            served["A"].tier_summary_publisher = TierSummaryPublisher(
+                rt_a, tiered, "dynamo", "backend", worker_id=wid["A"],
+                interval_s=0.2).start()
+
+            async def drained():
+                await until(lambda: tiered.offload_backlog == 0, "offloads")
+
+            rewarm = await _collect(engines["A"], _req(first[0],
+                                                       max_tokens=ROUTER_TOKENS))
+            checks["rewarm_equals_round1"] = rewarm["tokens"] == r1[0][1]
+            await drained()
+            for f in fillers:
+                await _collect(engines["A"], _req(f, max_tokens=1))
+                await drained()
+            h0 = hashes(prefixes[0])
+            checks["prefix_on_device_after_fillers"] = engines["A"].pool.peek(h0)
+            checks["prefix_in_host_tier"] = sum(h in tiered.host for h in h0)
+            await until(lambda: observer.index.find_matches(h0).get(wid["A"], 0) == 0
+                        and observer.tier_index.find_matches(h0).get(wid["A"], 0)
+                        == 64, "A's tier summary")
+            await until(idle, "idle load publications")
+            checks["round4_observer"] = await decide(again[0])
+            onboard0 = tiered.onboarded_blocks
+            r4 = await send("kv", again[0], what="round4")
+            checks["round4_onboarded"] = tiered.onboarded_blocks - onboard0
+            launches = dict(ca.LAUNCHES)
+            gc.callbacks.remove(on_gc)
+            out.update(r1=r1, r2=r2, r3=r3, r4=r4, launches=launches,
+                       host_blocks=len(tiered.host), timing=timing)
+        finally:
+            for proc in fronts.values():
+                if proc.returncode is None:
+                    proc.terminate()
+                    await asyncio.wait_for(proc.wait(), 60)
+            pool.shutdown(wait=False)
+            if observer is not None:
+                await observer.stop()
+            await client.stop()
+            await front_rt.shutdown(graceful=False)
+            await rt_a.shutdown(graceful=False)
+            await rt_b.shutdown(graceful=False)
+            if cp_proc is not None:
+                cp_proc.terminate()
+                await asyncio.wait_for(cp_proc.wait(), 60)
+            for e in engines.values():
+                await e.shutdown()
+        return out
+
+    out = asyncio.run(run())
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    checks = out["checks"]
+    r1, r2, r3, r4 = out["r1"], out["r2"], out["r3"], out["r4"]
+    rr_hit = [t for _, _, t, c in r3 if c >= ROUTER_PREFIX]
+    rr_miss = [t for _, _, t, c in r3 if c < ROUTER_PREFIX]
+    ttft = {"round1_kv_cold": [t for _, _, t in r1],
+            "round2_kv_hit": [t for _, _, t, _ in r2],
+            "round3_rr_hit": rr_hit, "round3_rr_miss": rr_miss,
+            "round4_kv_tier_onboard": [r4[2]]}
+    row = {
+        "phase": "kv_router", "control_plane": control, "model": name,
+        "layers": cfg.num_hidden_layers,
+        "seconds": time.perf_counter() - t_phase,
+        "holders_round1": [who for who, _, _ in r1],
+        "round2_served": [who for who, *_ in r2],
+        "round3_served": [who for who, *_ in r3],
+        "hits": {"round2_kv": sum(checks["round2_to_holder"]),
+                 "round3_round_robin": len(rr_hit), "of": ROUTER_PREFIXES},
+        "round4_served": r4[0],
+        "round4_tokens_equal_round2": r4[1] == r2[0][1],
+        **checks, "engine_side": out["timing"],
+        "full_gc_pauses_ms": [ms for _, ms in pauses],
+        "launches": out["launches"],
+        "card": card_line(),
+    }
+    emit(row)
+    print(json.dumps({"kv_router_ttft_ms": ttft, "control_plane": control,
+                      "hits": row["hits"],
+                      "card": card_line()}), flush=True)
+    if not all(checks["round2_to_holder"]):
+        fail(f"kv_router ({control}): a returning prompt missed its holder: went to "
+             f"{row['round2_served']}, held by {row['holders_round1']}")
+    if min(checks["round2_cached_tokens"]) < ROUTER_PREFIX:
+        fail(f"kv_router ({control}): round 2 cached {checks['round2_cached_tokens']} tokens")
+    for i, d in enumerate(checks["round2_observer"]):
+        if d["overlap_blocks"] < 64 or d["worker"] != row["holders_round1"][i]:
+            fail(f"kv_router ({control}): the observer decided {d} for prefix {i}")
+    for n, c in checks["cleared_pages"].items():
+        if c != checks["index_equals_pool"][n]:
+            fail(f"kv_router ({control}): {n} cleared {c} pages, its index counted "
+                 f"{checks['index_equals_pool'][n]}")
+    if not checks["rewarm_equals_round1"]:
+        fail(f"kv_router ({control}): prefix 0 served cold on A differs from round 1")
+    if checks["prefix_on_device_after_fillers"] or checks["prefix_in_host_tier"] != 64:
+        fail(f"kv_router ({control}): after the fillers A's device holds "
+             f"{checks['prefix_on_device_after_fillers']} and its host tier "
+             f"{checks['prefix_in_host_tier']} of prefix 0's 64 blocks")
+    d4 = checks["round4_observer"]
+    if d4["worker"] != "A" or d4["tier_overlap_blocks"] < 63:
+        fail(f"kv_router ({control}): round 4's observer decided {d4}")
+    if r4[0] != "A" or checks["round4_onboarded"] < 63:
+        fail(f"kv_router ({control}): round 4 went to {r4[0]} and onboarded "
+             f"{checks['round4_onboarded']} blocks")
+    if not row["round4_tokens_equal_round2"]:
+        fail(f"kv_router ({control}): round 4's tokens differ from round 2's")
+    launches = out["launches"]
+    if launches["decode_attention"] <= 0 or launches["prefill_attention"] <= 0:
+        fail(f"kv_router ({control}): a kernel did not launch: {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
 
 
 def package_versions() -> dict:
@@ -2123,12 +2559,15 @@ def main() -> int:
     http_launches = phase_http(model, cfg, direct)
     loop_launches = phase_device_loop(model, cfg)
     tier_launches = phase_kv_tiers(model, cfg)
+    router_launches = phase_kv_router(model, cfg)
     by_path = {"serving (phase 4, generate)": serving_launches,
                "golden (phase 6)": golden_launches,
                "http (phase 7, the main path)": http_launches,
                **{f"device_loop {arm} (phase 8)": n
                   for arm, n in loop_launches.items()},
-               "kv_tiers (phase 9)": tier_launches}
+               "kv_tiers (phase 9)": tier_launches,
+               **{f"kv_router, control plane {arm} (phase 10)": n
+                  for arm, n in router_launches.items()}}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),

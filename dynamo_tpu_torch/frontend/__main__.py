@@ -2,9 +2,11 @@
 --port 8000`.
 
 The port's copy of `python -m dynamo_tpu.frontend`: the OpenAI HTTP
-server, model discovery and routed pipelines, round-robin or random.
-The KV router, TLS, gRPC, shards, the status server and the fleet
-telemetry plane are later slices.  Prints ``READY http://host:port``.
+server, model discovery and routed pipelines, round-robin, random or
+KV-aware (``--router-mode kv``, with ``--busy-threshold`` shedding load
+as 503 when every worker is above it).  TLS, gRPC, shards, the status
+server and the fleet telemetry plane are later slices.  Prints ``READY
+http://host:port``.
 """
 
 import argparse
@@ -25,7 +27,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="accepted for symmetry; model cards carry their "
                          "own namespace and the watcher follows all of them")
     ap.add_argument("--router-mode", default="round_robin",
-                    choices=["round_robin", "random"])
+                    choices=["round_robin", "random", "kv"])
+    ap.add_argument("--busy-threshold", type=float, default=0.0,
+                    help="kv-router mode: shed load (503) when every "
+                         "worker's kv_usage exceeds this (0 = off)")
     ap.add_argument("--sse-coalesce", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="merge same-choice token deltas into one SSE frame "
@@ -42,6 +47,15 @@ def main(argv=None) -> None:
     asyncio.run(_run(args))
 
 
+def kv_factory(runtime, args):
+    """The KvRouter factory of `--router-mode kv` (None in other modes)."""
+    if args.router_mode != "kv":
+        return None
+    from ..router import kv_chooser_factory
+
+    return kv_chooser_factory(runtime, busy_threshold=args.busy_threshold)
+
+
 async def _run(args) -> None:
     from ..runtime import DistributedRuntime
     from . import FrontendMetrics, HttpService, ModelManager, ModelWatcher
@@ -49,8 +63,9 @@ async def _run(args) -> None:
 
     runtime = await DistributedRuntime.connect(args.control)
     manager = ModelManager()
-    watcher = await ModelWatcher(runtime, manager,
-                                 router_mode=args.router_mode).start()
+    watcher = await ModelWatcher(
+        runtime, manager, router_mode=args.router_mode,
+        kv_chooser_factory=kv_factory(runtime, args)).start()
     # the serving CLI turns coalescing on unless the flag/env says otherwise
     sse_coalesce = (args.sse_coalesce if args.sse_coalesce is not None
                     else _env_bool("DYN_TPU_SSE_COALESCE", True))

@@ -1,8 +1,9 @@
 """Model discovery + per-model serving pipelines (frontend side).
 
-The port's copy of the JAX package's `frontend/service.py`: round-robin
-and random routing.  The KV router, request migration, the health
-watcher and SLO targets are later slices; a card that needs output
+The port's copy of the JAX package's `frontend/service.py`: round-robin,
+random and KV-aware routing (``kv``: a `router.KvRouter` per model picks
+the worker, the request goes to it directly).  Request migration, the
+health watcher and SLO targets are later slices; a card that needs output
 parsers or multimodal input is skipped with an error (not ported).
 ModelWatcher watches the control-plane `/models` prefix; each PUT is a
 ModelDeploymentCard published by a worker instance under its lease.  The
@@ -26,6 +27,7 @@ from ..llm import (
     OpenAIPreprocessor,
     postprocess_stream,
 )
+from ..router.worker_key import unpack_worker
 from ..runtime import Client, Context, DistributedRuntime
 from ..runtime.transport.wire import pack, unpack
 
@@ -43,6 +45,7 @@ class ModelEntry:
         self.client = client
         self.router_mode = router_mode
         self.instances: set[int] = set()
+        self.kv_chooser = None  # a router.KvRouter in router mode "kv"
 
     async def route(self, request: Dict[str, Any], context: Context
                     ) -> AsyncIterator[Dict[str, Any]]:
@@ -53,6 +56,22 @@ class ModelEntry:
         (e.g. a text fleet plus a vision worker on `backend/generate`),
         and the endpoint-level round-robin would happily send a request
         for model A to a worker serving only model B."""
+        if self.kv_chooser is not None:
+            request = {**request, "request_id": context.id}
+            # AllWorkersBusy (an Overloaded ServiceUnavailable) propagates:
+            # the frontend answers 503
+            worker_key = await self.kv_chooser.choose(
+                request, allowed=self.instances
+            )
+            instance_id, dp_rank = unpack_worker(worker_key)
+            request["dp_rank"] = dp_rank
+            stream = self.client.direct(request, instance_id, context)
+            try:
+                async for item in stream:
+                    yield item
+            finally:
+                self.kv_chooser.mark_finished(context.id)
+            return
         if self.router_mode == "random":
             stream = self.client.random(request, context,
                                         allowed=self.instances)
@@ -96,18 +115,28 @@ class ModelManager:
 
 
 class ModelWatcher:
-    """Keeps a ModelManager in sync with the control plane."""
+    """Keeps a ModelManager in sync with the control plane.
+
+    In router mode ``kv``, `kv_chooser_factory` (`router.
+    kv_chooser_factory`) builds each new model's KvRouter; the mode
+    without a factory, or a factory in another mode, is refused — the
+    frontend never falls back from KV routing quietly."""
 
     def __init__(self, runtime: DistributedRuntime, manager: ModelManager,
-                 router_mode: str = "round_robin"):
-        if router_mode not in ("round_robin", "random"):
-            raise ValueError(f"router mode {router_mode!r} not ported "
-                             "(round_robin or random)")
+                 router_mode: str = "round_robin", kv_chooser_factory=None):
+        if router_mode not in ("round_robin", "random", "kv"):
+            raise ValueError(f"unknown router mode {router_mode!r} "
+                             "(round_robin, random or kv)")
+        if (router_mode == "kv") != (kv_chooser_factory is not None):
+            raise ValueError("router mode 'kv' takes a kv_chooser_factory, "
+                             "and only it does")
         self.runtime = runtime
         self.manager = manager
         self.router_mode = router_mode
+        self.kv_chooser_factory = kv_chooser_factory
         self._task: Optional[asyncio.Task] = None
         self._ready = asyncio.Event()
+        self._choosers: list = []  # every KvRouter built, stopped with us
 
     async def start(self) -> "ModelWatcher":
         self._task = asyncio.create_task(self._watch())
@@ -117,6 +146,8 @@ class ModelWatcher:
         if self._task:
             self._task.cancel()
             await asyncio.gather(self._task, return_exceptions=True)
+        for chooser in self._choosers:
+            await chooser.stop()
 
     async def wait_ready(self, timeout: float = 10.0) -> None:
         await asyncio.wait_for(self._ready.wait(), timeout)
@@ -191,6 +222,9 @@ class ModelWatcher:
             )
             client = await endpoint.client().start()
             entry = ModelEntry(mdc, tokenizer, client, self.router_mode)
+            if self.kv_chooser_factory is not None:
+                entry.kv_chooser = await self.kv_chooser_factory(mdc, client)
+                self._choosers.append(entry.kv_chooser)
             self.manager.add(mdc.name, entry)
             logger.info("model added: %s (instance %d)", mdc.name, instance_id)
         entry.instances.add(instance_id)

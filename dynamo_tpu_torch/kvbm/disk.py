@@ -21,6 +21,7 @@ import os
 import threading
 import time
 from collections import OrderedDict
+from itertools import islice
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -206,3 +207,11 @@ class DiskTier:
     def bytes_used(self) -> int:
         with self._lock:
             return self._bytes
+
+    def summary(self, max_hashes: int = 8192) -> List[int]:
+        """Indexed block hashes, most-recently-used first, capped — the
+        worker's published prefix-summary view of this tier."""
+        with self._lock:
+            # O(max_hashes), not O(index): the publisher calls this every
+            # tick and the drain thread's demotion writes contend the lock
+            return list(islice(reversed(self._index), max_hashes))

@@ -1,20 +1,20 @@
 """Distributed KVBM bootstrap: leader/worker layout exchange + barrier (the
-port's copy of the JAX package's `kvbm/distributed.py`, without the
-object-store tier, which comes with the KV router).
+port's copy of the JAX package's `kvbm/distributed.py`).
 
 The exchange rides the control plane's KV primitives.  Protocol under
 ``/kvbm/{namespace}``:
 
-- leader puts  ``…/config``            — tier config (disk root, host
-                                         bytes), lease-scoped
+- leader puts  ``…/config``            — tier config (disk root, G4
+                                         bucket, host bytes), lease-scoped
 - worker puts  ``…/workers/{lease}``   — its KV layout, lease-scoped
 - leader puts  ``…/ready``             — member list once `world` workers
                                          registered with IDENTICAL layouts
                                          (the barrier release)
 
 Workers that see ``ready`` containing their id build a TieredKvCache whose
-disk tier points at the SHARED root and attach it to their engine — so
-any worker onboards blocks any other worker demoted.  The layout and the
+disk tier points at the SHARED root (and whose G4 tier at the SHARED
+object-store bucket) and attach it to their engine — so any worker
+onboards blocks any other worker demoted.  The layout and the
 config are the JAX package's, key for key, so port and JAX workers can
 share one barrier (and a layout mismatch between them is refused).
 """
@@ -31,6 +31,7 @@ from ..runtime.transport.wire import pack, unpack
 from .disk import DiskTier
 from .host_pool import HostBlockPool
 from .offload import TieredKvCache
+from .remote import ObjectStoreTier
 
 logger = logging.getLogger(__name__)
 
@@ -75,14 +76,14 @@ class KvLayout:
 @dataclass
 class KvbmConfig:
     disk_root: Optional[str] = None  # shared G3 directory (None = no disk)
+    g4_bucket: Optional[str] = None  # shared G4 object-store bucket
     host_bytes: int = 1 << 30
     disk_bytes: int = 32 << 30
 
     def to_dict(self) -> Dict[str, Any]:
-        # the JAX config's keys: no object-store bucket in the port
         return {
             "disk_root": self.disk_root,
-            "g4_bucket": None,
+            "g4_bucket": self.g4_bucket,
             "host_bytes": self.host_bytes,
             "disk_bytes": self.disk_bytes,
         }
@@ -154,10 +155,6 @@ class KvbmWorker:
             if time.monotonic() > deadline:
                 raise TimeoutError("kvbm: no leader config")
             await asyncio.sleep(0.1)
-        if cfg.get("g4_bucket"):
-            raise NotImplementedError(
-                "kvbm: the leader configured an object-store tier (G4), "
-                "which the port does not have yet")
         # 2. register our layout
         layout = KvLayout.of_engine(self.engine).to_dict()
         await self.runtime.put_leased(
@@ -171,14 +168,20 @@ class KvbmWorker:
             if time.monotonic() > deadline:
                 raise TimeoutError("kvbm: barrier not released")
             await asyncio.sleep(0.1)
-        # 4. build tiers against the SHARED root
+        # 4. build tiers against the SHARED roots
         disk = (
             DiskTier(cfg["disk_root"], capacity_bytes=cfg["disk_bytes"])
             if cfg.get("disk_root") else None
         )
+        remote = (
+            ObjectStoreTier(self.runtime.control_address, cfg["g4_bucket"])
+            if cfg.get("g4_bucket") else None
+        )
         self.tiered = TieredKvCache(
-            HostBlockPool(capacity_bytes=cfg["host_bytes"]), disk=disk)
+            HostBlockPool(capacity_bytes=cfg["host_bytes"]),
+            disk=disk, remote=remote,
+        )
         self.engine.attach_connector(self.tiered)
-        logger.info("kvbm worker %s attached (disk=%s)",
-                    self.worker_id, cfg.get("disk_root"))
+        logger.info("kvbm worker %s attached (disk=%s g4=%s)",
+                    self.worker_id, cfg.get("disk_root"), cfg.get("g4_bucket"))
         return self.tiered

@@ -1,6 +1,6 @@
 """TieredKvCache — the offload/onboard manager gluing the engine's device
-page pool (G1) to host DRAM (G2) and disk (G3); the port's copy of the
-JAX package's `kvbm/offload.py`, without its object-store tier (G4).
+page pool (G1) to host DRAM (G2), disk (G3) and the control plane's
+object store (G4); the port's copy of the JAX package's `kvbm/offload.py`.
 
 - The offload pump is SPLIT across two threads so the device-step thread
   never blocks on a host copy: the step thread (between steps) only
@@ -8,12 +8,13 @@ JAX package's `kvbm/offload.py`, without its object-store tier (G4).
   event behind it; the ``kvbm-offload`` drain thread waits for that
   event on a copy stream of its own, copies the blocks device→host there
   (overlapping the next steps), and inserts them into the host pool.
-- Demotion G2→G3 happens on host-LRU eviction (write-back), on whichever
-  thread inserted into the host pool: the drain thread for offloads, the
+- Demotion happens on host-LRU eviction (write-back), to disk (G3) when
+  there is one, else to the object store (G4), on whichever thread
+  inserted into the host pool: the drain thread for offloads, the
   admitting thread for promotions.
 - Onboarding runs inside admission: after the device prefix-cache lookup
-  the remaining hash run is looked up host-first then disk (promoting to
-  host), imported into freshly allocated device pages, and committed so
+  the remaining hash run is looked up host first, then disk, then the
+  object store (promoting to host), imported into freshly allocated device pages, and committed so
   the device cache (and KV-event subscribers) see them.
 """
 
@@ -36,9 +37,10 @@ __all__ = ["TieredKvCache"]
 
 class TieredKvCache:
     def __init__(self, host: HostBlockPool, disk: Optional[DiskTier] = None,
-                 max_offload_batch: int = 16):
+                 remote=None, max_offload_batch: int = 16):
         self.host = host
         self.disk = disk
+        self.remote = remote  # G4: kvbm.remote.ObjectStoreTier (shared)
         self.max_offload_batch = max_offload_batch
         # (hash, parent) queue  # guarded-by: _lock
         self._pending: List[Tuple[int, Optional[int]]] = []
@@ -53,7 +55,7 @@ class TieredKvCache:
         self._copy_stream = None  # the drain's CUDA stream, made on first use
         self.onboarded_blocks = 0
         self.offloaded_blocks = 0
-        if disk is not None:
+        if disk is not None or remote is not None:
             host.on_evict = self._demote
 
     @staticmethod
@@ -62,9 +64,11 @@ class TieredKvCache:
                                   thread_name_prefix="kvbm-offload")
 
     def _demote(self, blk: HostBlock) -> None:
-        """Write-back demotion: host-evicted blocks land on disk (G3)."""
+        """Write-back demotion: host-evicted blocks land on disk (G3) when
+        present, else the object store (G4)."""
+        tier = self.disk if self.disk is not None else self.remote
         try:
-            self.disk.put(blk.block_hash, blk.parent_hash, blk.k, blk.v)
+            tier.put(blk.block_hash, blk.parent_hash, blk.k, blk.v)
         except OSError as e:
             logger.warning("tier demotion failed: %s", e)
 
@@ -95,8 +99,8 @@ class TieredKvCache:
             batch = self._pending[: self.max_offload_batch]
             self._pending = self._pending[self.max_offload_batch:]
             # step-thread dedup is IN-MEMORY only (inflight set + host
-            # dict); disk membership (a stat) is checked on the drain
-            # thread.  The batch moves from _pending to _inflight inside
+            # dict); disk and object-store membership (a stat, a bucket
+            # listing) is checked on the drain thread.  The batch moves from _pending to _inflight inside
             # one locked section, so offload_backlog never reads 0 while
             # a dispatch is being prepared
             todo = [
@@ -142,10 +146,11 @@ class TieredKvCache:
                                       self._stream_for(k_dev.device))
                 for i, h in enumerate(hashes):
                     # lower-tier dedup lives HERE (not the step thread):
-                    # membership may stat a shared dir.  Disk dedup trusts
-                    # only VERIFIED entries — a discovered-but-unread file
-                    # may be torn debris
-                    if self.disk is not None and self.disk.has_verified(h):
+                    # membership may stat a shared dir or ask the control
+                    # plane.  Disk dedup trusts only VERIFIED entries — a
+                    # discovered-but-unread file may be torn debris
+                    if ((self.disk is not None and self.disk.has_verified(h))
+                            or (self.remote is not None and h in self.remote)):
                         continue
                     self.host.put(h, parents.get(h), ks[i], vs[i])
                     self.offloaded_blocks += 1
@@ -187,23 +192,30 @@ class TieredKvCache:
     def close(self) -> None:
         """Join the drain thread (no tier write outlives the caller).  A
         tier re-attached to a later engine reopens the drain lazily on
-        the next pump dispatch."""
+        the next pump dispatch; the G4 loop thread has the same
+        lazy-reopen contract, so it is closed here too."""
         self._drain.shutdown(wait=True)
+        if self.remote is not None:
+            self.remote.close()
 
     # -- onboarding (admission path) ----------------------------------------- #
 
     def lookup_run(self, hashes: Sequence[int]) -> List[HostBlock]:
-        """Leading run across host → disk (G2→G3); disk hits are promoted
-        to host."""
+        """Leading run across host → disk → object store (G2→G3→G4);
+        lower-tier hits are promoted to host."""
         out: List[HostBlock] = []
         for h in hashes:
             blk = self.host.get(h)
-            if blk is None and self.disk is not None:
-                kv = self.disk.get(h)
-                if kv is not None:
-                    parent = out[-1].block_hash if out else None
-                    self.host.put(h, parent, kv[0], kv[1])
-                    blk = self.host.get(h)
+            if blk is None:
+                for tier in (self.disk, self.remote):
+                    if tier is None:
+                        continue
+                    kv = tier.get(h)
+                    if kv is not None:
+                        parent = out[-1].block_hash if out else None
+                        self.host.put(h, parent, kv[0], kv[1])
+                        blk = self.host.get(h)
+                        break
             if blk is None:
                 break
             out.append(blk)
@@ -226,6 +238,17 @@ class TieredKvCache:
         )
         self.onboarded_blocks += len(pages)
         return pages
+
+    # -- router-facing tier summary ------------------------------------------- #
+
+    def summary(self, max_hashes: int = 8192) -> dict:
+        """Per-tier block-hash lists for the worker's published prefix
+        summary (most-recent first, capped) — what the router's global
+        index scores tier overlap against."""
+        host = self.host.summary(max_hashes)
+        disk = (self.disk.summary(max_hashes)
+                if self.disk is not None else [])
+        return {"host": host, "disk": disk}
 
 
 def _ready_event(t: torch.Tensor):

@@ -3,7 +3,9 @@
 
   --in http    the OpenAI HTTP frontend over a local TorchEngine worker
                (default): an embedded control plane unless --control is
-               given, the worker registered on it, the model watcher and
+               given, the worker registered on it (publishing its KV
+               events and load), the model watcher (``--router-mode
+               round_robin|random|kv``, ``--busy-threshold``) and
                `HttpService`; prints ``READY http://host:port``.
   --in batch   JSONL of token-id requests in, JSONL out (--input-file,
                --output-file): every request sent to
@@ -51,7 +53,10 @@ def parse_args(argv=None):
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--namespace", default="dynamo")
     ap.add_argument("--router-mode", default="round_robin",
-                    choices=["round_robin", "random"])
+                    choices=["round_robin", "random", "kv"])
+    ap.add_argument("--busy-threshold", type=float, default=0.0,
+                    help="kv-router mode: shed load (503) when every "
+                         "worker's kv_usage exceeds this (0 = off)")
     ap.add_argument("--input-file", default=None)
     ap.add_argument("--output-file", default=None)
     add_model_args(ap)
@@ -88,6 +93,7 @@ async def start_stack(args, engine, mdc):
     """Runtime (embedded control plane unless --control), the engine's
     worker endpoint, the model watcher and the HTTP service."""
     from ..frontend import HttpService, ModelManager, ModelWatcher
+    from ..frontend.__main__ import kv_factory
     from ..runtime import DistributedRuntime
     from ..worker import serve_engine
 
@@ -97,8 +103,9 @@ async def start_stack(args, engine, mdc):
         runtime = await DistributedRuntime.detached()
     await serve_engine(runtime, engine, mdc, namespace=args.namespace)
     manager = ModelManager()
-    watcher = await ModelWatcher(runtime, manager,
-                                 router_mode=args.router_mode).start()
+    watcher = await ModelWatcher(
+        runtime, manager, router_mode=args.router_mode,
+        kv_chooser_factory=kv_factory(runtime, args)).start()
     await watcher.wait_for_model(mdc.name)
     http = await HttpService(manager, host=args.host, port=args.port).start()
     return runtime, watcher, http

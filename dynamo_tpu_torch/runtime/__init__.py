@@ -12,6 +12,7 @@ from .transport.control_plane import (
     WatchEvent,
 )
 from .transport.service import (
+    Overloaded,
     RemoteStreamError,
     ServiceClient,
     ServiceServer,
@@ -28,6 +29,7 @@ __all__ = [
     "Endpoint",
     "Instance",
     "Namespace",
+    "Overloaded",
     "RemoteStreamError",
     "ServedEndpoint",
     "ServiceClient",

@@ -1,8 +1,9 @@
 """Control-plane server CLI: `python -m dynamo_tpu_torch.runtime [--port N]`.
 
 The single infrastructure process of a multi-process deployment
-(discovery/leases and pub/sub), wire-compatible with the JAX package's
-`python -m dynamo_tpu.runtime`.  Prints ``READY host:port``.
+(discovery/leases, pub/sub, durable streams and the object store),
+wire-compatible with the JAX package's `python -m dynamo_tpu.runtime`.
+Prints ``READY host:port``.
 """
 
 import argparse

@@ -1,7 +1,6 @@
 """Endpoint Client: instance discovery + routed request dispatch.
 
-The port's copy of the JAX package's `runtime/client.py` (the KV routing
-mode is a later slice).  Reference: lib/runtime/src/component/client.rs:40 (`Client`,
+The port's copy of the JAX package's `runtime/client.py`.  Reference: lib/runtime/src/component/client.rs:40 (`Client`,
 `InstanceSource::{Static,Dynamic}`) and pipeline/network/egress/push_router.rs:41
 (`PushRouter`, RouterMode Random/RoundRobin/Direct/KV).  One discovery watcher
 per endpoint is shared across client handles.  Routing modes here are
@@ -18,7 +17,7 @@ from typing import Any, AsyncIterator
 
 from .component import Endpoint, Instance
 from .engine import Context
-from .transport.service import ServiceUnavailable
+from .transport.service import Overloaded, ServiceUnavailable
 
 logger = logging.getLogger(__name__)
 
@@ -137,6 +136,14 @@ class Client:
         self._rr += 1
         return inst
 
+    def _pick_direct(self, instance_id: int) -> Instance:
+        inst = self._instances.get(instance_id)
+        if inst is None:
+            raise ServiceUnavailable(
+                f"instance {instance_id} not live for {self.endpoint.wire_name}"
+            )
+        return inst
+
     async def _routed(
         self, pick, request: Any, context: Context | None
     ) -> AsyncIterator[Any]:
@@ -156,13 +163,15 @@ class Client:
                 inst.address, inst.service_endpoint, request, context
             ):
                 yield item
-        except ServiceUnavailable:
+        except ServiceUnavailable as e:
             # Couldn't reach (or lost) this instance: cool it down so
             # retries pick someone else while discovery catches up and
-            # expires the lease.
-            self._cooldown[inst.instance_id] = (
-                asyncio.get_running_loop().time() + self.cooldown_s
-            )
+            # expires the lease.  Overloaded is deliberate shedding from a
+            # healthy worker — no cooldown.
+            if not isinstance(e, Overloaded):
+                self._cooldown[inst.instance_id] = (
+                    asyncio.get_running_loop().time() + self.cooldown_s
+                )
             raise
 
     def random(self, request: Any, context: Context | None = None,
@@ -176,6 +185,12 @@ class Client:
         return self._routed(
             lambda: self._pick_round_robin(allowed), request, context
         )
+
+    def direct(self, request: Any, instance_id: int,
+               context: Context | None = None) -> AsyncIterator[Any]:
+        """Route to one named instance (the KV router's pick)."""
+        return self._routed(lambda: self._pick_direct(instance_id), request,
+                            context)
 
     async def generate(self, request: Any,
                        context: Context | None = None) -> AsyncIterator[Any]:

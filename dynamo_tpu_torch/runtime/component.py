@@ -151,5 +151,10 @@ class ServedEndpoint:
 
     async def deregister(self) -> None:
         """Remove from discovery (stop receiving new requests)."""
+        for attr in ("kv_publisher", "metrics_publisher",
+                     "tier_summary_publisher"):
+            svc = getattr(self, attr, None)
+            if svc is not None:
+                await svc.stop()
         await self.endpoint.runtime.delete_leased(self.instance.path)
         self.endpoint.runtime.service_server.unregister(self.endpoint.wire_name)

@@ -1,14 +1,25 @@
-"""Control plane: discovery KV with leases and watches.
+"""Control plane: discovery KV with leases and watches, pub/sub, durable
+streams and an object store.
 
 The port's copy of the JAX package's `runtime/transport/control_plane.py`
-(the etcd + NATS analog of the reference stack), cut to what serving
-reaches: `put/get/delete/get_prefix`, `grant_lease/keepalive/revoke`,
-`watch_prefix` (PUT/DELETE events; keys attached to a lease vanish when it
-expires — the liveness mechanism for instance discovery).  The wire
-format is the JAX package's, so a port process can join a JAX control
-plane.  Pub/sub, durable streams, the object store and work queues wait
-for the KV-router, KVBM and disagg slices (nothing on the serving path
-uses them); their ops answer "unknown op".
+(the etcd + NATS analog of the reference stack):
+
+  * **KV + leases + watch** (etcd analog): `put/get/delete/get_prefix`,
+    `grant_lease/keepalive/revoke`, `watch_prefix` (PUT/DELETE events;
+    keys attached to a lease vanish when it expires — the liveness
+    mechanism for instance discovery).
+  * **Pub/sub** (NATS core analog): `publish/subscribe` with NATS subject
+    wildcards (``*`` one token, ``>`` the rest) and round-robin queue
+    groups — worker load metrics for the KV router.
+  * **Durable streams** (JetStream analog): append-only logs with
+    monotonically increasing sequence numbers and bounded retention — the
+    KV-event stream the router's index is built from.
+  * **Object store**: named buckets of blobs — radix snapshots and the
+    KVBM object-store tier (G4).
+
+The ops, their replies and the wire format are the JAX package's, so a
+port process can join a JAX control plane and the other way round.  The
+work queues wait for the disagg slice; their ops answer "unknown op".
 """
 
 from __future__ import annotations
@@ -17,13 +28,15 @@ import asyncio
 import itertools
 import logging
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator
 
 from .wire import Frame, K_CTRL, K_DATA, K_ERR, pack, read_frame, unpack
 
 logger = logging.getLogger(__name__)
+
+DEFAULT_STREAM_RETENTION = 100_000  # max entries kept per stream
 
 # --------------------------------------------------------------------------- #
 # Server state
@@ -45,6 +58,21 @@ class _Watch:
     watch_id: int
 
 
+@dataclass
+class _Subscription:
+    pattern: str  # subject pattern, '*' wildcards per token
+    group: str | None
+    conn: "_Conn"
+    sub_id: int
+
+
+@dataclass
+class _StreamEntry:
+    seq: int
+    subject: str
+    data: bytes
+
+
 class _Conn:
     """One connected client."""
 
@@ -52,6 +80,7 @@ class _Conn:
         self.server = server
         self.writer = writer
         self.watches: dict[int, _Watch] = {}
+        self.subs: dict[int, _Subscription] = {}
         self.leases: set[int] = set()
         self._send_lock = asyncio.Lock()
         self.alive = True
@@ -67,13 +96,31 @@ class _Conn:
                 self.alive = False
 
 
+def _subject_matches(pattern: str, subject: str) -> bool:
+    """NATS-style matching: tokens split on '.', '*' matches one token,
+    '>' matches the rest."""
+    if pattern == subject:
+        return True
+    pt, st = pattern.split("."), subject.split(".")
+    for i, p in enumerate(pt):
+        if p == ">":
+            return len(st) > i  # '>' must match at least one token (NATS)
+        if i >= len(st):
+            return False
+        if p != "*" and p != st[i]:
+            return False
+    return len(pt) == len(st)
+
+
 class ControlPlaneServer:
     """In-process control-plane server. `await start()` binds; `.port` is the
     bound port (use port=0 for ephemeral)."""
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 stream_retention: int = DEFAULT_STREAM_RETENTION):
         self.host = host
         self.port = port
+        self.stream_retention = stream_retention
         self._server: asyncio.Server | None = None
         # KV
         self._kv: dict[str, tuple[bytes, int]] = {}  # key -> (value, lease_id)
@@ -81,6 +128,15 @@ class ControlPlaneServer:
         # Leases
         self._leases: dict[int, _Lease] = {}
         self._lease_ids = itertools.count(1000)
+        # Pub/sub
+        self._subs: list[_Subscription] = []
+        self._rr: dict[tuple[str, str], int] = defaultdict(int)  # queue-group RR
+        # Streams
+        self._streams: dict[str, deque[_StreamEntry]] = {}
+        self._stream_seq: dict[str, int] = defaultdict(int)
+        self._stream_waiters: dict[str, list[asyncio.Event]] = defaultdict(list)
+        # Object store
+        self._objects: dict[str, dict[str, bytes]] = defaultdict(dict)
         self._reaper_task: asyncio.Task | None = None
         self._conns: set[_Conn] = set()
         # strong refs to in-flight op dispatches: the loop only weakly
@@ -185,6 +241,7 @@ class ControlPlaneServer:
             for w in conn.watches.values():
                 if w in self._watches.get(w.prefix, []):
                     self._watches[w.prefix].remove(w)
+            self._subs = [s for s in self._subs if s.conn is not conn]
             # Leases owned by a dropped connection expire naturally via TTL —
             # deliberate: a worker may reconnect and keepalive before expiry.
             writer.close()
@@ -279,6 +336,111 @@ class ControlPlaneServer:
         if w and w in self._watches.get(w.prefix, []):
             self._watches[w.prefix].remove(w)
         return {"ok": True}
+
+    # -- ops: pub/sub ------------------------------------------------------- #
+
+    async def _op_publish(self, conn, args, frame):
+        subject = args["subject"]
+        delivered = 0
+        groups: dict[tuple[str, str], list[_Subscription]] = defaultdict(list)
+        direct: list[_Subscription] = []
+        for s in self._subs:
+            if not s.conn.alive:
+                continue
+            if _subject_matches(s.pattern, subject):
+                if s.group:
+                    groups[(s.pattern, s.group)].append(s)
+                else:
+                    direct.append(s)
+        data = args.get("data", b"")
+        for s in direct:
+            await s.conn.send(Frame(K_DATA, s.sub_id, {"subject": subject}, data))
+            delivered += 1
+        for key, members in groups.items():
+            idx = self._rr[key] % len(members)
+            self._rr[key] += 1
+            s = members[idx]
+            await s.conn.send(Frame(K_DATA, s.sub_id, {"subject": subject}, data))
+            delivered += 1
+        return {"delivered": delivered}
+
+    async def _op_subscribe(self, conn, args, frame):
+        s = _Subscription(
+            pattern=args["subject"], group=args.get("group"), conn=conn,
+            sub_id=frame.stream_id,
+        )
+        conn.subs[frame.stream_id] = s
+        self._subs.append(s)
+        return _NO_REPLY
+
+    async def _op_unsubscribe(self, conn, args, frame):
+        s = conn.subs.pop(args["sub_id"], None)
+        if s in self._subs:
+            self._subs.remove(s)
+        return {"ok": True}
+
+    # -- ops: durable streams ---------------------------------------------- #
+
+    async def _op_stream_append(self, conn, args, frame):
+        name = args["stream"]
+        self._stream_seq[name] += 1
+        seq = self._stream_seq[name]
+        q = self._streams.setdefault(name, deque(maxlen=self.stream_retention))
+        q.append(_StreamEntry(seq=seq, subject=args.get("subject", ""),
+                              data=args["data"]))
+        for ev in self._stream_waiters.pop(name, []):
+            ev.set()
+        return {"seq": seq}
+
+    async def _op_stream_fetch(self, conn, args, frame):
+        """Fetch entries with seq > after, blocking up to timeout_ms if empty."""
+        name, after = args["stream"], args.get("after", 0)
+        timeout = args.get("timeout_ms", 0) / 1000.0
+        q = self._streams.setdefault(name, deque(maxlen=self.stream_retention))
+        entries = [e for e in q if e.seq > after]
+        if not entries and timeout > 0:
+            ev = asyncio.Event()
+            self._stream_waiters[name].append(ev)
+            try:
+                await asyncio.wait_for(ev.wait(), timeout)
+            except asyncio.TimeoutError:
+                pass
+            finally:
+                waiters = self._stream_waiters.get(name)
+                if waiters and ev in waiters:
+                    waiters.remove(ev)
+            entries = [e for e in q if e.seq > after]
+        limit = args.get("limit", 1000)
+        entries = entries[:limit]
+        return {
+            "entries": [
+                {"seq": e.seq, "subject": e.subject, "data": e.data}
+                for e in entries
+            ],
+            "last_seq": self._stream_seq[name],
+            # oldest retained seq — a consumer whose offset is older has a
+            # GAP (events aged out of retention) and must resync from a
+            # snapshot
+            "first_available": q[0].seq if q else self._stream_seq[name] + 1,
+        }
+
+    async def _op_stream_len(self, conn, args, frame):
+        return {"last_seq": self._stream_seq[args["stream"]],
+                "len": len(self._streams.get(args["stream"], ()))}
+
+    # -- ops: object store -------------------------------------------------- #
+
+    async def _op_obj_put(self, conn, args, frame):
+        self._objects[args["bucket"]][args["name"]] = args["data"]
+        return {"ok": True}
+
+    async def _op_obj_get(self, conn, args, frame):
+        data = self._objects.get(args["bucket"], {}).get(args["name"])
+        return {"found": data is not None, "data": data or b""}
+
+    async def _op_obj_list(self, conn, args, frame):
+        return {"names": sorted(self._objects.get(args["bucket"], {}))}
+
 
 _NO_REPLY = object()
 
@@ -381,7 +543,7 @@ class ControlPlaneClient:
                 if not fut.done():
                     fut.set_exception(ConnectionError("control plane connection lost"))
             self._pending.clear()
-            # end live streams; consumers re-watch (which
+            # end live streams; consumers re-watch/re-subscribe (which
             # reconnects via _ensure_connection)
             streams, self._streams = self._streams, {}
             for q in streams.values():
@@ -434,6 +596,58 @@ class ControlPlaneClient:
     async def watch_prefix(self, prefix: str) -> "WatchStream":
         sid = await self._call("watch", {"prefix": prefix}, stream=True)
         return WatchStream(self, sid)
+
+    # -- pub/sub ------------------------------------------------------------ #
+
+    async def publish(self, subject: str, data: bytes) -> int:
+        r = await self._call("publish", {"subject": subject, "data": data})
+        return r["delivered"]
+
+    async def subscribe(self, subject: str, group: str | None = None) -> "SubStream":
+        sid = await self._call(
+            "subscribe", {"subject": subject, "group": group}, stream=True
+        )
+        return SubStream(self, sid)
+
+    # -- streams ------------------------------------------------------------ #
+
+    async def stream_append(self, stream: str, data: bytes, subject: str = "") -> int:
+        return (
+            await self._call(
+                "stream_append", {"stream": stream, "data": data, "subject": subject}
+            )
+        )["seq"]
+
+    async def stream_fetch(
+        self, stream: str, after: int, timeout_ms: int = 0, limit: int = 1000
+    ) -> tuple[list[dict], int, int]:
+        """Returns (entries, last_seq, first_available).  `after <
+        first_available - 1` means entries were lost to retention — resync
+        from a snapshot before applying."""
+        r = await self._call(
+            "stream_fetch",
+            {"stream": stream, "after": after, "timeout_ms": timeout_ms,
+             "limit": limit},
+        )
+        return r["entries"], r["last_seq"], r.get("first_available", 1)
+
+    async def stream_len(self, stream: str) -> tuple[int, int]:
+        """(last_seq, retained entries) of a stream."""
+        r = await self._call("stream_len", {"stream": stream})
+        return r["last_seq"], r["len"]
+
+    # -- object store ------------------------------------------------------- #
+
+    async def obj_put(self, bucket: str, name: str, data: bytes) -> None:
+        await self._call("obj_put", {"bucket": bucket, "name": name, "data": data})
+
+    async def obj_get(self, bucket: str, name: str) -> bytes | None:
+        r = await self._call("obj_get", {"bucket": bucket, "name": name})
+        return r["data"] if r["found"] else None
+
+    async def obj_list(self, bucket: str) -> list[str]:
+        return (await self._call("obj_list", {"bucket": bucket}))["names"]
+
 
 async def watch_resilient(control: "ControlPlaneClient", prefix: str,
                           what: str = "") -> AsyncIterator[WatchEvent]:
@@ -500,6 +714,32 @@ class WatchStream:
     async def cancel(self) -> None:
         try:
             await self._client._call("unwatch", {"watch_id": self._sid})
+        except (ConnectionError, RuntimeError):
+            pass
+        self._client._streams.pop(self._sid, None)
+
+
+class SubStream:
+    """Async iterator of (subject, payload) published messages."""
+
+    def __init__(self, client: ControlPlaneClient, sid: int):
+        self._client = client
+        self._sid = sid
+
+    def __aiter__(self):
+        return self._iter()
+
+    async def _iter(self):
+        q = self._client._streams[self._sid]
+        while True:
+            frame = await q.get()
+            if frame is None:
+                return
+            yield frame.header.get("subject", ""), frame.payload
+
+    async def cancel(self) -> None:
+        try:
+            await self._client._call("unsubscribe", {"sub_id": self._sid})
         except (ConnectionError, RuntimeError):
             pass
         self._client._streams.pop(self._sid, None)

@@ -173,6 +173,12 @@ class ServiceUnavailable(Exception):
     instance (drives request migration)."""
 
 
+class Overloaded(ServiceUnavailable):
+    """Deliberate load shedding (every candidate worker is busy) — NOT
+    retryable: the frontend answers 503 at once, and the instance is not
+    cooled down (a healthy worker that sheds is not a lost one)."""
+
+
 class RemoteStreamError(Exception):
     """The remote handler raised mid-stream."""
 

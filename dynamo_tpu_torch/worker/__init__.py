@@ -2,8 +2,9 @@
 routable model endpoint.
 
 The port's copy of the JAX package's `worker/__init__.py` (`EngineWorker`,
-`serve_engine`).  The KV-event and load publishers that feed the KV
-router, data-parallel ranks and the KVBM tier summary are later slices.
+`serve_engine`), with the publishers that feed the KV router: KV events,
+load metrics and, for an engine with KVBM tiers, the tier summary.
+Data-parallel ranks (`DpRankEngine`) are a later slice.
 """
 
 from __future__ import annotations
@@ -62,15 +63,42 @@ async def serve_engine(
     namespace: str = "dynamo",
     component: str = "backend",
     endpoint: str = "generate",
+    publish_kv_events: bool = True,
 ) -> ServedEndpoint:
     """Register the engine as `{namespace}.{component}.{endpoint}` and
-    publish its model card. Returns the served endpoint handle."""
+    publish its model card. Returns the served endpoint handle.
+
+    With `publish_kv_events`, an engine with an event sink publishes its
+    KV events to the component's durable stream and its load metrics on
+    the component's subject, and an engine with KVBM tiers attached its
+    lease-scoped tier summary — what a KV router scores."""
     worker = EngineWorker(engine)
     ep = runtime.namespace(namespace).component(component).endpoint(endpoint)
     served = await ep.serve_endpoint(
         worker.handle,
         health_check_payload={"control": "metrics"},
     )
+    wid = served.instance.instance_id
+    if publish_kv_events and hasattr(engine, "add_event_sink"):
+        from ..router import KvEventPublisher, WorkerMetricsPublisher
+
+        kv_pub = KvEventPublisher(runtime, namespace, component, wid).start()
+        engine.add_event_sink(kv_pub.sink)
+        served.kv_publisher = kv_pub
+        served.metrics_publisher = WorkerMetricsPublisher(
+            runtime, engine, namespace, component, wid
+        ).start()
+    # KVBM fleet-wide prefix reuse: a worker with KV tiers attached also
+    # publishes its host/disk tier summary (lease-scoped) so routers can
+    # score overlap against blocks that left this worker's device cache
+    if publish_kv_events and getattr(engine, "tiered", None) is not None:
+        from ..kvbm.summary import TierSummaryPublisher
+        from ..router.worker_key import pack_worker
+
+        served.tier_summary_publisher = TierSummaryPublisher(
+            runtime, engine.tiered, namespace, component,
+            worker_id=pack_worker(wid, 0),
+        ).start()
     if isinstance(engine, TorchEngine):
         mdc.kv_cache_block_size = engine.cfg.page_size
         mdc.context_length = engine.cfg.max_model_len

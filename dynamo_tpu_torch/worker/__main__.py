@@ -11,9 +11,11 @@ The engine's device-loop flags are the JAX worker's (multi-step decode
 blocks, chains or ``--decode-chain continuous``, the block ladder, chunk
 rows, mixed dispatches, speculative decoding), and so are its overload
 flags (priority class, shedding, batch deadline, ``--park-max-pages`` for
-the preemption parking lot) and its KVBM flags (``--kvbm``: host and disk
-KV tiers through the leader/worker bootstrap; the object-store tier,
-``--kvbm-g4-bucket``, is refused as not ported yet).  int8 and KV
+the preemption parking lot) and its KVBM flags (``--kvbm``: host, disk
+and object-store KV tiers through the leader/worker bootstrap; the
+leader's ``--kvbm-g4-bucket`` names the shared object-store bucket).  The
+worker publishes its KV events, load metrics and (with KVBM) its tier
+summary for a frontend in ``--router-mode kv``.  int8 and KV
 partitioning are accepted and refused by `TorchEngine`; vision, disagg,
 meshes, multihost and mock engines are later slices.  ``--status-port``
 serves the engine's counters on ``/metrics``.  Runs on CUDA unless given
@@ -222,7 +224,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="also run the kvbm leader, barriering WORLD workers")
     ap.add_argument("--kvbm-disk-root", default=None)
     ap.add_argument("--kvbm-g4-bucket", default=None,
-                    help="object-store tier (G4): not ported yet, refused")
+                    help="object-store tier (G4): the shared control-plane "
+                         "bucket host evictions demote to when there is no "
+                         "disk tier (set on the leader)")
     ap.add_argument("--kvbm-host-bytes", type=int, default=1 << 30)
     add_model_args(ap)
     return ap
@@ -257,11 +261,7 @@ async def start_status_server(engine, args):
 
 
 def main(argv=None) -> None:
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    if args.kvbm_g4_bucket:
-        ap.error("--kvbm-g4-bucket: the object-store KV tier (G4) is not "
-                 "ported yet; use --kvbm-disk-root for a shared tier")
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level.upper(),
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     asyncio.run(_run(args))
@@ -283,6 +283,7 @@ async def _run(args) -> None:
             leader_task = asyncio.ensure_future(KvbmLeader(
                 runtime,
                 KvbmConfig(disk_root=args.kvbm_disk_root,
+                           g4_bucket=args.kvbm_g4_bucket,
                            host_bytes=args.kvbm_host_bytes),
                 world=args.kvbm_leader, namespace=args.namespace,
             ).start())

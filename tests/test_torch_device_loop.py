@@ -382,15 +382,21 @@ def test_worker_flags_match_jax_worker():
             {f: getattr(theirs, f) for f in kvbm}
 
 
-def test_worker_refuses_object_store_tier(capsys):
-    """`--kvbm-g4-bucket` names a tier the port does not have: the worker
-    refuses it before it starts anything."""
-    from dynamo_tpu_torch.worker.__main__ import main
+def test_worker_refuses_object_store_tier(monkeypatch):
+    """`--kvbm-g4-bucket` names the object-store tier (G4), which the port
+    now has: the worker no longer refuses the flag, and goes on to build
+    its engine (which, with no CUDA device and no `--device cpu`,
+    refuses)."""
+    import torch
 
-    with pytest.raises(SystemExit) as exc:
+    from dynamo_tpu_torch.worker.__main__ import build_parser, main
+
+    args = build_parser().parse_args(
+        ["--control", "127.0.0.1:1", "--kvbm", "--kvbm-g4-bucket", "b"])
+    assert args.kvbm_g4_bucket == "b"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         main(["--control", "127.0.0.1:1", "--kvbm", "--kvbm-g4-bucket", "b"])
-    assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
 
 
 def test_worker_metrics_match_jax_collector():

@@ -17,7 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dynamo_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "msgpack", "tokenizers",
              "safetensors", "regex", "prometheus_client")
-LAUNCHERS = ("run", "worker", "frontend", "runtime")
+LAUNCHERS = ("run", "worker", "frontend", "runtime", "router")
 
 
 def _forbidden(name: str) -> bool:

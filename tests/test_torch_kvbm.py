@@ -10,6 +10,7 @@ byte-exact, bf16 included (its disk files keep the raw 16-bit words).
 """
 
 import asyncio
+import contextlib
 import threading
 
 import jax
@@ -496,4 +497,254 @@ async def test_distributed_kvbm_shared_disk(jax_params, tmp_path):
         await engine_b.shutdown()
         await rt_a.shutdown(graceful=False)
         await rt_b.shutdown(graceful=False)
+        await control.stop()
+
+
+# -- the object-store tier (G4), the tier summary, tier-aware routing --------- #
+
+
+@contextlib.asynccontextmanager
+async def threaded_control_plane():
+    """The port's ControlPlaneServer on a thread and event loop of its own
+    (as in production, where it is another process): admission-time G4
+    reads block the engine's loop while they talk to it."""
+    from dynamo_tpu_torch.runtime import ControlPlaneServer
+
+    started, holder = threading.Event(), {}
+
+    def run():
+        loop = asyncio.new_event_loop()
+        server = loop.run_until_complete(ControlPlaneServer().start())
+        holder["loop"], holder["server"] = loop, server
+        started.set()
+        loop.run_forever()
+
+    t = threading.Thread(target=run, name="test-control-plane", daemon=True)
+    t.start()
+    assert started.wait(10)
+    try:
+        yield holder["server"].address
+    finally:
+        loop = holder["loop"]
+        fut = asyncio.run_coroutine_threadsafe(holder["server"].stop(), loop)
+        await asyncio.to_thread(fut.result, 10)
+        loop.call_soon_threadsafe(loop.stop)
+        await asyncio.to_thread(t.join, 10)
+
+
+async def test_distributed_kvbm_g4_object_store(jax_params):
+    """No disk: demotions land in the shared control-plane object store
+    (G4) and the second worker, which never computed the prompt, onboards
+    them: A's tokens, and device pages byte-equal to A's."""
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+
+    prompt = list(range(101, 165))  # 8 full pages
+    async with threaded_control_plane() as address:
+        rt_a = await DistributedRuntime.connect(address)
+        rt_b = await DistributedRuntime.connect(address)
+        engine_a = torch_engine(jax_params)
+        engine_b = torch_engine(jax_params)
+        try:
+            leader = asyncio.ensure_future(torch_kvbm.KvbmLeader(
+                rt_a, torch_kvbm.KvbmConfig(g4_bucket="kvbm-test",
+                                            host_bytes=1), world=2).start())
+            ta, tb = await asyncio.gather(
+                torch_kvbm.KvbmWorker(rt_a, engine_a).start(),
+                torch_kvbm.KvbmWorker(rt_b, engine_b).start())
+            await leader
+            assert ta.remote is not None and ta.disk is None
+            want = await collect(engine_a, req(prompt))
+            await drained(ta, 0)
+            hashes = sorted(engine_a.pool._cached, key=engine_a.pool._cached.get)  # noqa: SLF001
+            ha, ka, va = engine_a.export_cached_blocks(hashes)
+            await engine_a.shutdown()
+            names = await rt_b.control.obj_list("kvbm-test")
+            assert len(names) >= 7
+            got = await collect(engine_b, req(prompt))
+            assert got == want
+            assert tb.onboarded_blocks >= 7
+            # the onboarded run: every prompt block but the last, whose
+            # last token B computes itself
+            from dynamo_tpu_torch.tokens import compute_block_hash_for_seq
+
+            run = compute_block_hash_for_seq(prompt, 8)[:7]
+            hb, kb, vb = engine_b.export_cached_blocks(run)
+            assert hb == run
+            for j, h in enumerate(run):
+                i = ha.index(h)
+                assert torch.equal(ka[:, i], kb[:, j])
+                assert torch.equal(va[:, i], vb[:, j])
+                blob_k, blob_v = tb.remote.get(h)
+                assert torch.equal(blob_k, ka[:, i]) and torch.equal(blob_v, va[:, i])
+        finally:
+            await engine_b.shutdown()
+            await rt_a.shutdown(graceful=False)
+            await rt_b.shutdown(graceful=False)
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+async def test_g4_blobs_are_shared_across_packages(writer):
+    """A block one package puts in the object store, the other gets back
+    byte for byte (f32 and bf16): the blob is the same msgpack map."""
+    import ml_dtypes
+
+    from dynamo_tpu.kvbm.remote import ObjectStoreTier as JaxTier
+
+    from dynamo_tpu_torch.kvbm import ObjectStoreTier
+
+    rng = np.random.default_rng(3)
+    f32 = rng.standard_normal((2, 8, 2, 4), dtype=np.float32)
+    bf16 = f32.astype(ml_dtypes.bfloat16)
+    async with threaded_control_plane() as address:
+        tiers_ = {"torch": ObjectStoreTier(address, "b"),
+                  "jax": JaxTier(address, "b")}
+        reader = tiers_["jax" if writer == "torch" else "torch"]
+        try:
+            for h, arr in ((1, f32), (2, bf16)):
+                k, v = arr, arr[::-1].copy()
+                if writer == "torch":
+                    k = torch.from_numpy(k.view(np.int16)).view(torch.bfloat16) \
+                        if arr.dtype == bf16.dtype else torch.from_numpy(k)
+                    v = torch.from_numpy(v.view(np.int16)).view(torch.bfloat16) \
+                        if arr.dtype == bf16.dtype else torch.from_numpy(v)
+                await asyncio.to_thread(tiers_[writer].put, h, None, k, v)
+                # (another process's uploads are discovered on get)
+                gk, gv = await asyncio.to_thread(reader.get, h)
+                assert await asyncio.to_thread(reader.__contains__, h)
+                for got, want in ((gk, arr), (gv, arr[::-1])):
+                    if isinstance(got, torch.Tensor):
+                        got = (got.view(torch.int16).numpy()
+                               if got.dtype == torch.bfloat16 else got.numpy())
+                    assert np.asarray(got).tobytes() == np.ascontiguousarray(
+                        want).tobytes()
+        finally:
+            for t in tiers_.values():
+                await asyncio.to_thread(t.close)
+
+
+async def test_tier_summary_publisher_dedups_unchanged():
+    """The worker-side publisher writes lease-scoped, skips rewriting an
+    unchanged summary, and carries host and disk hashes."""
+    from dynamo_tpu_torch.runtime import ControlPlaneServer, DistributedRuntime
+    from dynamo_tpu_torch.runtime.transport.wire import unpack
+
+    control = await ControlPlaneServer().start()
+    rt = await DistributedRuntime.connect(control.address)
+    try:
+        tiered = torch_kvbm.TieredKvCache(
+            torch_kvbm.HostBlockPool(capacity_bytes=1 << 20))
+        pub = torch_kvbm.TierSummaryPublisher(rt, tiered, "dynamo", "backend",
+                                              worker_id=77)
+        assert pub.key == "/kvbm/summary/dynamo/backend/77"
+        k = torch.zeros((1, 2, 1, 2))
+        tiered.host.put(0xAB, None, k, k)
+        p1 = await pub.publish_once()
+        assert p1 is not None and p1["host"] == [0xAB] and p1["disk"] == []
+        assert unpack(await rt.control.get(pub.key))["host"] == [0xAB]
+        assert await pub.publish_once() is None  # unchanged → no rewrite
+        tiered.host.put(0xCD, None, k, k)
+        p3 = await pub.publish_once()
+        assert p3["seq"] == 2 and set(p3["host"]) == {0xCD, 0xAB}
+        await rt.shutdown(graceful=False)  # lease revoked: the key goes
+        rt = await DistributedRuntime.connect(control.address)
+        assert await rt.control.get(pub.key) is None
+    finally:
+        await rt.shutdown(graceful=False)
+        await control.stop()
+
+
+async def test_kvbm_stack_remote_prefix_hit(jax_params, monkeypatch):
+    """The in-process `scripts/kvbm_stack.py`: two port workers with small
+    device pools and host tiers behind the port's frontend in kv mode.
+    After filler prompts churn the warm worker's device cache, the router
+    sends the warm prefix to the worker whose HOST TIER holds it, with
+    tier overlap in its decision, and that worker onboards it."""
+    from dynamo_tpu_torch.frontend import ModelManager, ModelWatcher
+    from dynamo_tpu_torch.llm import ModelDeploymentCard
+    from dynamo_tpu_torch.router import kv_chooser_factory
+    from dynamo_tpu_torch.router.worker_key import pack_worker
+    from dynamo_tpu_torch.runtime import (
+        ControlPlaneServer,
+        Context,
+        DistributedRuntime,
+    )
+    from dynamo_tpu_torch.testing import tiny_tokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hash_for_seq
+    from dynamo_tpu_torch.worker import serve_engine
+
+    monkeypatch.setenv("DYN_TPU_KVBM_SUMMARY_INTERVAL", "0.1")
+    tok = tiny_tokenizer()
+    control = await ControlPlaneServer().start()
+    tiers_ = [tiers("torch"), tiers("torch")]
+    engines = [torch_engine(jax_params, tiered=t, num_pages=24) for t in tiers_]
+    rts, served = [], []
+    for engine in engines:
+        rt = await DistributedRuntime.connect(control.address)
+        served.append(await serve_engine(rt, engine, ModelDeploymentCard(
+            name="tiny", tokenizer_json=tok.to_json_str())))
+        rts.append(rt)
+    front = await DistributedRuntime.connect(control.address)
+    watcher = await ModelWatcher(
+        front, ModelManager(), router_mode="kv",
+        kv_chooser_factory=kv_chooser_factory(front)).start()
+    try:
+        entry = await asyncio.wait_for(watcher.wait_for_model("tiny"), 30)
+        deadline = asyncio.get_running_loop().time() + 30
+        while len(entry.instances) < 2:
+            assert asyncio.get_running_loop().time() < deadline
+            await asyncio.sleep(0.02)
+        router = entry.kv_chooser
+
+        async def route(tokens):
+            out = []
+            async for d in entry.route(req(tokens), Context()):
+                out.extend(d["token_ids"])
+            return out
+
+        warm = list(range(1, 49))  # 6 full pages
+        hashes = compute_block_hash_for_seq(warm, 8)
+        before = [e.metrics().num_requests_total for e in engines]
+        want = await route(warm)
+        w = next(i for i, e in enumerate(engines)
+                 if e.metrics().num_requests_total > before[i])
+        wid = pack_worker(served[w].instance.instance_id)
+        await drained(tiers_[w], 6)
+        # churn the warm worker's device cache with distinct fillers,
+        # straight into its engine (the other worker stays cold)
+        for i in range(6):
+            await collect(engines[w], req([100 + 20 * i + j for j in range(64)]))
+            if engines[w].pool.peek(hashes) == 0:
+                break
+        assert engines[w].pool.peek(hashes) == 0, "device copy not evicted"
+
+        def settled():
+            # the device copy gone, the host copy summarized, and a load
+            # publication of each worker taken while it idled (an
+            # in-flight one outweighs a 6-block overlap on these pools)
+            return (router.index.find_matches(hashes).get(wid, 0) == 0
+                    and router.tier_index.find_matches(hashes).get(wid) == 6
+                    and len(router.worker_states) == 2
+                    and all(st.kv_usage == 0
+                            for st in router.worker_states.values()))
+
+        deadline = asyncio.get_running_loop().time() + 30
+        while not settled():
+            assert asyncio.get_running_loop().time() < deadline, "summary"
+            await asyncio.sleep(0.05)
+        onboarded = tiers_[w].onboarded_blocks
+        before = [e.metrics().num_requests_total for e in engines]
+        got = await route(warm)
+        assert engines[w].metrics().num_requests_total == before[w] + 1
+        assert router.last_decision.worker_id == wid
+        assert router.last_decision.tier_overlap_blocks >= 5
+        assert tiers_[w].onboarded_blocks - onboarded >= 5
+        assert got == want
+    finally:
+        await watcher.stop()
+        for s in served:
+            await s.deregister()
+        for e in engines:
+            await e.shutdown()
+        for rt in rts + [front]:
+            await rt.shutdown(graceful=False)
         await control.stop()
