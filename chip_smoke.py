@@ -20,9 +20,18 @@ final line):
    library yardstick, never used by the port), for the first slice's
    cases and for the serving shapes (decode: 8 padded rows of up to 2080
    tokens; prefill: a 512-token chunk after a 1536-token prefix, and the
-   speculative verify's 5-token chunks on 8 rows, one of them padding).  Then
-   the seeded sampler's threefry bits on the card against the CPU's, and
-   the sampler's time per step;
+   speculative verify's 5-token chunks on 8 rows, one of them padding),
+   and both kernels at gpt-oss-20b's heads (64 q / 8 kv of 64, window 128,
+   sinks).  The MoE grouped GEMM (`csrc/grouped_gemm.cu`) against its
+   plain per-expert loop at gpt-oss-20b's expert shapes (K = N = 2880, 32
+   experts): a decode step's 32 rows and a 512-token chunk's 2048 rows
+   routed top-4 at random (timed, with `torch._grouped_mm` as the
+   yardstick), empty groups, one group holding all 2048 rows, and the
+   decode rows bit-identical inside a batch of 40 more rows per expert;
+   and at the router's shape (one group, N 32: a partial column tile),
+   8 and 512 rows, timed.
+   Then the seeded sampler's threefry bits on the card against the CPU's,
+   and the sampler's time per step;
 4. serving: `TorchEngine` at Llama-3.1-8B full width and depth (random bf16
    weights from a seed, sharpened so the output depends on the input)
    answers 5 concurrent `generate()` requests (prompts of 64-2048 tokens, a
@@ -115,15 +124,43 @@ final line):
    in this process (the main path), and in a process of its own
    (`python -m dynamo_tpu_torch.runtime`).  The TTFT of each round and
    arm (KV hits and misses against round-robin's) goes on a line of its
-   own with the card.
+   own with the card;
+11. breadth: model breadth at full width, with the 8B model freed first.
+   (a) gpt-oss-20b at its catalog config (24 layers, h 2880, 64 q / 8 kv
+   heads of 64, 128-token windows on even layers, sinks, q/k/v/o biases,
+   32 clamped-GLU experts top-4 behind a biased router, yarn rope),
+   random bf16 weights from a seed, sharpened as phase 4's; (b) phase 5's
+   check on it: one 512-token prompt and 8 decode steps on the kernels
+   (attention and the grouped GEMM) against the plain versions routed to
+   the kernel path's experts (router logits held like the logits; where
+   the plain path's own routing would differ, each flip is reported with
+   its margin), and planted faults (the window ignored, the sinks
+   dropped, one token's top-1 expert swapped) that must fail the check,
+   with a kernel-free witness beside it (the plain path against itself
+   with another f32 order of the expert sums, at this sharpening and at
+   q/k x1.5); (c) `TorchEngine` serving four concurrent
+   requests of 64-1536 prompt tokens (two behind a cached 512-token
+   prefix, one seeded), 32 tokens each, with one-step and 8-step graph
+   blocks: all three kernels launched, greedy requests alone equal to
+   their batched run, the arms' greedy rows equal up to near-ties, TTFT,
+   ITL, tokens/s and a traced breakdown with a "moe" group; (d) `python -m
+   dynamo_tpu_torch.worker --model gpt-oss-20b` behind the control plane
+   and frontend processes answers chats over HTTP; (e) Llama-3.1-8B from
+   phase 4's seed served with `quantization="int8"`: phase 4's prompts
+   (greedy repeats alone equal), logits against the bf16 model within a
+   factor of a noise twin's error, weight GB and ITL beside phase 4's;
+   `matmul_any` at its eight int8 shapes against the f32 product of the
+   dequantized weights, planted int8 faults failing that check.
 
 On the card every decode block is a replayed CUDA graph; the wrappers
 count launches in Python, so the graph runner adds each graph's recorded
 launches at every replay.  Every JSON line is also written to
 ``chip_smoke.jsonl`` in the output directory below, for the lines a
 terminal's scrollback loses.  Launch counts are read per path (phases 4, 6
-and 7, each arm of 8, 9 and 10, each zeroed just before it): the kernel summary
-line's ``launches`` are those of the HTTP traffic, the main path.  Then the kernel summary line, the card line, and as the last line
+and 7, each arm of 8, 9, 10 and 11, each zeroed just before it): the
+kernel summary line's ``launches`` are those of the HTTP traffic, the
+main path, for the attention kernels, and of phase 11's one-step gpt-oss
+serving, this slice's path, for the grouped GEMM.  Then the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.
 """
@@ -164,6 +201,8 @@ LOGIT_TOL = 0.5
 
 
 _JSONL = None  # every emitted line, also kept in OUT_DIR/chip_smoke.jsonl
+# the kernels every Llama path launches (the grouped GEMM only MoE models)
+ATTENTION_KERNELS = ("decode_attention", "decode_merge", "prefill_attention")
 
 
 def emit(obj) -> None:
@@ -464,6 +503,92 @@ SERVING_VERIFY = dict(S=5, prefix=[96, 1256, 2080, 1556, 332, 300, 64, 0],
                       chunk=[5] * 8, trash_rows=(7,))
 
 
+# the MoE grouped GEMM at gpt-oss-20b's expert shapes (K = N = 2880, 32
+# experts, top-4): a decode step of 8 rows and a 512-token prefill chunk
+GG_K = GG_N = 2880
+GG_E = 32
+# each output row within GG_RTOL of its largest plain value: both sides
+# sum the same exact bf16 products in f32, in another order (K = 2880
+# terms), where a wrong group, row or tile is wrong by the row's own size
+GG_RTOL = 1e-4
+
+
+def routing_sizes(gen, tokens, k=4, E=GG_E):
+    """Group sizes of `tokens` tokens each routed to k distinct experts
+    drawn uniformly, as a random router spreads them."""
+    pick = torch.rand((tokens, E), generator=gen, device="cuda").argsort(-1)[:, :k]
+    return torch.bincount(pick.reshape(-1), minlength=E).tolist()
+
+
+def grouped_gemm_library_ms(xs, w, offs):
+    """`torch._grouped_mm` over the same groups (bf16 out: it takes no f32
+    output for bf16 inputs), the library yardstick, never used by the
+    port; (ms, what), or (None, why) where the card's torch lacks it."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm missing"
+    ends = offs[1:].clone()
+    return time_ms(lambda: fn(xs, w, ends)), "torch._grouped_mm, bf16 out"
+
+
+def grouped_gemm_case(name, gen, sizes, timed=False, invariance=False, n=GG_N):
+    """The kernel against `grouped_gemm_plain` on random xs [A, 2880] and
+    expert weights [E, 2880, n] (bf16) with the given group sizes.
+    `invariance`: the same rows again inside a batch where every expert
+    holds 37-41 more rows ahead of them (other tiles, other places in a
+    tile) must come out bit-identical."""
+    import itertools
+
+    from dynamo_tpu_torch.ops import moe
+
+    E, K, N = len(sizes), GG_K, n
+    A = sum(sizes)
+    xs = torch.randn((A, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((E, K, N), generator=gen, device="cuda") / K ** 0.5
+         ).to(torch.bfloat16)
+    o = [0, *itertools.accumulate(sizes)]
+    offs = torch.tensor(o, dtype=torch.int32, device="cuda")
+    out = moe.grouped_gemm_cuda(xs, w, offs)
+    ref = moe.grouped_gemm_plain(xs, w, offs)
+    torch.cuda.synchronize()
+    res = {"case": name, "kernel": "moe_grouped_gemm", "dtype": str(torch.bfloat16),
+           "A": A, "K": K, "N": N, "experts": E,
+           "experts_touched": sum(s > 0 for s in sizes),
+           "empty_groups": sum(s == 0 for s in sizes), "largest_group": max(sizes),
+           **_errors(out, ref, torch.bfloat16), "rtol": GG_RTOL,
+           "finite": bool(torch.isfinite(out).all())}
+    if invariance:
+        parts, rows, pos, o2 = [], [], 0, [0]
+        for e in range(E):
+            pad = 37 + e % 5
+            parts += [torch.randn((pad, K), generator=gen, device="cuda").to(
+                torch.bfloat16), xs[o[e]:o[e + 1]]]
+            rows += range(pos + pad, pos + pad + sizes[e])
+            pos += pad + sizes[e]
+            o2.append(pos)
+        out2 = moe.grouped_gemm_cuda(
+            torch.cat(parts), w, torch.tensor(o2, dtype=torch.int32, device="cuda"))
+        res["bit_identical"] = bool(torch.equal(out2[rows], out))
+    if timed:
+        nbytes = (res["experts_touched"] * K * N * 2 + A * K * 2 + A * N * 4
+                  + (E + 1) * 4)
+        flops = 2 * A * K * N
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+        lib_ms, lib_what = grouped_gemm_library_ms(xs, w, offs)
+        res.update({
+            "ms": time_ms(lambda: moe.grouped_gemm_cuda(xs, w, offs)),
+            "host_paced_ms": host_paced_ms(lambda: moe.grouped_gemm_cuda(xs, w, offs)),
+            # the plain loop reads the offsets on the host: host-paced
+            "plain_ms": host_paced_ms(lambda: moe.grouped_gemm_plain(xs, w, offs),
+                                      iters=3),
+            "library_ms": lib_ms, "library": lib_what,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+        })
+    return res
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf, f32 = torch.bfloat16, torch.float32
@@ -496,16 +621,39 @@ def phase_kernels():
                      sp["prefix"], sp["chunk"], timed=True),
         prefill_case("prefill speculative verify shape", gen, bf, 128, 32, 8,
                      **SERVING_VERIFY, timed=True),
+        # gpt-oss-20b (phase 11): 64 q / 8 kv heads of 64, a 128-token
+        # window on even layers, sinks on every layer
+        decode_case("decode gpt-oss-20b: hd 64, G 8, window 128, sinks", gen, bf,
+                    64, 64, 8, SERVING_DECODE, window=128, with_sink=True,
+                    timed=True),
+        prefill_case("prefill gpt-oss-20b: hd 64, G 8, window 128, sinks", gen, bf,
+                     64, 64, 8, sp["S"], sp["prefix"], sp["chunk"], window=128,
+                     with_sink=True, timed=True),
+        grouped_gemm_case("moe decode: 8 rows x top-4 of 32 experts", gen,
+                          routing_sizes(gen, 8), timed=True, invariance=True),
+        grouped_gemm_case("moe prefill: 512 tokens x top-4 of 32 experts", gen,
+                          routing_sizes(gen, 512), timed=True),
+        grouped_gemm_case("moe empty groups", gen,
+                          [0, 5, 0, 0, 3, 0, 24] + [0] * 25),
+        grouped_gemm_case("moe one group holds every row", gen,
+                          [0] * 31 + [2048]),
+        # gpt-oss-20b's router logits (`moe_router_logits`): one group,
+        # N = 32 experts, less than a 64-column tile (the kernel's
+        # zero-filled loads and skipped stores past N)
+        grouped_gemm_case("moe router: 8 rows, one group, N 32", gen, [8],
+                          timed=True, invariance=True, n=GG_E),
+        grouped_gemm_case("moe router: 512 rows, one group, N 32", gen, [512],
+                          timed=True, n=GG_E),
     ]
     results.append(decode_width_case(gen))
     for r in results:
         emit({"phase": "kernel_check", **r})
-        if not r.get("bit_identical", True):
-            fail(f"decode output depends on the table's padding: {r}")
         ok = (r["max_rel_err"] <= r["rtol"] and r["finite"]
               and r.get("zero_rows_ok", True) and r.get("padded_rows_zero", True))
         if not ok:
             fail(f"kernel disagrees with its plain version: {r}")
+        if not r.get("bit_identical", True):
+            fail(f"a kernel's output depends on its batch-mates or padding: {r}")
     return results
 
 
@@ -589,16 +737,22 @@ def sharpen(model) -> None:
     newest) moves the output.  By 2 the model turns chaotic: bf16 roundings
     flip which key wins and the kernel and plain paths part.  Phase 5 shows
     that the tokens vary and that planted attention faults move the
-    logits."""
+    logits.  A rope with an attention scale (yarn's, 1.35 at gpt-oss-20b's
+    factor 32) multiplies q.k by its square, so q and k take 1.5 over it
+    and scores spread the same 2.25: gpt-oss-20b with q and k at 1.5
+    spreads them 4.1, and its kernel and plain paths then part by 1.8
+    logit std against 0.21 at 1.5 / 1.35 (phase 11 (b) on an H100)."""
+    qk = 1.5 / model.rope_scale
     with torch.no_grad():
         model.embed.mul_(50.0)
         for layer in model.layers:
-            layer.wq.mul_(1.5)
-            layer.wk.mul_(1.5)
+            layer.wq.mul_(qk)
+            layer.wk.mul_(qk)
 
 
 _GROUPS = (("attention_decode", ("pa_decode_",)),
            ("attention_prefill", ("pa_prefill_",)),
+           ("moe", ("moe_grouped_gemm",)),
            ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")))
 
 
@@ -672,7 +826,9 @@ def _req(tokens, temperature=0.0, seed=None, max_tokens=32):
             "stop_conditions": {"max_tokens": max_tokens, "ignore_eos": True}}
 
 
-def phase_serving(model, cfg):
+def phase_serving(model, cfg, quantization="none", phase="serving"):
+    """Phase 4 (and phase 11's int8 arm, `quantization="int8"`: the engine
+    quantizes `model` in place at construction)."""
     from torch.profiler import ProfilerActivity, profile
 
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
@@ -682,7 +838,8 @@ def phase_serving(model, cfg):
     reqs = {name: _req(toks, temperature=t, seed=seed)
             for name, (toks, t, seed) in prompts.items()}
     ecfg = EngineConfig(page_size=16, num_pages=1024, max_num_seqs=8,
-                        max_prefill_tokens=512, max_model_len=4096)
+                        max_prefill_tokens=512, max_model_len=4096,
+                        quantization=quantization)
     engine = TorchEngine(cfg, model, ecfg, device="cuda")
 
     async def run():
@@ -719,8 +876,8 @@ def phase_serving(model, cfg):
                  f"{len(r['tokens'])} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
             fail(f"serving: {name} produced out-of-vocab tokens")
-    if min(launches.values()) <= 0:
-        fail(f"serving did not launch every kernel: {launches}")
+    if min(launches[k] for k in ATTENTION_KERNELS) <= 0:
+        fail(f"serving did not launch every attention kernel: {launches}")
     if cached < 2 * len(shared):
         fail(f"prefix cache not hit: {cached} cached prompt tokens")
     same = {n: solo[n] == res[n]["tokens"] for n in solo}
@@ -730,7 +887,8 @@ def phase_serving(model, cfg):
     last = max(r["t_last"] for r in res.values())
     decoded = sum(len(r["tokens"]) - 1 for r in res.values())
     emit({
-        "phase": "serving", "model": cfg.name, "dtype": "bfloat16",
+        "phase": phase, "model": cfg.name, "dtype": "bfloat16",
+        "quantization": quantization,
         "layers": cfg.num_hidden_layers, "requests": len(res),
         "prompt_tokens": {n: len(reqs[n]["token_ids"]) for n in reqs},
         "ttft_ms": {n: r["ttft_ms"] for n, r in res.items()},
@@ -924,8 +1082,8 @@ def phase_golden():
         if not (r["within_tolerance"] and r["finite"] and greedy_ok):
             fail(f"golden anchor missed on the card: {r}")
     for dt, counts in launches.items():
-        if min(counts.values()) <= 0:
-            fail(f"golden {dt} run did not launch every kernel: {counts}")
+        if min(counts[k] for k in ATTENTION_KERNELS) <= 0:
+            fail(f"golden {dt} run did not launch every attention kernel: {counts}")
     # the path's counts: both dtypes together
     return {k: sum(c[k] for c in launches.values()) for k in ca.LAUNCHES}
 
@@ -1285,8 +1443,8 @@ def phase_http(model, cfg, direct):
     if min(traced.values()) <= 0:
         fail(f"http: the profiler did not see both attention kernels: {traced}")
     launches = out["launches"]
-    if min(launches.values()) <= 0:
-        fail(f"http traffic did not launch every kernel: {launches}")
+    if min(launches[k] for k in ATTENTION_KERNELS) <= 0:
+        fail(f"http traffic did not launch every attention kernel: {launches}")
     # frontend CPU building and writing SSE frames, over every token the
     # in-process frontend streamed (unary answers write no frames)
     streamed = WAVE_ORDER.count("http_in_process") * sum(
@@ -2498,6 +2656,661 @@ def kv_router_arm(model, cfg, control):
 
 
 # --------------------------------------------------------------------------- #
+# phase 11: model breadth at full width
+# --------------------------------------------------------------------------- #
+
+# (b): MoE routing is discrete and gpt-oss-20b's random router puts
+# near-ties everywhere (top-k margins of 1e-3 router-logit std), so one
+# bf16 rounding upstream flips an expert and the paths part for good.  The
+# plain path therefore takes the kernel path's expert choices (its own
+# router logits, gathered at the kernel's experts) and the router logits
+# become an output held like the logits: within LOGIT_TOL of their std on
+# every row of every layer.  Where the plain path's own top-k would have
+# chosen otherwise, the flip and its margin are reported.
+# (e): int8 logits against the bf16 model's, measured against a "noise
+# twin": the bf16 model with every quantized weight moved by uniform noise
+# of its own int8 step (per output channel: absmax / 127, the rounding
+# error's distribution).  The int8 model's largest logit error must stay
+# within INT8_NOISE_FACTOR of the twin's: int8 then errs no more than its
+# rounding predicts.  A draw-to-draw spread of the twin's error within 2x
+# is expected in a sharpened model; 3 leaves room for it.
+INT8_NOISE_FACTOR = 3.0
+# (e): `matmul_any` on the card (cuBLAS on bf16 operands with an f32
+# output, then the scale) against x.float() @ dequantize(w) in f32 (TF32
+# off): both sum the same exact products in f32 in another order, so each
+# output row within phase 3's GG_RTOL of its largest value, the grouped
+# GEMM's rule.  The order alone reads up to 1.3e-5 at K = 14336 (w_down,
+# on an H100); a product rounded to bf16 before the scale errs by ~2^-9.
+INT8_MM_RTOL = GG_RTOL
+BREADTH_TOKENS = 32
+BREADTH_ARMS = {"a_steps1": dict(decode_steps=1),
+                "b_steps8": dict(decode_steps=8)}
+BREADTH_GREEDY = ("A_64", "B_shared+300", "C_1536")
+
+
+def weights_gb(model) -> float:
+    """GB the model's weights hold on the card: its parameters and the
+    int8 ``{"q", "s"}`` weights that replace some of them."""
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    for mod in model.modules():
+        for v in vars(mod).values():
+            if isinstance(v, dict) and "q" in v:
+                n += sum(t.numel() * t.element_size() for t in v.values())
+    return n / 1e9
+
+
+def path_run(model, cfg, tokens, steps, fed=None, page=16):
+    """`forward_prefill` of tokens [1, S] on the card, then `steps`
+    `forward_decode` steps fed their own greedy tokens (or `fed`);
+    (f32 logits [steps + 1, V], greedy tokens)."""
+    from dynamo_tpu_torch.models import KVCache
+
+    S = tokens.shape[1]
+    maxp = -(-(S + steps) // page)
+    table = torch.arange(1, maxp + 1, dtype=torch.int32, device="cuda")[None]
+    kv = KVCache.create(cfg, maxp + 1, page, torch.bfloat16, "cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    chunk = torch.full((1,), S, dtype=torch.int32, device="cuda")
+    logits = [model.forward_prefill(kv, tokens, table, zero, chunk)]
+    toks = [int(logits[0].argmax(-1))]
+    for t in range(steps):
+        tok = toks[-1] if fed is None else fed[t]
+        logits.append(model.forward_decode(
+            kv, torch.tensor([tok], device="cuda"),
+            torch.tensor([S + t], device="cuda"), table))
+        toks.append(int(logits[-1].argmax(-1)))
+    return torch.stack(logits)[:, 0], toks
+
+
+def breadth_model():
+    """(a) gpt-oss-20b at its catalog config, random bf16 weights from a
+    seed, sharpened as phase 4's model (embedding and q/k only)."""
+    from dynamo_tpu_torch.models import GPT_OSS_20B, init_params
+
+    cfg = GPT_OSS_20B
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    model = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    torch.cuda.synchronize()
+    emit({"phase": "breadth", "what": "model_init", "model": cfg.name,
+          "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+          "heads": [cfg.num_attention_heads, cfg.num_key_value_heads],
+          "head_dim": cfg.head_dim_, "experts": [cfg.num_experts,
+                                                 cfg.num_experts_per_tok],
+          "windows": cfg.layer_windows()[:2], "params_b": cfg.num_params() / 1e9,
+          "seconds": time.perf_counter() - t0, "weights_gb": weights_gb(model),
+          "card": card_line()})
+    return model, cfg
+
+
+def breadth_paths(model, cfg):
+    """(b) one 512-token prompt (four windows long) through `forward_prefill`
+    and 8 `forward_decode` steps on the kernels (both attention kernels,
+    the grouped GEMM), then on the plain versions fed the kernel path's
+    tokens and routed to the kernel path's experts, and with planted
+    faults (their own routing): the window ignored, the sinks dropped, the
+    prompt's last token routed to its 5th expert in place of its 1st.
+    Phase 5's rule on the logits (within LOGIT_TOL std, greedy tokens
+    equal or near-ties, every fault beyond LOGIT_TOL), and the router
+    logits within LOGIT_TOL of their std.  Reports `chaos_witness`
+    beside it."""
+    import dynamo_tpu_torch.models.llama as llama
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.ops import moe
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    S, steps = 512, 8
+    g = torch.Generator().manual_seed(SEED + 12)
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=g).cuda()
+    orig_top_k = llama._top_k
+
+    def recording(calls):
+        """`_top_k` noting each call's (layer order) router logits and
+        choice."""
+        def top_k(logits, k):
+            vals, idx = orig_top_k(logits, k)
+            calls.append((logits.clone(), idx.clone()))
+            return vals, idx
+        return top_k
+
+    def forced(calls, own):
+        """`_top_k` taking the experts of `calls` (the kernel run), in
+        call order, at this run's own router logits; notes this run's
+        logits and its own choice in `own`."""
+        it = iter(calls)
+
+        def top_k(logits, k):
+            _, idx = next(it)
+            own.append((logits.clone(), orig_top_k(logits, k)[1]))
+            return logits.gather(-1, idx), idx
+        return top_k
+
+    def swap_last_token(logits, k):
+        vals, idx = orig_top_k(logits, k + 1)
+        if logits.shape[0] == S:  # the prefill chunk: its last token
+            idx = idx.clone()
+            idx[-1, 0] = idx[-1, k]
+            vals = logits.gather(-1, idx)
+        return vals[..., :k], idx[..., :k]
+
+    def run(attention=None, gemm=None, top_k=None, fed=None):
+        saved = (llama.prefill_attention, llama.decode_attention,
+                 llama.grouped_gemm, llama._top_k)
+        if attention is not None:
+            llama.prefill_attention, llama.decode_attention = attention
+        if gemm is not None:
+            llama.grouped_gemm = gemm
+        if top_k is not None:
+            llama._top_k = top_k
+        try:
+            return path_run(model, cfg, tokens, steps, fed)
+        finally:
+            (llama.prefill_attention, llama.decode_attention,
+             llama.grouped_gemm, llama._top_k) = saved
+
+    kern_calls, plain_calls = [], []
+    ca.reset_launches()
+    kern_logits, kern_toks = run(top_k=recording(kern_calls))
+    launches = dict(ca.LAUNCHES)
+    plain_logits, plain_toks = run(
+        (pa.prefill_attention_plain, pa.decode_attention_plain),
+        moe.grouped_gemm_plain, forced(kern_calls, plain_calls), kern_toks)
+    sd = plain_logits.std(-1)
+    step_err = ((kern_logits - plain_logits).abs().amax(-1) / sd).tolist()
+
+    def logit_err(logits):
+        return ((logits - plain_logits).abs().amax(-1) / sd).max().item()
+
+    # router logits, every row of every layer, in each row's std units;
+    # the plain path's own choices where they differ from the kernel's
+    L = cfg.num_hidden_layers
+    router_err, flips = 0.0, []
+    for i, ((lk, ik), (lp, ip)) in enumerate(zip(kern_calls, plain_calls)):
+        rsd = lp.std(-1)
+        router_err = max(router_err, ((lk - lp).abs().amax(-1) / rsd).max().item())
+        diff = (ik.sort(-1)[0] != ip.sort(-1)[0]).any(-1).nonzero()[:, 0].tolist()
+        for r in diff:
+            top = lp[r].sort(descending=True)[0]
+            k = ik.shape[-1]
+            flips.append({"step": i // L, "layer": i % L, "row": r,
+                          "margin_std": ((top[k - 1] - top[k]) / rsd[r]).item()})
+
+    def drop(which):
+        def wrap(f):
+            def inner(*a, window=None, sink=None):
+                return f(*a, window=None if which == "window" else window,
+                         sink=None if which == "sink" else sink)
+            return inner
+        return (wrap(ca.prefill_attention_cuda), wrap(ca.decode_attention_cuda))
+
+    faults = {"window ignored": dict(attention=drop("window")),
+              "sinks dropped": dict(attention=drop("sink")),
+              "last prompt token's top-1 expert swapped": dict(top_k=swap_last_token)}
+    fault_err = {n: logit_err(run(fed=kern_toks, **f)[0]) for n, f in faults.items()}
+    witness = chaos_witness(model, run, recording, forced, plain_logits,
+                            kern_calls, kern_toks)
+    picked = plain_logits.gather(
+        1, torch.tensor(kern_toks, device=plain_logits.device)[:, None])[:, 0]
+    tie_gap = ((plain_logits.amax(-1) - picked) / sd).tolist()
+    res = {"phase": "breadth", "what": "kernel_vs_plain_path", "model": cfg.name,
+           "prompt": S, "decode_steps": steps,
+           "max_logit_err_in_std": max(step_err), "step_err_in_std": step_err,
+           "max_router_logit_err_in_std": router_err,
+           "tol_in_std": LOGIT_TOL, "planted_fault_err_in_std": fault_err,
+           "plain_logit_std": sd.mean().item(),
+           "tokens_kernel": kern_toks, "tokens_plain": plain_toks,
+           "kernel_token_gap_in_std": tie_gap,
+           "routing_flips": len(flips),
+           "routing_flip_max_margin_std": max((f["margin_std"] for f in flips),
+                                              default=None),
+           "routing_flips_first": flips[:8], "launches": launches,
+           "chaos_witness": witness,
+           "finite": bool(torch.isfinite(kern_logits).all())}
+    emit(res)
+    if not res["finite"]:
+        fail("breadth: kernel path logits are not finite")
+    if max(step_err) > LOGIT_TOL or router_err > LOGIT_TOL:
+        fail(f"breadth: kernel path logits ({max(step_err):.3f} std) or router "
+             f"logits ({router_err:.3f} std) disagree with the plain path")
+    if max(tie_gap) > LOGIT_TOL:
+        fail("breadth: kernel path greedy tokens differ from the plain path "
+             "beyond a near-tie")
+    if len(set(kern_toks)) == 1:
+        fail("breadth: the model repeats one token")
+    for name, err in fault_err.items():
+        if err <= LOGIT_TOL:
+            fail(f"breadth cannot see a planted fault: {name}")
+    for key in ("decode_attention", "prefill_attention", "moe_grouped_gemm"):
+        if launches[key] <= 0:
+            fail(f"breadth: the kernel path did not launch {key}: {launches}")
+
+
+def split_k_plain(xs, w, offs):
+    """The plain grouped GEMM with K summed in two halves: the same exact
+    products in another f32 order, as the kernel's own order differs from
+    the plain loop's, and no kernel."""
+    from dynamo_tpu_torch.ops import moe
+
+    h = xs.shape[1] // 2
+    return (moe.grouped_gemm_plain(xs[:, :h], w[:, :h], offs)
+            + moe.grouped_gemm_plain(xs[:, h:], w[:, h:], offs))
+
+
+def chaos_witness(model, run, recording, forced, plain_logits, kern_calls,
+                  kern_toks):
+    """(b)'s kernel-free twin: the plain path against itself with only the
+    f32 order of the expert sums changed (`split_k_plain`), both routed
+    alike, at the sharpening (b) uses and at q/k x1.5 (before yarn's
+    scale), where the kernel and plain paths part.  If the twin parts as
+    far as the kernel path at x1.5, that parting is the model's
+    amplification of rounding, not a kernel's fault.  Logit errors in
+    plain-logit std units, the largest over the prefill and decode
+    steps."""
+    from dynamo_tpu_torch.ops import moe
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    plain = (pa.prefill_attention_plain, pa.decode_attention_plain)
+
+    def err(logits, ref):
+        return ((logits - ref).abs().amax(-1) / ref.std(-1)).max().item()
+
+    out = {"qk_scale": {"b": 1.5 / model.rope_scale, "x1.5": 1.5}}
+    twin, _ = run(plain, split_k_plain, forced(kern_calls, []), kern_toks)
+    out["twin_err_in_std_b"] = err(twin, plain_logits)
+    saved = [(layer.wq.clone(), layer.wk.clone()) for layer in model.layers]
+    try:
+        with torch.no_grad():
+            for layer in model.layers:
+                layer.wq.mul_(model.rope_scale)
+                layer.wk.mul_(model.rope_scale)
+        calls = []
+        ref, toks = run(plain, moe.grouped_gemm_plain, recording(calls))
+        twin, _ = run(plain, split_k_plain, forced(calls, []), toks)
+        kern, _ = run(top_k=forced(calls, []), fed=toks)
+        out["twin_err_in_std_x1.5"] = err(twin, ref)
+        out["kernel_err_in_std_x1.5"] = err(kern, ref)
+    finally:
+        with torch.no_grad():
+            for layer, (wq, wk) in zip(model.layers, saved):
+                layer.wq.copy_(wq)
+                layer.wk.copy_(wk)
+    emit({"phase": "breadth", "what": "chaos_witness", **out, "card": card_line()})
+    return out
+
+
+def breadth_requests(cfg):
+    """(c)'s traffic: a 512-token shared prefix, four prompts of 64-1536
+    tokens (two behind the prefix, one seeded at 0.8), 32 tokens each,
+    and a warm-up prompt on the prefix."""
+    g = torch.Generator().manual_seed(SEED + 13)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    shared = prompt(512)
+    reqs = {"A_64": _req(prompt(64), max_tokens=BREADTH_TOKENS),
+            "B_shared+300": _req(shared + prompt(300), max_tokens=BREADTH_TOKENS),
+            "C_1536": _req(prompt(1536), max_tokens=BREADTH_TOKENS),
+            "D_shared+700_seeded": _req(shared + prompt(700), temperature=0.8,
+                                        seed=7, max_tokens=BREADTH_TOKENS)}
+    return shared, reqs, _req(shared + prompt(16), max_tokens=4)
+
+
+def breadth_serving(model, cfg):
+    """(c) `TorchEngine` over gpt-oss-20b, one-step blocks and 8-step
+    blocks (both CUDA graphs): a warm-up wave (captures), the measured
+    wave (launches counted; no new capture), the greedy A and C repeated
+    alone from a cleared cache (traced) and equal to their batched run;
+    greedy rows of the two arms equal or flipped at a near-tie.  Returns
+    the launches of each arm's measured wave."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.ops import moe
+
+    shared, reqs, warm = breadth_requests(cfg)
+    tokens, launches_by_arm = {}, {}
+    for arm, over in BREADTH_ARMS.items():
+        ecfg = EngineConfig(page_size=16, num_pages=1024, max_num_seqs=8,
+                            max_prefill_tokens=512, max_model_len=4096, **over)
+        engine = TorchEngine(cfg, model, ecfg, device="cuda")
+
+        async def wave():
+            engine.clear_kv_blocks()
+            await _collect(engine, warm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(*[_collect(engine, r) for r in reqs.values()])
+            torch.cuda.synchronize()
+            return dict(zip(reqs, outs)), time.perf_counter() - t0
+
+        async def run():
+            await wave()
+            captures0 = engine.graphs.captures
+            ca.reset_launches()
+            res, wall = await wave()
+            launches = dict(ca.LAUNCHES)
+            new_captures = engine.graphs.captures - captures0
+            solo = {}
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for n in ("A_64", "C_1536"):
+                    engine.clear_kv_blocks()
+                    solo[n] = (await _collect(engine, reqs[n]))["tokens"]
+                torch.cuda.synchronize()
+                solo_wall = time.perf_counter() - t1
+            await engine.shutdown()
+            return (res, wall, launches, new_captures, solo,
+                    device_breakdown(prof, solo_wall))
+
+        res, wall, launches, new_captures, solo, breakdown = asyncio.run(run())
+        for n, r in res.items():
+            if r["finish_reason"] != "length" or len(r["tokens"]) != BREADTH_TOKENS:
+                fail(f"breadth {arm}: {n} ended {r['finish_reason']} with "
+                     f"{len(r['tokens'])} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+                fail(f"breadth {arm}: {n} produced out-of-vocab tokens")
+        same = {n: solo[n] == res[n]["tokens"] for n in solo}
+        first = min(r["t_first"] for r in res.values())
+        last = max(r["t_last"] for r in res.values())
+        decoded = sum(len(r["tokens"]) - 1 for r in res.values())
+        emit({"phase": "breadth", "what": "serving", "arm": arm, "config": over,
+              "model": cfg.name, "prompt_tokens": {n: len(r["token_ids"])
+                                                   for n, r in reqs.items()},
+              "ttft_ms": {n: r["ttft_ms"] for n, r in res.items()},
+              "itl_ms": {n: (r["t_last"] - r["t_first"]) / (len(r["tokens"]) - 1) * 1e3
+                         for n, r in res.items()},
+              "decode_tokens_per_s": decoded / (last - first), "wall_s": wall,
+              "launches": launches, "new_captures_in_measured_wave": new_captures,
+              "graphs": engine.graphs.stats(), "solo_equal": same,
+              "solo_trace": breakdown, "card": card_line()})
+        if not all(same.values()):
+            fail(f"breadth {arm}: a greedy request alone differs from its "
+                 f"batched run (the MoE combine must not see batch-mates): {same}")
+        if min(launches[k] for k in ("decode_attention", "prefill_attention",
+                                     "moe_grouped_gemm")) <= 0:
+            fail(f"breadth {arm}: a kernel did not launch: {launches}")
+        if new_captures:
+            fail(f"breadth {arm}: {new_captures} graphs captured in the measured wave")
+        tokens[arm] = {n: r["tokens"] for n, r in res.items()}
+        launches_by_arm[arm] = launches
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref, got = tokens["a_steps1"], tokens["b_steps8"]
+    flips = {n: first_flip(model, cfg, reqs[n]["token_ids"], ref[n], got[n])
+             for n in BREADTH_GREEDY}
+    emit({"phase": "breadth", "what": "greedy_rows_across_arms",
+          "equal": {n: ref[n] == got[n] for n in reqs}, "flips": flips,
+          "tol_in_std": LOGIT_TOL})
+    for n, flip in flips.items():
+        if flip and (flip["margin_std"] is None or abs(flip["margin_std"]) > LOGIT_TOL):
+            fail(f"breadth: {n} of 8-step blocks flips beyond a near-tie: {flip}")
+    return launches_by_arm
+
+
+def breadth_worker(cfg):
+    """(d) the normal entry points as processes: the control plane, `python
+    -m dynamo_tpu_torch.worker --model gpt-oss-20b` (random weights from
+    a seed, a seeded 201088-id tokenizer) and the frontend; a greedy chat,
+    a seeded one, and the greedy one again (equal), each from a cleared
+    prefix cache."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    procs = []
+
+    def spawn(*args):
+        p = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                             stdout=subprocess.PIPE, text=True)
+        procs.append(p)
+        return p
+
+    def ready(p, prefix, what, timeout=600):
+        """The first line of `p` that starts with `prefix` (the worker
+        prints its STATUS line first)."""
+        def scan():
+            seen = []
+            for line in p.stdout:
+                if line.startswith(prefix):
+                    return line.strip()
+                seen.append(line)
+            fail(f"breadth worker: {what} exited, printing {seen!r}")
+
+        with ThreadPoolExecutor(1) as ex:
+            return ex.submit(scan).result(timeout=timeout)
+
+    def chat(content, **so):
+        return {"model": cfg.name, "max_tokens": 16, "nvext": {"ignore_eos": True},
+                "messages": [{"role": "user", "content": content}], **so}
+
+    t0 = time.perf_counter()
+    try:
+        cp = spawn("dynamo_tpu_torch.runtime", "--host", "127.0.0.1", "--port",
+                   "0", "--log-level", "warning")
+        addr = ready(cp, "READY ", "the control plane").split()[1]
+        worker = spawn("dynamo_tpu_torch.worker", "--control", addr, "--model",
+                       cfg.name, "--seed", str(SEED), "--log-level", "warning")
+        front = spawn("dynamo_tpu_torch.frontend", "--control", addr, "--host",
+                      "127.0.0.1", "--port", "0", "--log-level", "warning")
+        port = int(ready(front, "READY http://", "the frontend").rsplit(":", 1)[1])
+        ready(worker, "READY worker", "the worker")
+        t_ready = time.perf_counter() - t0
+        for _ in range(1200):
+            st, models = _http(port, "GET", "/v1/models")
+            if st == 200 and cfg.name.encode() in models:
+                break
+            time.sleep(0.1)
+        else:
+            fail(f"breadth worker: the frontend never listed {cfg.name}")
+        answers = []
+        for body in (chat("Summarize paged attention in one line.", temperature=0),
+                     chat("Name three uses of a KV cache.", temperature=0.8, seed=11),
+                     chat("Summarize paged attention in one line.", temperature=0)):
+            # each chat from a cold prefix cache: a cached prompt prefills
+            # only its tail, other bf16 sums that can flip a near-tie
+            st, _ = _http(port, "POST", "/clear_kv_blocks")
+            if st != 200:
+                fail(f"breadth worker: /clear_kv_blocks answered {st}")
+            t1 = time.perf_counter()
+            st, raw = _http(port, "POST", "/v1/chat/completions", body)
+            if st != 200:
+                fail(f"breadth worker: chat answered {st}: {raw[:300]!r}")
+            out = json.loads(raw)
+            answers.append({"ms": (time.perf_counter() - t1) * 1e3,
+                            "finish_reason": out["choices"][0]["finish_reason"],
+                            "completion_tokens": out["usage"]["completion_tokens"],
+                            "text": out["choices"][0]["message"]["content"]})
+    finally:
+        for p in reversed(procs):
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    emit({"phase": "breadth", "what": "worker_http", "model": cfg.name,
+          "ready_s": t_ready, "chats": answers,
+          "greedy_repeat_equal": answers[0]["text"] == answers[2]["text"],
+          "card": card_line()})
+    for a in answers:
+        if a["finish_reason"] != "length" or a["completion_tokens"] != 16:
+            fail(f"breadth worker: a chat ended {a}")
+    if answers[0]["text"] != answers[2]["text"]:
+        fail("breadth worker: the greedy chat did not repeat")
+
+
+def _int8_faults():
+    """Planted int8 faults, each a `matmul_any(x, w)` in its place: the
+    product rounded to bf16 before the scale; the scale taken along the
+    input axis (square weights only; others computed right)."""
+    from dynamo_tpu_torch.models.quantization import _mm_f32, matmul_any
+
+    def rounded(x, w):
+        return (x @ w["q"].to(x.dtype)).float() * w["s"]
+
+    def input_axis(x, w):
+        q, s = w["q"], w["s"]
+        if q.shape[0] != q.shape[1]:
+            return matmul_any(x, w)
+        return _mm_f32((x.float() * s).to(x.dtype), q.to(x.dtype))
+
+    return {"product rounded to bf16 before the scale": rounded,
+            "scale along the input axis": input_axis}
+
+
+def int8_matmul_checks(model):
+    """`matmul_any` at Llama-3.1-8B's int8 projections (layer 0's seven and
+    the head, as the engine quantized them) on random bf16 rows, 8 and
+    512 of them, against x.float() @ dequantize_tensor(w, f32); the
+    planted faults of `_int8_faults` must exceed INT8_MM_RTOL."""
+    from dynamo_tpu_torch.models.quantization import (
+        QUANT_KEYS,
+        dequantize_tensor,
+        is_quantized,
+        matmul_any,
+    )
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("breadth int8: TF32 is on, so the f32 reference is not f32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    layer = model.layers[0]
+    weights = [(k, getattr(layer, k)) for k in QUANT_KEYS
+               if is_quantized(getattr(layer, k, None))]
+    weights.append(("lm_head", model.lm_head))
+    faults = _int8_faults()
+    cases = []
+    for name, w in weights:
+        ref_w = dequantize_tensor(w, torch.float32)
+        for rows in (8, 512):
+            x = torch.randn((rows, w["q"].shape[0]), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            ref = x.float() @ ref_w
+
+            def rel(y):
+                return ((y - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+
+            cases.append({"weight": name, "shape": list(w["q"].shape), "rows": rows,
+                          "max_rel_err": rel(matmul_any(x, w)),
+                          "fault_rel_err": {f: rel(fn(x, w)) for f, fn in faults.items()
+                                            if f != "scale along the input axis"
+                                            or w["q"].shape[0] == w["q"].shape[1]}})
+        del ref_w
+    res = {"phase": "breadth", "what": "int8_matmul", "rtol": INT8_MM_RTOL,
+           "max_rel_err": max(c["max_rel_err"] for c in cases), "cases": cases,
+           "card": card_line()}
+    emit(res)
+    for c in cases:
+        if not c["max_rel_err"] <= INT8_MM_RTOL:
+            fail(f"breadth int8: matmul_any disagrees with the dequantized "
+                 f"f32 product: {c}")
+        for f, e in c["fault_rel_err"].items():
+            if e <= INT8_MM_RTOL:
+                fail(f"breadth int8: the check cannot see a planted fault: {f} {c}")
+    return res
+
+
+def breadth_int8(direct):
+    """(e) Llama-3.1-8B from phase 4's seed, served with
+    `quantization="int8"` (the engine quantizes it in place): phase 4's
+    prompts through `phase_serving` (greedy repeats alone equal), and
+    phase 5's prompt's logits (prefill + 8 fed decode steps) against the
+    bf16 model's, within INT8_NOISE_FACTOR of the noise twin's error;
+    `int8_matmul_checks`, and what its planted faults read through the
+    whole model."""
+    import dynamo_tpu_torch.models.llama as llama
+    from dynamo_tpu_torch.models import LLAMA_3_1_8B, init_params
+    from dynamo_tpu_torch.models.quantization import QUANT_KEYS, matmul_any
+
+    cfg = LLAMA_3_1_8B
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    bf16_gb = weights_gb(model)
+    g = torch.Generator().manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=g).cuda()
+    ref_logits, ref_toks = path_run(model, cfg, tokens, 8)
+    sd = ref_logits.std(-1)
+
+    def err(logits):
+        return ((logits - ref_logits).abs().amax(-1) / sd).max().item()
+
+    # the noise twin, made in place and undone from a saved copy
+    noise = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    with torch.no_grad():
+        saved = []
+        mats = [(layer, k) for layer in model.layers for k in QUANT_KEYS]
+        mats.append((model, "lm_head"))
+        for mod, key in mats:
+            w = getattr(mod, key)
+            saved.append(w.clone())
+            step = w.float().abs().amax(0).clamp_min(1e-8) / 127.0
+            u = torch.rand(w.shape, generator=noise, device="cuda") - 0.5
+            w.copy_((w.float() + u * step).to(w.dtype))
+        twin_logits, _ = path_run(model, cfg, tokens, 8, fed=ref_toks[:-1])
+        for (mod, key), w in zip(mats, saved):
+            getattr(mod, key).copy_(w)
+        del saved
+    torch.cuda.empty_cache()
+    launches, served = phase_serving(model, cfg, quantization="int8",
+                                     phase="breadth_int8_serving")
+    int8_gb = weights_gb(model)
+    q_logits, q_toks = path_run(model, cfg, tokens, 8, fed=ref_toks[:-1])
+    int8_matmul_checks(model)
+    # what the planted faults read through the whole model, against the
+    # noise-twin rule (reported; the check above is what holds them)
+    fault_err = {}
+    for name, fn in _int8_faults().items():
+        llama.matmul_any = fn
+        try:
+            fault_err[name] = err(path_run(model, cfg, tokens, 8,
+                                           fed=ref_toks[:-1])[0])
+        finally:
+            llama.matmul_any = matmul_any
+    res = {"phase": "breadth", "what": "int8", "model": cfg.name,
+           "weights_gb": {"bfloat16": bf16_gb, "int8": int8_gb},
+           "logit_err_in_std": err(q_logits),
+           "noise_twin_err_in_std": err(twin_logits),
+           "tol_factor_of_twin": INT8_NOISE_FACTOR,
+           "planted_fault_err_in_std": fault_err,
+           "tokens_bf16": ref_toks, "tokens_int8": q_toks,
+           "itl_ms_int8": served["itl_ms"], "itl_ms_bf16_phase4": direct["itl_ms"],
+           "tokens_per_s": {"int8": served["decode_tokens_per_s"],
+                            "bf16_phase4": direct["decode_tokens_per_s"]},
+           "launches": launches, "finite": bool(torch.isfinite(q_logits).all()),
+           "card": card_line()}
+    emit(res)
+    if not res["finite"] or res["logit_err_in_std"] > (
+            INT8_NOISE_FACTOR * res["noise_twin_err_in_std"]):
+        fail(f"breadth int8: logits err {res['logit_err_in_std']:.3f} std beyond "
+             f"{INT8_NOISE_FACTOR} x the noise twin's {res['noise_twin_err_in_std']:.3f}")
+    return launches
+
+
+def phase_breadth(direct):
+    """Phase 11 (see the module docstring).  Runs with no other model on
+    the card; returns the launches of each serving path."""
+    import gc
+
+    model, cfg = breadth_model()
+    breadth_paths(model, cfg)
+    serving = breadth_serving(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    breadth_worker(cfg)
+    int8 = breadth_int8(direct)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serving, int8
+
+
+# --------------------------------------------------------------------------- #
 
 
 def package_versions() -> dict:
@@ -2515,6 +3328,8 @@ def package_versions() -> dict:
 
 
 def main() -> int:
+    import gc
+
     if sys.argv[1:2] == ["--stream-client"]:
         return stream_client_main(sys.argv[2:])
     if not torch.cuda.is_available():
@@ -2560,6 +3375,13 @@ def main() -> int:
     loop_launches = phase_device_loop(model, cfg)
     tier_launches = phase_kv_tiers(model, cfg)
     router_launches = phase_kv_router(model, cfg)
+    # phase 11 needs the card to itself: gpt-oss-20b's 42 GB of weights
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "breadth", "what": "card_freed",
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    breadth_launches, int8_launches = phase_breadth(direct)
     by_path = {"serving (phase 4, generate)": serving_launches,
                "golden (phase 6)": golden_launches,
                "http (phase 7, the main path)": http_launches,
@@ -2567,7 +3389,10 @@ def main() -> int:
                   for arm, n in loop_launches.items()},
                "kv_tiers (phase 9)": tier_launches,
                **{f"kv_router, control plane {arm} (phase 10)": n
-                  for arm, n in router_launches.items()}}
+                  for arm, n in router_launches.items()},
+               **{f"breadth gpt-oss-20b serving {arm} (phase 11, this slice's path)": n
+                  for arm, n in breadth_launches.items()},
+               "breadth int8 8B serving (phase 11)": int8_launches}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),
@@ -2581,7 +3406,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": src_line, "launches": http_launches[name],
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": serving["ms"], "plain_ms": serving["plain_ms"],
             "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
@@ -2592,6 +3417,26 @@ def main() -> int:
             entry["merge_launches"] = http_launches["decode_merge"]
             entry["serving_grid_blocks"] = serving["grid_blocks"]
         kernels.append(entry)
+    # the MoE grouped GEMM: its path is phase 11's gpt-oss serving; the
+    # default engine (one-step blocks) is the main path's
+    mine = [c for c in checks if c["kernel"] == "moe_grouped_gemm"]
+    timed = [c for c in mine if "ms" in c]
+    step = next(c for c in timed if "decode" in c["case"])
+    keys = ("case", "ms", "host_paced_ms", "plain_ms", "library_ms", "library",
+            "bound_ms", "bound_by")
+    kernels.append({
+        "name": "moe_grouped_gemm", "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/grouped_gemm.cu",
+        "replaces": "dynamo_tpu/models/llama.py:362",
+        "replaces_what": "jax.lax.ragged_dot in _moe_ragged (an XLA op, not a Pallas kernel)",
+        "launches": breadth_launches["a_steps1"]["moe_grouped_gemm"],
+        "launches_by_path": {p: c.get("moe_grouped_gemm", 0) for p, c in by_path.items()},
+        "max_abs_err": max(c["max_abs_err"] for c in mine),
+        "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"], "library_ms": step["library_ms"],
+        "timed_case": step["case"],
+        "timed_cases": [{k: c[k] for k in keys} for c in timed],
+    })
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,9 @@ hashing, the runtime, worker, OpenAI frontend and LLM pipeline) and its
 own stdlib stand-ins for packages the GPU machine lacks (tokenizer,
 safetensors reader, msgpack codec, HTTP server, Prometheus exposition).
 The two Pallas paged-attention kernels of the JAX package are
-hand-written CUDA kernels here (`csrc/paged_attention.cu`).
+hand-written CUDA kernels here (`csrc/paged_attention.cu`), and so is the
+MoE grouped GEMM that stands for its `jax.lax.ragged_dot`
+(`csrc/grouped_gemm.cu`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise.

@@ -32,8 +32,12 @@ the JAX engine's names:
   (`index_copy_`): the pool tensors are never reallocated, since every
   captured graph holds their addresses.
 
-Not ported yet (later slices): disagg KV transfer, the object-store tier,
-meshes (dp/tp/pp/sp, kv_partition), multihost, vision and int8 weights.
+With ``quantization="int8"`` the model's dense projections and LM head
+are quantized at construction, in place (`models.quantization.
+quantize_params`, layer by layer), as `JaxEngine` quantizes its params.
+
+Not ported yet (later slices): disagg KV transfer, meshes (dp/tp/pp/sp,
+kv_partition), multihost and vision.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from ..kvbm.host_pool import to_host
 from ..kvbm.park import ParkedSeq, ParkingLot
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, Llama
+from ..models.quantization import quantize_params
 from ..runtime.engine import Context
 from . import blocks
 from .blocks import TOPLP, Variant
@@ -109,10 +114,7 @@ class ForwardPassMetrics:
 
 
 def _unported(cfg: EngineConfig) -> List[str]:
-    return [name for name, on in {
-        "kv_partition": cfg.kv_partition,
-        "quantization": cfg.quantization != "none",
-    }.items() if on]
+    return ["kv_partition"] if cfg.kv_partition else []
 
 
 class TorchEngine:
@@ -138,6 +140,10 @@ class TorchEngine:
         bad = _unported(self.cfg)
         if bad:
             raise ValueError(f"not ported to TorchEngine yet: {', '.join(bad)}")
+        if self.cfg.quantization == "int8":
+            # in place: the caller's model becomes the int8 one, so an 8B
+            # model never holds both copies
+            quantize_params(model)
         self.eos_token_ids = eos_token_ids or []
         # every device op of the engine goes to ONE stream, whichever
         # thread issues it: a park on the event-loop thread is then

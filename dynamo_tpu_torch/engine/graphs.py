@@ -26,8 +26,8 @@ per key -- (kind, rung, greedy, penalized, with_top, table-width bucket,
   CUDA and no switch to turn capture off.
 - Kernel launches inside a graph happen at replay, where the Python
   wrappers do not run, so the runner counts them: the launches a capture
-  recorded (taken back out of `cuda_attention.LAUNCHES`) are added to
-  `LAUNCHES` at every replay.
+  recorded (taken back out of the launch registry, `ops/_launches.py`)
+  are added to it at every replay.
 
 On the CPU the same block functions run eagerly on the same inputs (the
 plain kernel versions), so the CPU tests exercise the code the graphs
@@ -44,7 +44,7 @@ from typing import Callable, Dict, Hashable, List, Optional
 import numpy as np
 import torch
 
-from ..ops import cuda_attention
+from ..ops._launches import LAUNCHES
 
 BlockFn = Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
 
@@ -81,8 +81,7 @@ class GraphRunner:
         self.pool_bytes = 0
         self.last_key: Optional[Hashable] = None
         # kernel launches made by replays (also added to LAUNCHES)
-        self.replayed_launches: Dict[str, int] = {
-            k: 0 for k in cuda_attention.LAUNCHES}
+        self.replayed_launches: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
     @property
     def keys(self) -> List[Hashable]:
@@ -135,7 +134,7 @@ class GraphRunner:
         g.replays += 1
         self.replays += 1
         for name, n in g.launches.items():
-            cuda_attention.LAUNCHES[name] += n
+            LAUNCHES[name] += n
             self.replayed_launches[name] += n
         return g.outputs
 
@@ -154,7 +153,7 @@ class GraphRunner:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved(self.device)
-        before = dict(cuda_attention.LAUNCHES)
+        before = dict(LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         try:
             # thread-local capture: the drain thread may wait on events
@@ -163,9 +162,8 @@ class GraphRunner:
                                   capture_error_mode="thread_local"):
                 g.outputs = g.fn(g.inputs)
         finally:
-            g.launches = {k: cuda_attention.LAUNCHES[k] - before[k]
-                          for k in before}
-            cuda_attention.LAUNCHES.update(before)
+            g.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            LAUNCHES.update(before)
         stream.wait_stream(side)
         g.graph = graph
         torch.cuda.synchronize(self.device)

@@ -1,21 +1,29 @@
-"""Dense Llama-family decoder in PyTorch over the paged KV pool — the port
-of the dense part of the JAX package's `models/llama.py`.
+"""Llama-family decoder in PyTorch over the paged KV pool — the port of
+the JAX package's `models/llama.py`.
 
-- Weights keep the JAX layout (``x @ w`` with ``w`` [in, out]), so
-  `params_from_jax` moves an `init_params` tree across unchanged.
+- Weights keep the JAX layout (``x @ w`` with ``w`` [in, out]; expert
+  stacks [E, in, out]), so `params_from_jax` moves an `init_params` tree
+  across unchanged, int8 ``{"q", "s"}`` leaves included.
 - The KV pool is ``[L, P, page, n_kv, hd]`` for k and v, the JAX layout,
   updated in place.
 - Decode is the per-step write-first form: the new token's KV is written
   into the pool, then attention reads it back through the page table.
+- Model features: q/k/v biases (qwen2), an o_proj bias and per-head
+  attention sinks (gpt-oss), a sliding window per layer (mistral, gpt-oss;
+  a Python int, so it is fixed inside captured decode graphs), and MoE
+  (mixtral's silu experts, gpt-oss's biased router and clamped-GLU
+  experts) dispatched by ``cfg.moe_impl``: ``ragged`` (the default; sort +
+  the hand-written grouped GEMM, `ops/moe.py`), ``a2a`` (ragged outside a
+  mesh), ``capacity`` (GShard one-hot dispatch) or ``dense`` (every expert
+  on every token, the oracle).
 
-MoE, sliding windows, attention sinks, qkv biases and M-RoPE are later
-slices; a config that needs them is refused.
+M-RoPE (Qwen2-VL) is a later slice; a config that needs it is refused.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -29,9 +37,11 @@ from ..ops import (
     rope_attention_scale,
     rope_frequencies,
 )
+from ..ops.moe import grouped_gemm
 from ..ops.paged_attention import kv_slots, write_kv_slots
 from ..ops.rotary import rope_cos_sin, rotate
 from .config import ModelConfig
+from .quantization import _swap, is_quantized, matmul_any
 
 
 class KVCache:
@@ -56,48 +66,286 @@ class KVCache:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    unsupported = {
-        "MoE": cfg.is_moe,
-        "M-RoPE": bool(cfg.mrope_section),
-        "sliding windows": bool(cfg.sliding_window),
-        "attention sinks": cfg.attention_sinks,
-        "attention biases": cfg.attention_bias or cfg.attention_out_bias,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
+    if cfg.mrope_section:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet (dense Llama only)")
+            f"{cfg.name}: M-RoPE not ported yet (the vision slice)")
+    if cfg.is_moe and cfg.moe_impl not in _MOE_IMPLS:
+        raise ValueError(
+            f"moe_impl must be ragged|a2a|capacity|dense, got {cfg.moe_impl!r}")
+
+
+# 1-D parameters drawn at std 0.02 by `init_params` (the JAX scales)
+_BIAS_KEYS = ("bq", "bk", "bv", "bo", "router_b", "b_gate", "b_up", "b_down")
+
+
+def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The per-layer parameters of `cfg`: the keys of JAX `init_params`'
+    ``layers`` tree."""
+    keys = ["wq", "wk", "wv", "wo", "attn_norm", "mlp_norm"]
+    if cfg.attention_bias:
+        keys += ["bq", "bk", "bv"]
+    if cfg.attention_out_bias:
+        keys.append("bo")
+    if cfg.attention_sinks:
+        keys.append("sinks")
+    if cfg.is_moe:
+        keys.append("router")
+    keys += ["w_gate", "w_up", "w_down"]
+    if cfg.is_moe and cfg.moe_bias:
+        keys += ["router_b", "b_gate", "b_up", "b_down"]
+    return tuple(keys)
+
+
+def _param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    h, hd, f = cfg.hidden_size, cfg.head_dim_, cfg.intermediate_size
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    shapes = {"wq": (h, nh * hd), "wk": (h, nkv * hd), "wv": (h, nkv * hd),
+              "wo": (nh * hd, h), "attn_norm": (h,), "mlp_norm": (h,),
+              "bq": (nh * hd,), "bk": (nkv * hd,), "bv": (nkv * hd,),
+              "bo": (h,), "sinks": (nh,)}
+    if cfg.is_moe:
+        E, fm = cfg.num_experts, cfg.moe_intermediate_size or f
+        shapes.update({"router": (h, E), "w_gate": (E, h, fm),
+                       "w_up": (E, h, fm), "w_down": (E, fm, h),
+                       "router_b": (E,), "b_gate": (E, fm), "b_up": (E, fm),
+                       "b_down": (E, h)})
+    else:
+        shapes.update({"w_gate": (h, f), "w_up": (h, f), "w_down": (f, h)})
+    return shapes
+
+
+# --------------------------------------------------------------------------- #
+# MoE (JAX `moe_act`, `moe_router_logits`, `_moe_dense`, `_moe_ragged`,
+# `_moe_capacity`, and `_moe` as `_MOE_IMPLS`); `lp` is a `DecoderLayer`
+# --------------------------------------------------------------------------- #
+
+
+def moe_act(cfg: ModelConfig, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """Expert gating nonlinearity (float32 in/out).  "silu" is the
+    mixtral family; "gpt_oss_glu" is HF GptOssExperts: gate clamped to
+    <= 7, up to |7|, glu = gate*sigmoid(1.702*gate), out = (up+1)*glu."""
+    if cfg.moe_act == "gpt_oss_glu":
+        limit = 7.0
+        gate = torch.clamp(gate, max=limit)
+        up = torch.clamp(up, -limit, limit)
+        return (up + 1.0) * (gate * torch.sigmoid(1.702 * gate))
+    return torch.nn.functional.silu(gate) * up
+
+
+def moe_router_logits(lp, x: torch.Tensor) -> torch.Tensor:
+    """Router logits in f32 ([..., E]): they pick experts discretely, so
+    they are never rounded to bf16 (``preferred_element_type=f32``).  The
+    product is the grouped GEMM with one group (f32 sums of exact
+    products): on the card each row's sum then has one fixed order, so a
+    token's routing does not change with how many rows share its
+    dispatch, which a library GEMM picking its tiling by shape does not
+    promise."""
+    flat = x.reshape(-1, x.shape[-1])
+    offs = torch.arange(2, dtype=torch.int32, device=x.device) * flat.shape[0]
+    out = grouped_gemm(flat.contiguous(), lp.router[None], offs)
+    if lp.router_b is not None:
+        out = out + lp.router_b.float()
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """`jax.lax.top_k`: the k largest along the last axis, ties to the
+    lower index (a stable descending sort; `torch.topk` promises no tie
+    order on CUDA)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(lp, x: torch.Tensor, k: int):
+    """(softmaxed top-k weights f32, expert ids int64), both [..., k]."""
+    w, sel = _top_k(moe_router_logits(lp, x), k)
+    return torch.softmax(w, dim=-1), sel
+
+
+def _f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def _moe_dense(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Reference MoE: every expert computes every token, one-hot combine
+    (the equality oracle)."""
+    E, k, dt = cfg.num_experts, cfg.num_experts_per_tok, x.dtype
+    weights, selected = _route(lp, x, k)  # [B, S, k]
+    onehot = torch.nn.functional.one_hot(selected, E).to(dt)  # [B, S, k, E]
+    combine = _f32("bsk,bske->bse", weights.to(dt), onehot).to(dt)
+    gate = _f32("bsh,ehf->ebsf", x, lp.w_gate)
+    up = _f32("bsh,ehf->ebsf", x, lp.w_up)
+    if lp.b_gate is not None:
+        gate = gate + lp.b_gate.float()[:, None, None, :]
+        up = up + lp.b_up.float()[:, None, None, :]
+    act = moe_act(cfg, gate, up).to(dt)
+    out = _f32("ebsf,efh->ebsh", act, lp.w_down)
+    if lp.b_down is not None:
+        out = out + lp.b_down.float()[:, None, None, :]
+    return _f32("ebsh,bse->bsh", out.to(dt), combine).to(dt)
+
+
+def _moe_ragged(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dropless top-k MoE: assignments sorted by expert, each expert's
+    rows through the grouped GEMM (`ops/moe.py`), so compute is exactly
+    T*k FFN rows and no token is dropped.
+
+    Nothing here syncs the host or sizes a tensor from the data (it runs
+    inside the decode CUDA graphs): a stable argsort, group counts by
+    `scatter_add_` into E zeros, prefix offsets by a device cumsum.  A
+    token's result does not depend on its batch-mates: the grouped GEMM
+    sums each row over K in one fixed order, and the combine scatters the
+    sorted rows back to [T, k, h] by the inverse permutation (unique
+    indices, no atomics) and adds the k rows in order."""
+    B, S, h = x.shape
+    E, k, dt = cfg.num_experts, cfg.num_experts_per_tok, x.dtype
+    T = B * S
+    A = T * k
+    xf = x.reshape(T, h)
+    weights, selected = _route(lp, xf, k)  # [T, k]
+    expert_of = selected.reshape(A)  # assignment -> expert
+    order = torch.argsort(expert_of, stable=True)  # group by expert
+    token_of = order // k  # assignment a (row-major [T, k]) is token a // k
+    xs = xf[token_of]  # [A, h] rows sorted by expert
+    counts = torch.zeros(E, dtype=torch.int32, device=x.device).scatter_add_(
+        0, expert_of, torch.ones(A, dtype=torch.int32, device=x.device))
+    offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=x.device),
+                      counts.cumsum(0, dtype=torch.int32)])
+    expert_sorted = expert_of[order]
+
+    gate = grouped_gemm(xs, lp.w_gate, offs)  # f32 [A, f]
+    up = grouped_gemm(xs, lp.w_up, offs)
+    if lp.b_gate is not None:
+        gate = gate + lp.b_gate.float()[expert_sorted]
+        up = up + lp.b_up.float()[expert_sorted]
+    act = moe_act(cfg, gate, up).to(dt)
+    ys = grouped_gemm(act, lp.w_down, offs)  # f32 [A, h]
+    if lp.b_down is not None:
+        ys = ys + lp.b_down.float()[expert_sorted]
+
+    contrib = ys * weights.reshape(A)[order][:, None]
+    slots = torch.empty_like(contrib).index_copy_(0, order, contrib)
+    slots = slots.view(T, k, h)
+    out = slots[:, 0]
+    for j in range(1, k):
+        out = out + slots[:, j]
+    return out.reshape(B, S, h).to(dt)
+
+
+def _moe_capacity(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE via capacity-bounded expert dispatch (the GShard/Switch
+    pattern): tokens scatter into per-expert buffers [E, C, h] within
+    groups of ``moe_group_size`` tokens; assignments past an expert's
+    capacity are dropped (their residual passes through)."""
+    B, S, h = x.shape
+    E, k, dt = cfg.num_experts, cfg.num_experts_per_tok, x.dtype
+    T = B * S
+    cap_f = cfg.moe_capacity_factor
+    if cap_f <= 0:  # dense fallback (tests / tiny models)
+        return _moe_dense(lp, x, cfg)
+    G = min(T, cfg.moe_group_size)
+    Tp = -(-T // G) * G
+    n_g = Tp // G
+    C = max(1, int(-(-G * k * cap_f // E)))
+
+    xf = x.reshape(T, h)
+    if Tp != T:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, Tp - T))
+    xg = xf.reshape(n_g, G, h)
+    weights, selected = _route(lp, xg, k)  # [n_g, G, k]
+
+    F = torch.nn.functional
+    ohf = F.one_hot(selected, E).to(torch.int32).reshape(n_g, G * k, E)
+    pos = torch.cumsum(ohf, dim=1, dtype=torch.int32) - ohf  # prior per expert
+    pos = (pos * ohf).sum(-1)  # [n_g, G*k]
+    keep = (pos < C).to(dt)
+    disp = (ohf.to(dt)[..., None]
+            * F.one_hot(torch.clamp(pos, 0, C - 1).long(), C).to(dt)[..., None, :]
+            * keep[..., None, None])  # [n_g, G*k, E, C]
+    xrep = torch.repeat_interleave(xg, k, dim=1)  # [n_g, G*k, h]
+    xe = _f32("gaec,gah->gech", disp, xrep).to(dt)  # [n_g, E, C, h]
+
+    gate = _f32("gech,ehf->gecf", xe, lp.w_gate)
+    up = _f32("gech,ehf->gecf", xe, lp.w_up)
+    if lp.b_gate is not None:
+        gate = gate + lp.b_gate.float()[None, :, None, :]
+        up = up + lp.b_up.float()[None, :, None, :]
+    act = moe_act(cfg, gate, up).to(dt)
+    ye = _f32("gecf,efh->gech", act, lp.w_down)
+    if lp.b_down is not None:
+        ye = ye + lp.b_down.float()[None, :, None, :]
+
+    wf = weights.to(dt).reshape(n_g, G * k)
+    out = _f32("gaec,gech->gah", disp * wf[..., None, None], ye.to(dt))
+    out = out.reshape(n_g, G, k, h).sum(dim=2).reshape(Tp, h)[:T]
+    return out.reshape(B, S, h).to(dt)
+
+
+# cfg.moe_impl -> dispatch; "a2a" (wide-EP all-to-all) exists only inside
+# an expert-sharded mesh, and on one device is the ragged dispatch's math
+_MOE_IMPLS = {"ragged": _moe_ragged, "a2a": _moe_ragged,
+              "capacity": _moe_capacity, "dense": _moe_dense}
+
+
+# --------------------------------------------------------------------------- #
+# layers
+# --------------------------------------------------------------------------- #
 
 
 class DecoderLayer(nn.Module):
-    """One dense decoder layer: RMSNorm → q/k/v → rope → paged attention →
-    o-proj → RMSNorm → SwiGLU MLP, with residuals."""
+    """One decoder layer: RMSNorm → q/k/v (+ biases) → rope → paged
+    attention (window, sinks) → o-proj (+ bias) → RMSNorm → SwiGLU MLP or
+    MoE, with residuals.  `window` is this layer's sliding window (0 =
+    full attention)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, window: int = 0):
         super().__init__()
-        h, hd = cfg.hidden_size, cfg.head_dim_
-        nh, nkv, f = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
         self.cfg = cfg
+        self.window = int(window)
+        keys = set(layer_keys(cfg))
+        # every optional parameter the config lacks is None
+        for name, shape in _param_shapes(cfg).items():
+            setattr(self, name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device),
+                requires_grad=False) if name in keys else None)
 
-        def p(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                                requires_grad=False)
-
-        self.wq, self.wk, self.wv = p(h, nh * hd), p(h, nkv * hd), p(h, nkv * hd)
-        self.wo = p(nh * hd, h)
-        self.attn_norm, self.mlp_norm = p(h), p(h)
-        self.w_gate, self.w_up, self.w_down = p(h, f), p(h, f), p(f, h)
+    def _proj(self, x, w, b=None):
+        """x @ w (+ b) in x's dtype; an int8 weight's f32 product takes the
+        bias before its one rounding, as in JAX."""
+        if is_quantized(w):
+            y = matmul_any(x, w)
+            if b is not None:
+                y = y + b.float()
+            return y.to(x.dtype)
+        y = x @ w
+        return y if b is None else y + b
 
     def _qkv(self, x: torch.Tensor):
         c = self.cfg
-        q = (x @ self.wq).unflatten(-1, (c.num_attention_heads, c.head_dim_))
-        k = (x @ self.wk).unflatten(-1, (c.num_key_value_heads, c.head_dim_))
-        v = (x @ self.wv).unflatten(-1, (c.num_key_value_heads, c.head_dim_))
+        q = self._proj(x, self.wq, self.bq).unflatten(
+            -1, (c.num_attention_heads, c.head_dim_))
+        k = self._proj(x, self.wk, self.bk).unflatten(
+            -1, (c.num_key_value_heads, c.head_dim_))
+        v = self._proj(x, self.wv, self.bv).unflatten(
+            -1, (c.num_key_value_heads, c.head_dim_))
         return q, k, v
 
+    def _attn_out(self, attn: torch.Tensor) -> torch.Tensor:
+        y = self._proj(attn, self.wo)
+        return y if self.bo is None else y + self.bo
+
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        act = torch.nn.functional.silu((x @ self.w_gate).float()) * (x @ self.w_up).float()
-        return act.to(x.dtype) @ self.w_down
+        """x [B, S, h]: SwiGLU, or the MoE of ``cfg.moe_impl``."""
+        if self.cfg.is_moe:
+            return _MOE_IMPLS[self.cfg.moe_impl](self, x, self.cfg)
+        act = (torch.nn.functional.silu(matmul_any(x, self.w_gate))
+               * matmul_any(x, self.w_up))
+        return self._proj(act.to(x.dtype), self.w_down)
+
+    def _attn_extras(self):
+        """(window or None, f32 sinks or None) for the kernels."""
+        sink = None if self.sinks is None else self.sinks.float()
+        return self.window or None, sink
 
     def prefill(self, x, kv_layer, rope, page_table, prefix_lens, chunk_lens,
                 slot):
@@ -110,10 +358,12 @@ class DecoderLayer(nn.Module):
         q, k, v = self._qkv(attn_in)
         q, k = rotate(q, *rope), rotate(k, *rope)
         v = v.contiguous()
+        window, sink = self._attn_extras()
         attn = prefill_attention(q, k, v, k_pages, v_pages, page_table,
-                                 prefix_lens, chunk_lens)
+                                 prefix_lens, chunk_lens, window=window,
+                                 sink=sink)
         write_kv_slots(k_pages, v_pages, slot, k, v)
-        x = x + attn.reshape(B, S, -1) @ self.wo
+        x = x + self._attn_out(attn.reshape(B, S, -1))
         return x + self._mlp(rms_norm(x, self.mlp_norm, self.cfg.rms_norm_eps))
 
     def decode(self, x, kv_layer, rope, page_table, seq_lens, slot):
@@ -125,16 +375,20 @@ class DecoderLayer(nn.Module):
         q, k, v = self._qkv(attn_in[:, None])  # [B, 1, heads, hd]
         q, k = rotate(q, *rope)[:, 0], rotate(k, *rope)
         write_kv_slots(k_pages, v_pages, slot, k, v)
-        attn = decode_attention(q, k_pages, v_pages, page_table, seq_lens)
-        x = x + attn.reshape(B, -1) @ self.wo
-        return x + self._mlp(rms_norm(x, self.mlp_norm, self.cfg.rms_norm_eps))
+        window, sink = self._attn_extras()
+        attn = decode_attention(q, k_pages, v_pages, page_table, seq_lens,
+                                window=window, sink=sink)
+        x = x + self._attn_out(attn.reshape(B, -1))
+        mlp_in = rms_norm(x, self.mlp_norm, self.cfg.rms_norm_eps)
+        return x + self._mlp(mlp_in[:, None])[:, 0]
 
 
 class Llama(nn.Module):
     """Embedding, decoder layers and LM head (tied or untied).  Like every
     entry point of the port it lives on the CUDA device unless the caller
     passes ``device="cpu"``; `KVCache.create`, `init_params` and
-    `params_from_jax` resolve their device the same way."""
+    `params_from_jax` resolve their device the same way.  The MoE path
+    runs the grouped GEMM kernel on the card, which takes bf16 only."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
@@ -151,17 +405,19 @@ class Llama(nn.Module):
         self.embed = p(V, h)
         self.final_norm = p(h)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype, device) for _ in range(cfg.num_hidden_layers))
+            DecoderLayer(cfg, dtype, device, window)
+            for window in cfg.layer_windows())
         self.lm_head = None if cfg.tie_word_embeddings else p(h, V)
         self.inv_freq = rope_frequencies(cfg.head_dim_, cfg.rope_theta,
                                          cfg.rope_scaling, device=device)
         self.rope_scale = rope_attention_scale(cfg.rope_scaling)
 
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm + LM head; f32 logits."""
+        """Final norm + LM head; f32 logits.  An int8 head (quantization
+        adds one even when tied) goes through `matmul_any`."""
         x = rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
         head = self.lm_head if self.lm_head is not None else self.embed.t()
-        return (x @ head).float()
+        return matmul_any(x, head)
 
     def _prefill_layers(self, kv: KVCache, tokens, page_table, prefix_lens,
                         chunk_lens) -> torch.Tensor:
@@ -194,9 +450,10 @@ class Llama(nn.Module):
         """Score EVERY position of a short draft chunk (tokens [B, S]: the
         last accepted token, then S-1 drafts) in one forward: the verify
         step of self-speculative decoding.  `forward_prefill` with the
-        logits of all S positions, f32 [B, S, V].  The whole chunk's KV is
-        written; slots of rejected drafts are never attended (positions
-        mask them) and are overwritten as decode advances."""
+        logits of all S positions, f32 [B, S, V]; it rides the prefill
+        layer body, so every model feature is the prefill's.  The whole
+        chunk's KV is written; slots of rejected drafts are never attended
+        (positions mask them) and are overwritten as decode advances."""
         x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens)
         return self.lm_logits(x)
 
@@ -216,16 +473,22 @@ class Llama(nn.Module):
         return self.lm_logits(x)
 
 
-_LAYER_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm",
-               "w_gate", "w_up", "w_down")
+def _init_scale(name: str, t: torch.Tensor) -> float:
+    """The JAX package's `init_params` scales."""
+    if name in _BIAS_KEYS:
+        return 0.02
+    if name == "sinks":
+        return 1.0
+    return 1.0 / math.sqrt(t.shape[-2])
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None) -> Llama:
     """Random weights from `generator` (drawn on the generator's device),
-    with the JAX package's scales: normal / sqrt(fan_in), embedding 0.02,
-    norms 1.  Drawn one tensor at a time in f32 and cast, so a full-size
-    model never holds more than one f32 matrix at once."""
+    with the JAX package's scales: normal / sqrt(fan_in) (expert stacks
+    too), biases 0.02, sinks 1, embedding 0.02, norms 1.  Drawn one tensor
+    at a time in f32 and cast, so a full-size model never holds more than
+    one f32 tensor at once."""
     model = Llama(cfg, dtype=dtype, device=device)
 
     def fill(t: torch.Tensor, scale: float) -> None:
@@ -235,12 +498,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     with torch.no_grad():
         for layer in model.layers:
-            for name in _LAYER_KEYS:
+            for name in layer_keys(cfg):
                 t = getattr(layer, name)
                 if name.endswith("norm"):
                     t.fill_(1.0)
                 else:
-                    fill(t, 1.0 / math.sqrt(t.shape[0]))
+                    fill(t, _init_scale(name, t))
         fill(model.embed, 0.02)
         model.final_norm.fill_(1.0)
         if model.lm_head is not None:
@@ -248,27 +511,51 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return model
 
 
+def _from_numpy(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def params_from_jax(cfg: ModelConfig, tree: Dict, dtype=None,
                     device=None) -> Llama:
-    """The port's model from a JAX `init_params` tree already converted to
-    numpy (``jax.tree.map(np.asarray, params)``): layer stacks
-    [L, ...] become per-layer parameters.  `dtype` defaults to the
-    tree's own (bf16 arrays arrive as ml_dtypes and go through f32)."""
-    def t(a) -> torch.Tensor:
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        return torch.from_numpy(np.array(a))
-
-    embed = t(tree["embed"])
+    """The port's model from a JAX `init_params` / `load_params` tree
+    already converted to numpy (``jax.tree.map(np.asarray, params)``):
+    layer stacks [L, ...] become per-layer parameters, and int8
+    ``{"q", "s"}`` leaves (after JAX `quantize_params`) stay quantized,
+    with a tied model's added ``lm_head``.  `dtype` defaults to the tree's
+    own (bf16 arrays arrive as ml_dtypes and go through f32)."""
+    embed = _from_numpy(tree["embed"])
     model = Llama(cfg, dtype=dtype or embed.dtype, device=device)
+    dev = model.device
+    layers = tree["layers"]
+    unknown = set(layers) - set(layer_keys(cfg))
+    missing = set(layer_keys(cfg)) - set(layers)
+    if unknown or missing:
+        raise KeyError(f"{cfg.name}: tree layers differ from the config: "
+                       f"unknown {sorted(unknown)}, missing {sorted(missing)}")
+
+    def quant(leaf, i=None):
+        q, s = _from_numpy(leaf["q"]), _from_numpy(leaf["s"])
+        if i is not None:
+            q, s = q[i], s[i]
+        return {"q": q.to(dev), "s": s.float().to(dev)}
+
     with torch.no_grad():
         model.embed.copy_(embed)
-        model.final_norm.copy_(t(tree["final_norm"]))
-        if model.lm_head is not None:
-            model.lm_head.copy_(t(tree["lm_head"]))
-        for name in _LAYER_KEYS:
-            stacked = t(tree["layers"][name])
+        model.final_norm.copy_(_from_numpy(tree["final_norm"]))
+        head = tree.get("lm_head")
+        if is_quantized(head):
+            _swap(model, "lm_head", quant(head))
+        elif model.lm_head is not None:
+            model.lm_head.copy_(_from_numpy(head))
+        for name, leaf in layers.items():
+            if is_quantized(leaf):
+                for i, layer in enumerate(model.layers):
+                    _swap(layer, name, quant(leaf, i))
+                continue
+            stacked = _from_numpy(leaf)
             for i, layer in enumerate(model.layers):
                 getattr(layer, name).copy_(stacked[i])
     return model

@@ -1,13 +1,15 @@
 """HF checkpoint loader: safetensors → the port's `Llama`.
 
-The port's copy of the dense part of the JAX package's `models/loader.py`:
-the same weight names and the same layout (projections input-major, so
-``x @ w`` needs no transpose), read with the port's numpy safetensors
-reader.  Where the JAX loader stacks every layer into one array, this one
-copies each layer's tensor straight into its parameter on the target
-device, so a full-size checkpoint never holds a stacked f32 copy in host
-memory.  Attention biases, sinks, MoE and MXFP4 checkpoints are refused:
-the port's model does not take them yet.
+The port's copy of the JAX package's `models/loader.py`: the same weight
+names, branches and refusals (llama/mistral, qwen2 q/k/v biases, the
+gpt-oss o_proj bias, sinks, biased router and interleaved expert stacks,
+MXFP4 expert blocks, mixtral's per-expert ``block_sparse_moe`` tensors)
+and the same layout (projections input-major, so ``x @ w`` needs no
+transpose), read with the port's numpy safetensors reader.  Where the
+JAX loader stacks every layer into one array, this one copies each
+layer's tensors straight into its parameters on the target device (MXFP4
+experts dequantized one layer at a time), so a full-size checkpoint never
+builds a stacked host copy.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .llama import _LAYER_KEYS, Llama, _check_supported
+from .llama import Llama, _check_supported
 from .safetensors_np import safe_open
 
 # the port's per-layer parameter → HF tensor name under model.layers.{i}.
@@ -35,7 +37,14 @@ _HF_NAMES = {
     "w_up": "mlp.up_proj.weight",
     "w_down": "mlp.down_proj.weight",
 }
-assert set(_HF_NAMES) == set(_LAYER_KEYS)
+# 1-D or stacked tensors copied as they are (no transpose)
+_HF_PLAIN = {
+    "bq": "self_attn.q_proj.bias",
+    "bk": "self_attn.k_proj.bias",
+    "bv": "self_attn.v_proj.bias",
+    "bo": "self_attn.o_proj.bias",
+    "sinks": "self_attn.sinks",
+}
 
 
 def _index(path: str) -> Dict[str, str]:
@@ -72,6 +81,61 @@ def _to(dst: torch.Tensor, a: np.ndarray) -> None:
     dst.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(dst.dtype))
 
 
+def _check_checkpoint(r: _ShardReader, cfg: ModelConfig, prefix: str) -> None:
+    """The JAX loader's refusals: the config and the checkpoint must agree
+    on biases and sinks (a mismatch is a load error, never a silent
+    drop)."""
+    has_bias = r.has(prefix + "model.layers.0.self_attn.q_proj.bias")
+    if cfg.attention_bias and not has_bias:
+        raise ValueError(
+            "config declares attention_bias but the checkpoint has "
+            "no self_attn.*_proj.bias tensors")
+    if has_bias and not cfg.attention_bias:
+        raise ValueError(
+            "checkpoint has self_attn.*_proj.bias tensors but the config "
+            "does not declare attention_bias — refusing to silently drop "
+            "them")
+    if cfg.attention_sinks and not r.has(prefix + "model.layers.0.self_attn.sinks"):
+        raise ValueError(
+            "config declares attention_sinks but the checkpoint has "
+            "no self_attn.sinks tensors")
+
+
+def _load_gpt_oss_experts(r: _ShardReader, layer, p: str, mxfp4: bool) -> None:
+    """gpt-oss layout for one layer: the router transposed, expert tensors
+    with INTERLEAVED gate/up columns (HF GptOssExperts: gate = [..., ::2]),
+    per-expert biases; MXFP4 blocks+scales dequantized here, one layer at
+    a time, bit-equal to HF `convert_moe_packed_tensors`."""
+    def proj(name):
+        if not mxfp4:
+            return r.get(p + f"mlp.experts.{name}")
+        from .mxfp4 import dequant_mxfp4
+
+        return dequant_mxfp4(r.get(p + f"mlp.experts.{name}_blocks"),
+                             r.get(p + f"mlp.experts.{name}_scales"))
+
+    gu = proj("gate_up_proj")  # [E, h, 2f]
+    gub = r.get(p + "mlp.experts.gate_up_proj_bias")  # [E, 2f]
+    _to(layer.router, r.get(p + "mlp.router.weight").T)  # [E, h] → [h, E]
+    _to(layer.router_b, r.get(p + "mlp.router.bias"))
+    _to(layer.w_gate, gu[..., ::2])
+    _to(layer.w_up, gu[..., 1::2])
+    _to(layer.b_gate, gub[..., ::2])
+    _to(layer.b_up, gub[..., 1::2])
+    _to(layer.w_down, proj("down_proj"))
+    _to(layer.b_down, r.get(p + "mlp.experts.down_proj_bias"))
+
+
+def _load_mixtral_experts(r: _ShardReader, layer, p: str, E: int) -> None:
+    """Mixtral: ``block_sparse_moe.gate`` is the router; expert e's w1 /
+    w3 / w2 are its gate / up / down, each copied into its slot."""
+    _to(layer.router, r.get(p + "block_sparse_moe.gate.weight").T)
+    for key, sub in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
+        dst = getattr(layer, key)
+        for e in range(E):
+            _to(dst[e], r.get(p + f"block_sparse_moe.experts.{e}.{sub}.weight").T)
+
+
 @torch.no_grad()
 def load_params(path: str, cfg: ModelConfig, dtype=torch.bfloat16,
                 prefix: str = "", reader=None, device=None) -> Llama:
@@ -81,16 +145,25 @@ def load_params(path: str, cfg: ModelConfig, dtype=torch.bfloat16,
     "language_model."); `reader` reuses an open `_ShardReader`."""
     _check_supported(cfg)
     r = reader or _ShardReader(path)
-    if r.has(prefix + "model.layers.0.self_attn.q_proj.bias"):
-        raise ValueError(
-            "checkpoint has self_attn.*_proj.bias tensors but the config "
-            "does not declare attention_bias — refusing to silently drop "
-            "them")
+    _check_checkpoint(r, cfg, prefix)
     model = Llama(cfg, dtype=dtype, device=device)
+    mxfp4 = r.has(prefix + "model.layers.0.mlp.experts.gate_up_proj_blocks")
+    gpt_oss = cfg.moe_bias and (
+        mxfp4 or r.has(prefix + "model.layers.0.mlp.experts.gate_up_proj"))
     for i, layer in enumerate(model.layers):
+        p = f"{prefix}model.layers.{i}."
         for key, hf in _HF_NAMES.items():
-            w = r.get(f"{prefix}model.layers.{i}.{hf}")
+            if cfg.is_moe and key in ("w_gate", "w_up", "w_down"):
+                continue
+            w = r.get(p + hf)
             _to(getattr(layer, key), w if key.endswith("norm") else w.T)
+        for key, hf in _HF_PLAIN.items():
+            if getattr(layer, key) is not None:
+                _to(getattr(layer, key), r.get(p + hf))
+        if gpt_oss:
+            _load_gpt_oss_experts(r, layer, p, mxfp4)
+        elif cfg.is_moe:
+            _load_mixtral_experts(r, layer, p, cfg.num_experts)
     embed = r.get(prefix + "model.embed_tokens.weight")
     _to(model.embed, embed)
     _to(model.final_norm, r.get(prefix + "model.norm.weight"))

@@ -1,0 +1,75 @@
+"""MXFP4 expert-weight format (the published gpt-oss-120b/20b checkpoint
+layout): the port's own copy of the JAX package's numpy-only
+`models/mxfp4.py`.
+
+Each `<proj>_blocks` tensor packs two FP4 (E2M1) values per byte (low
+nibble first) in 32-value groups along the contraction axis; the
+companion `<proj>_scales` tensor holds one E8M0 power-of-two exponent
+per group (biased by 127).  Dequantization matches HF transformers'
+`convert_moe_packed_tensors` (integrations/mxfp4.py) bit for bit,
+including the final [-1, -2] axis swap that restores the bf16-export
+layout (`gate_up_proj` [E, h, 2f], `down_proj` [E, f, h]).
+
+The loader dequantizes on load, one layer at a time; the experts run in
+bf16 through the grouped GEMM (no fp4 kernel)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+# E2M1 value table, indexed by nibble (bit 3 = sign)
+FP4_VALUES = np.array(
+    [0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
+     -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0],
+    dtype=np.float32,
+)
+
+
+def dequant_mxfp4(blocks: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """[*prefix, G, B] uint8 blocks + [*prefix, G] uint8 scales →
+    float32 [*prefix[0], G*B*2, *prefix[1:]] — i.e. the checkpoint's
+    bf16-export layout (axes 1 and 2 swapped, exactly like HF)."""
+    assert blocks.dtype == np.uint8 and scales.dtype == np.uint8
+    assert blocks.shape[:-1] == scales.shape, (blocks.shape, scales.shape)
+    lut = FP4_VALUES
+    lo = lut[blocks & 0x0F]
+    hi = lut[blocks >> 4]
+    out = np.empty((*blocks.shape, 2), np.float32)
+    out[..., 0] = lo
+    out[..., 1] = hi
+    exp = scales.astype(np.int32) - 127
+    out = np.ldexp(out, exp[..., None, None])
+    *prefix, G, B, _ = out.shape
+    out = out.reshape(*prefix, G * B * 2)
+    # contiguous: callers save this to safetensors (raw-buffer
+    # serialization) and stack it — a strided view scrambles there
+    return np.ascontiguousarray(np.swapaxes(out, 1, 2))
+
+
+def quant_mxfp4(w: np.ndarray):
+    """float [*prefix0, Z, X] (bf16-export layout) → (blocks, scales) in
+    the published packing: groups of 32 along the CONTRACTION axis Z
+    (blocks [*prefix0, X, Z//32, 16], scales [*prefix0, X, Z//32]).
+    Nearest-value rounding; per-group exponent chosen so the group's
+    amax lands within the E2M1 range ([0, 6])."""
+    wt = np.swapaxes(np.asarray(w, np.float32), 1, 2)  # [*p0, X, Z]
+    *prefix, Z = wt.shape
+    assert Z % 32 == 0, f"contraction axis {Z} not a multiple of 32"
+    G = Z // 32
+    grp = wt.reshape(*prefix, G, 32)
+    amax = np.abs(grp).max(axis=-1)
+    with np.errstate(divide="ignore"):
+        e = np.ceil(np.log2(np.where(amax > 0, amax, 1.0) / 6.0))
+    e = np.clip(np.where(amax > 0, e, 0.0), -127, 128).astype(np.int32)
+    scaled = grp / np.exp2(e)[..., None]
+    # nearest E2M1 MAGNITUDE + sign bit (ties resolve toward the lower
+    # index, the smaller magnitude — fine for a fixture quantizer)
+    pos = FP4_VALUES[:8]
+    idx = np.abs(np.abs(scaled)[..., None] - pos).argmin(
+        axis=-1).astype(np.uint8)
+    idx = np.where(scaled < 0, idx + 8, idx)
+    packed = (idx[..., 0::2] & 0x0F) | (idx[..., 1::2] << 4)
+    # contiguity matters: safetensors.numpy serializes the raw buffer,
+    # so a strided view would scramble on save
+    return (np.ascontiguousarray(packed.astype(np.uint8)),
+            np.ascontiguousarray((e + 127).astype(np.uint8)))

@@ -6,8 +6,10 @@ each tensor name to ``{"dtype", "shape", "data_offsets": [begin, end]}``
 (offsets into the byte buffer after the header; ``__metadata__`` is
 skipped), then the raw little-endian buffers.  `safe_open` maps the file
 with `np.memmap` and returns copies, like ``safetensors.safe_open(path,
-framework="np")``.  Dtypes: F32, F16, BF16, I32, I64; others raise.  BF16 has no numpy type: it is read as uint16 and
-widened to float32 exactly (the 16 bits become the float's high half).
+framework="np")``.  Dtypes: F32, F16, BF16, I32, I64, I8, U8 (MXFP4
+blocks and scales); others raise.  BF16 has no numpy type: it is read as
+uint16 and widened to float32 exactly (the 16 bits become the float's
+high half).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ _DTYPES = {
     "BF16": np.dtype("<u2"),
     "I64": np.dtype("<i8"),
     "I32": np.dtype("<i4"),
+    "I8": np.dtype("i1"),
+    "U8": np.dtype("u1"),  # MXFP4 expert blocks and scales
 }
 
 

@@ -1,7 +1,8 @@
-"""Mutation check of the attention kernels against `chip_smoke.py` phase 3.
+"""Mutation check of the CUDA kernels against `chip_smoke.py` phase 3.
 
 Each mutant is a copy of the checkout, in a temporary directory, whose
-`csrc/paged_attention.cu` carries one planted fault.  Every copy builds
+`csrc/paged_attention.cu` or `csrc/grouped_gemm.cu` carries one planted
+fault.  Every copy builds
 its own kernels (in parallel), then runs phase 3 alone; phase 3 must fail
 with "kernel disagrees".  Needs a CUDA card:
 
@@ -23,22 +24,37 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join("dynamo_tpu_torch", "csrc", "paged_attention.cu")
+CSRC = os.path.join("dynamo_tpu_torch", "csrc")
+PA, GG = "paged_attention.cu", "grouped_gemm.cu"
 
-# name -> (text of the source, its faulty replacement); each text occurs once
+# name -> (source file, a text of it, its faulty replacement); each text
+# occurs once
 MUTANTS = {
     "merge ignores the split maxima": (
-        "      const float f = exp2f(ms - M);\n",
+        PA, "      const float f = exp2f(ms - M);\n",
         "      const float f = 1.f;\n"),
     "merge drops the last split": (
-        "  for (int s = 0; s < n_split; ++s) {\n    const float ms",
+        PA, "  for (int s = 0; s < n_split; ++s) {\n    const float ms",
         "  for (int s = 0; s < n_split - 1; ++s) {\n    const float ms"),
     "prefill reads the wrong kv head": (
-        "  const size_t col = (size_t)kh * HD + lc * 8;",
+        PA, "  const size_t col = (size_t)kh * HD + lc * 8;",
         "  const size_t col = (size_t)((kh + 1) % n_kv) * HD + lc * 8;"),
     "prefill leaves the diagonal tile unmasked": (
-        "const bool need_mask = window > 0 || u0 + NKEYS - 1 > pre + q0;",
+        PA, "const bool need_mask = window > 0 || u0 + NKEYS - 1 > pre + q0;",
         "const bool need_mask = window > 0;"),
+    "grouped GEMM reads the next expert's weights": (
+        GG, "const bf16* we = w + (size_t)e * K * N;",
+        "const bf16* we = w + (size_t)((e + 1) % E) * K * N;"),
+    "grouped GEMM drops the last K tile": (
+        GG, "const int KT = (K + BK - 1) / BK;",
+        "const int KT = (K + BK - 1) / BK - 1;"),
+    "grouped GEMM shifts a tile's rows by one": (
+        GG, "r0 = lo + (t - before) * BM;",
+        "r0 = lo + (t - before) * BM + (t - before > 0);"),
+    # only a tile wider than N (the router's N = 32) has such columns
+    "grouped GEMM stores columns past N over the first ones": (
+        GG, "      const int col = n0 + wn + nj * 8 + tq * 2;\n      if (col >= N) continue;\n",
+        "      int col = n0 + wn + nj * 8 + tq * 2;\n      if (col >= N) col -= N;\n"),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
@@ -46,13 +62,13 @@ _PHASE3 = "import chip_smoke; chip_smoke.phase_kernels()"
 
 
 def _copy(name: str) -> str:
-    old, new = MUTANTS[name]
+    source, old, new = MUTANTS[name]
     tmp = tempfile.mkdtemp(prefix="pa_mutant_")
     shutil.copytree(os.path.join(ROOT, "dynamo_tpu_torch"),
                     os.path.join(tmp, "dynamo_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp)
-    path = os.path.join(tmp, SOURCE)
+    path = os.path.join(tmp, CSRC, source)
     with open(path) as f:
         src = f.read()
     if src.count(old) != 1:

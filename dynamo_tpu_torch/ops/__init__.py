@@ -1,5 +1,6 @@
-"""Tensor ops of the port: norm, rotary, paged attention (CUDA kernels on
-the card, plain PyTorch on the CPU) and sampling."""
+"""Tensor ops of the port: norm, rotary, paged attention and the MoE
+grouped GEMM (`moe.py`) (CUDA kernels on the card, plain PyTorch on the
+CPU) and sampling."""
 
 from .norm import rms_norm
 from .paged_attention import (

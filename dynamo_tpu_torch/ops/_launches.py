@@ -1,0 +1,17 @@
+"""The one registry of kernel launches.
+
+Each kernel wrapper adds one to its kernel's entry where it launches it,
+and nowhere else; the engine's graph runner adds the launches a capture
+recorded at every replay.  `chip_smoke.py` zeroes the registry before it
+drives a path and reads it after.  "decode_attention" counts calls of the
+public function (each a split pass, then a merge pass), "decode_merge"
+the merge launches.
+"""
+
+LAUNCHES = {"decode_attention": 0, "decode_merge": 0, "prefill_attention": 0,
+            "moe_grouped_gemm": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -4,7 +4,7 @@
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take, allocates the output with `torch.empty`,
 launches on `torch.cuda.current_stream()`, raises if the launch returned a
-CUDA error, and adds one to its entry in `LAUNCHES`.  No wrapper falls back
+CUDA error, and adds one to its entry in `LAUNCHES` (`_launches.py`).  No wrapper falls back
 to the plain version: the plain versions live in `paged_attention.py` and
 are reached only for CPU tensors.
 """
@@ -18,12 +18,7 @@ from typing import Optional
 import torch
 
 from . import _build
-
-# launches per kernel; chip_smoke zeroes these before driving the serving
-# path and reads them after it.  "decode_attention" counts calls of the
-# public function (each a split pass, then a merge pass), "decode_merge"
-# the merge launches.
-LAUNCHES = {"decode_attention": 0, "decode_merge": 0, "prefill_attention": 0}
+from ._launches import LAUNCHES, reset_launches  # noqa: F401
 
 # The split-KV decode grid is (n_kv, B, n_split).  A split is a fixed run
 # of DECODE_SPLIT_KEYS keys (whole pages), never sized from the table
@@ -45,11 +40,6 @@ _SIGS = {
     "pa_decode": [_P] * 9 + [_I] * 10 + [_F, _P],
     "pa_prefill": [_P] * 10 + [_I] * 9 + [_F, _P],
 }
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _fn(name: str):

@@ -12,8 +12,9 @@
                `TorchEngine.generate` at once.
 
 ``--model`` takes a checkpoint directory (the loader and tokenizer.json),
-``tiny`` or a canned config name (random weights from ``--seed``); see
-`dynamo_tpu_torch.worker`.  Runs on CUDA unless given ``--device cpu``.
+``tiny`` or a canned config name (``llama-3.1-8b``, ``gpt-oss-20b``, ...;
+random weights from ``--seed``); ``--quantization int8`` serves int8
+projections; see `dynamo_tpu_torch.worker`.  Runs on CUDA unless given ``--device cpu``.
 
 A batch input line is a JSON object with ``token_ids`` plus optional
 sampling fields (``temperature``, ``top_k``, ``top_p``, ``seed``,

@@ -5,8 +5,12 @@ The port's copy of `python -m dynamo_tpu.worker`: builds a `TorchEngine`
 and serves it as a discovered model endpoint, then prints ``READY worker
 <name>``.  ``--model`` takes a checkpoint directory (safetensors +
 config.json + tokenizer.json), ``tiny`` (the test model and tokenizer) or
-a canned config name (``llama-3.1-8b``, ...; random weights from
-``--seed`` and a seeded byte-level tokenizer of the model's vocabulary).
+a canned config name (``llama-3.1-8b``, ``gpt-oss-20b``, ``qwen2.5-7b``,
+``mistral-7b``, ...; random weights from ``--seed`` and a seeded
+byte-level tokenizer of the model's vocabulary, 201088 ids for gpt-oss).
+Checkpoints of every family the port's loader reads are served: qwen2
+biases, sliding windows, gpt-oss sinks and experts (MXFP4 dequantized on
+load), mixtral experts.
 The engine's device-loop flags are the JAX worker's (multi-step decode
 blocks, chains or ``--decode-chain continuous``, the block ladder, chunk
 rows, mixed dispatches, speculative decoding), and so are its overload
@@ -15,8 +19,9 @@ the preemption parking lot) and its KVBM flags (``--kvbm``: host, disk
 and object-store KV tiers through the leader/worker bootstrap; the
 leader's ``--kvbm-g4-bucket`` names the shared object-store bucket).  The
 worker publishes its KV events, load metrics and (with KVBM) its tier
-summary for a frontend in ``--router-mode kv``.  int8 and KV
-partitioning are accepted and refused by `TorchEngine`; vision, disagg,
+summary for a frontend in ``--router-mode kv``.  ``--quantization
+int8`` serves int8 projections (quantized at engine construction); KV
+partitioning is accepted and refused by `TorchEngine`; vision, disagg,
 meshes, multihost and mock engines are later slices.  ``--status-port``
 serves the engine's counters on ``/metrics``.  Runs on CUDA unless given
 ``--device cpu``.

@@ -155,11 +155,14 @@ async def test_kill_cancels_and_pool_balanced(jax_params):
     assert sum(engine.pool._refs.values()) == 0
 
 
-@pytest.mark.parametrize("over", [{"quantization": "int8"},
-                                  {"kv_partition": True}],
-                         ids=["int8", "kv_partition"])
-def test_unported_engine_options_refused(jax_params, over):
-    with pytest.raises(ValueError, match="not ported"):
+@pytest.mark.parametrize("over,match", [
+    ({"quantization": "int4"}, r"quantization must be none\|int8"),
+    ({"kv_partition": True}, "not ported")], ids=["other_weight_format", "kv_partition"])
+def test_unported_engine_options_refused(jax_params, over, match):
+    """A partitioned pool is refused; int8 is served (tests/
+    test_torch_quantization.py), so the other_weight_format case holds
+    that formats other than none and int8 are refused, as EngineConfig refuses them in JAX."""
+    with pytest.raises(ValueError, match=match):
         make_engine(jax_params, **over)
 
 

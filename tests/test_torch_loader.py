@@ -110,14 +110,24 @@ def test_two_shard_index_equals_jax(tmp_path):
 
 
 def test_refuses_what_the_model_does_not_take(tmp_path):
+    """A config that asks for tensors the checkpoint lacks (attention
+    biases, sinks) is refused by both loaders, with the same error; M-RoPE
+    is refused by the port alone (the vision slice)."""
     path = GOLDEN["golden_llama"]
     with open(os.path.join(path, "config.json")) as f:
         d = json.load(f)
-    for over, err in (({"attention_bias": True}, NotImplementedError),
-                      ({"num_local_experts": 4}, NotImplementedError)):
-        cfg = ModelConfig.from_hf_config({**d, **over})
-        with pytest.raises(err, match="not ported"):
-            load_params(path, cfg, dtype=torch.float32, device="cpu")
+    for over, match in (({"attention_bias": True}, "declares attention_bias"),
+                        ({"attention_sinks": True}, "declares attention_sinks")):
+        with pytest.raises(ValueError, match=match):
+            jax_load_params(path, JaxModelConfig.from_hf_config({**d, **over}),
+                            dtype=jnp.float32)
+        with pytest.raises(ValueError, match=match):
+            load_params(path, ModelConfig.from_hf_config({**d, **over}),
+                        dtype=torch.float32, device="cpu")
+    mrope = {"rope_scaling": {"type": "mrope", "mrope_section": [2, 1, 1]}}
+    with pytest.raises(NotImplementedError, match="not ported"):
+        load_params(path, ModelConfig.from_hf_config({**d, **mrope}),
+                    dtype=torch.float32, device="cpu")
 
 
 def run_steps(model, cfg, prompt, feed, page_size=8):

@@ -117,8 +117,23 @@ def test_init_params_seeded_and_untied_head():
     assert tied.lm_logits(x).shape == (2, cfg.vocab_size)
 
 
-@pytest.mark.parametrize("over", [{"num_experts": 4}, {"sliding_window": 8},
-                                  {"attention_sinks": True}])
+@pytest.mark.parametrize("over", [{"mrope_section": (4, 2, 2)},
+                                  {"num_experts": 4, "moe_impl": "megablocks"},
+                                  {"kv_partition": True}])
 def test_unported_model_features_refused(over):
-    with pytest.raises(NotImplementedError):
+    """What the port still refuses: M-RoPE (the vision slice), an unknown
+    MoE dispatch (as JAX `_moe` does) and a partitioned KV pool (the
+    parallelism slice).  MoE, windows, sinks and biases are served since
+    the model-breadth slice (tests/test_torch_gpt_oss.py)."""
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+
+    if "kv_partition" in over:
+        cfg = tcfg.tiny_config()
+        model = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                               torch.float32, "cpu")
+        with pytest.raises(ValueError, match="not ported"):
+            TorchEngine(cfg, model, EngineConfig(**over), device="cpu")
+        return
+    err = NotImplementedError if "mrope_section" in over else ValueError
+    with pytest.raises(err):
         tl.Llama(tcfg.tiny_config(**over), torch.float32, "cpu")
