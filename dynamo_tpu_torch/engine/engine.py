@@ -46,6 +46,7 @@ import asyncio
 import concurrent.futures as cf
 import logging
 import random
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -179,6 +180,12 @@ class TorchEngine:
         # the continuous loop's drain thread (fetch + unpack of block k
         # while the step thread dispatches block k+1), started lazily
         self._drain_pool: Optional[cf.ThreadPoolExecutor] = None
+        # held by a step for its whole body (its deferred frees included),
+        # by the planning between steps and by `clear_kv_blocks`: a clear
+        # from any thread waits for the step in flight, so the pages of a
+        # stream that has ended are back in the LRU when it reads them,
+        # and no two threads walk the pool at once
+        self._step_lock = threading.RLock()
         self._closed = False
         self._pending_aborts: set = set()
         self._pending_adds: List[Sequence] = []
@@ -293,7 +300,12 @@ class TorchEngine:
         return self.graphs.keys
 
     def clear_kv_blocks(self) -> int:
-        return self.pool.clear_cache()
+        """Drop every evictable cached page; returns the pages reclaimed.
+        Safe from any thread: it waits for the step in flight (whose
+        deferred frees return a finished stream's pages first).  The
+        worker's control op calls it off the event loop."""
+        with self._step_lock:
+            return self.pool.clear_cache()
 
     # -- AsyncEngine protocol --------------------------------------------- #
 
@@ -397,17 +409,18 @@ class TorchEngine:
     def _plan_step(self) -> StepPlan:
         """Apply queued adds (before aborts, so an abort always finds its
         sequence) and graceful stops, then plan the next step."""
-        while self._pending_adds:
-            self.scheduler.add(self._pending_adds.pop(0))
-        while self._pending_aborts:
-            self.scheduler.abort(self._pending_aborts.pop())
-        for rid, ctx in list(self._contexts.items()):
-            if ctx.is_stopped() and not ctx.is_killed():
-                for seq in list(self.scheduler.running):
-                    if seq.request_id == rid and seq.output_tokens:
-                        self.scheduler.finish(seq, "cancelled")
-                        self._deliver(seq, [], "cancelled")
-        return self.scheduler.schedule()
+        with self._step_lock:
+            while self._pending_adds:
+                self.scheduler.add(self._pending_adds.pop(0))
+            while self._pending_aborts:
+                self.scheduler.abort(self._pending_aborts.pop())
+            for rid, ctx in list(self._contexts.items()):
+                if ctx.is_stopped() and not ctx.is_killed():
+                    for seq in list(self.scheduler.running):
+                        if seq.request_id == rid and seq.output_tokens:
+                            self.scheduler.finish(seq, "cancelled")
+                            self._deliver(seq, [], "cancelled")
+            return self.scheduler.schedule()
 
     async def _pump(self) -> None:
         loop = asyncio.get_running_loop()
@@ -460,7 +473,7 @@ class TorchEngine:
             await asyncio.sleep(0)
 
     def _step(self, run, arg):
-        with torch.no_grad(), torch.cuda.stream(self._stream):
+        with self._step_lock, torch.no_grad(), torch.cuda.stream(self._stream):
             return run(arg)
 
     # -- host arrays of a dispatch (row layouts) ---------------------------- #

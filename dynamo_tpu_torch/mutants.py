@@ -43,18 +43,29 @@ MUTANTS = {
         PA, "const bool need_mask = window > 0 || u0 + NKEYS - 1 > pre + q0;",
         "const bool need_mask = window > 0;"),
     "grouped GEMM reads the next expert's weights": (
-        GG, "const bf16* we = w + (size_t)e * K * N;",
-        "const bf16* we = w + (size_t)((e + 1) % E) * K * N;"),
+        GG, "n0 + nb * BOX, k0, e);",
+        "n0 + nb * BOX, k0, (e + 1) % E);"),
     "grouped GEMM drops the last K tile": (
-        GG, "const int KT = (K + BK - 1) / BK;",
-        "const int KT = (K + BK - 1) / BK - 1;"),
+        GG, "const int kt1 = min(KT, kt0 + kt_per_slice);",
+        "const int kt1 = min(KT - 1, kt0 + kt_per_slice);"),
     "grouped GEMM shifts a tile's rows by one": (
-        GG, "r0 = lo + (t - before) * BM;",
-        "r0 = lo + (t - before) * BM + (t - before > 0);"),
-    # only a tile wider than N (the router's N = 32) has such columns
+        GG, "const int row0 = lo + (t - first) * BM;",
+        "const int row0 = lo + (t - first) * BM + (t > first);"),
+    # the router's N = 32 and the last column tile of N = 2880 have such
+    # columns
     "grouped GEMM stores columns past N over the first ones": (
-        GG, "      const int col = n0 + wn + nj * 8 + tq * 2;\n      if (col >= N) continue;\n",
-        "      int col = n0 + wn + nj * 8 + tq * 2;\n      if (col >= N) col -= N;\n"),
+        GG, "      const int col = col_a + 8 * j;\n      if (col >= N) continue;\n",
+        "      int col = col_a + 8 * j;\n      if (col >= N) col %= N;\n"),
+    "epilogue adds the next expert's bias": (
+        GG, "const size_t brow = (size_t)e * N;",
+        "const size_t brow = (size_t)((e + 1) % E) * N;"),
+    "fused epilogue drops the gate clamp": (
+        GG, "    g = fminf(g, 7.f);\n", ""),
+    "fused epilogue swaps gate and up": (
+        GG, "__floats2bfloat162_rn(moe_act(act, v0, u0), moe_act(act, v1, u1))",
+        "__floats2bfloat162_rn(moe_act(act, u0, v0), moe_act(act, u1, v1))"),
+    "split-K sum drops the last slice": (
+        GG, "for (int z = 1; z < S; ++z)", "for (int z = 1; z < S - 1; ++z)"),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"

@@ -9,6 +9,7 @@ Data-parallel ranks (`DpRankEngine`) are a later slice.
 
 from __future__ import annotations
 
+import asyncio
 import logging
 from typing import Any, AsyncIterator
 
@@ -43,7 +44,10 @@ class EngineWorker:
         if op == "clear_kv_blocks":
             cleared = 0
             if hasattr(self.engine, "clear_kv_blocks"):
-                cleared = self.engine.clear_kv_blocks()
+                # off the loop: the clear waits for the engine's step in
+                # flight, and the loop keeps streaming meanwhile
+                cleared = await asyncio.get_running_loop().run_in_executor(
+                    None, self.engine.clear_kv_blocks)
             yield {"status": "ok", "pages_cleared": cleared}
         elif op == "metrics":
             m = (

@@ -10,12 +10,20 @@ package's functions on the same numpy inputs, on the CPU:
   its JAX counterpart within 1e-5 (f32);
 - `grouped_gemm_plain` against `jax.lax.ragged_dot` with empty groups,
   one group holding every row, and bf16 inputs (f32 sums of exact
-  products: 1e-5 relative);
+  products: 1e-5 relative), and with a bias against JAX's down product
+  plus ``b_down[expert_sorted]``;
+- `grouped_glu_plain` against ``moe_act(ragged_dot + b_gate, ragged_dot +
+  b_up).astype(dt)``, as `_moe_ragged` computes it, for both activations,
+  with and without biases: f32 within 1e-5, bf16 within one bf16 ulp of
+  JAX's value (the two round f32 sums taken in other orders);
+- the kernels' wrappers refusing CPU tensors, and their tiling rules
+  depending on the weight's shape only;
 - a token's ragged output is bit-equal whatever its batch-mates are (at
   a fixed batch shape, as the engine pads its decode rows).
 
-The grouped GEMM kernel itself runs only on the card; `chip_smoke.py`
-phase 3 holds it against `grouped_gemm_plain` there.
+The grouped kernels themselves run only on the card; `chip_smoke.py`
+phase 3 holds them against `grouped_gemm_plain` and `grouped_glu_plain`
+there.
 """
 
 import jax
@@ -182,3 +190,97 @@ def test_ragged_token_alone_equals_token_in_batch(name):
         mates[b] = x[b]
         alone = tl._moe_ragged(layer, mates, cfg_t)
         assert torch.equal(alone[b], batch[b]), b
+
+
+def _ragged_jax(xs, w, gs, b=None):
+    """JAX's grouped product as `_moe_ragged` takes it: ragged_dot in f32,
+    then the bias of each row's expert."""
+    out = jax.lax.ragged_dot(jnp.asarray(xs), jnp.asarray(w), jnp.asarray(gs),
+                             preferred_element_type=jnp.float32)
+    if b is not None:
+        out = out + jnp.asarray(b)[jnp.repeat(jnp.arange(len(gs)), gs,
+                                              total_repeat_length=xs.shape[0])]
+    return out
+
+
+def _offs(gs):
+    return torch.from_numpy(np.concatenate([[0], np.cumsum(gs)]).astype(np.int32))
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at each value (2^-7 of its power of two)."""
+    a = np.abs(v).astype(np.float64)
+    return np.where(a > 0, np.exp2(np.floor(np.log2(np.maximum(a, 1e-30))) - 7), 0.0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16], ids=["f32", "bf16"])
+def test_grouped_gemm_plain_with_bias_matches_jax_down(dtype):
+    """The down product with ``b_down``: the bias of each row's expert
+    added to the f32 sums, as JAX's ``ys + b_down[expert_sorted]``."""
+    sizes = [3, 0, 5, 1, 0, 7]
+    xs, w, gs = _ragged_case(sizes, dtype=dtype)
+    b = np.random.default_rng(4).normal(size=(len(sizes), w.shape[2])).astype(dtype)
+    want = _ragged_jax(xs, w, gs, b)
+    got = tmoe.grouped_gemm(_as_torch(xs), _as_torch(w), _offs(gs), _as_torch(b))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("act", ["silu", "gpt_oss_glu"])
+def test_grouped_glu_plain_matches_jax(act, bias, dtype):
+    """The fused gate||up's plain version against JAX's two ragged_dots,
+    their biases, `moe_act` and the cast.  The weights are scaled so the
+    gpt-oss clamps (gate <= 7, |up| <= 7) bind on part of the values."""
+    sizes = [4, 0, 9, 1, 0, 6]
+    rng = np.random.default_rng(7)
+    A, E, K, N = sum(sizes), len(sizes), 40, 24
+    xs = rng.normal(size=(A, K)).astype(dtype)
+    wg, wu = ((rng.normal(size=(E, K, N)) * 5 / np.sqrt(K)).astype(dtype)
+              for _ in range(2))
+    bg, bu = ((rng.normal(size=(E, N)).astype(dtype) if bias else None)
+              for _ in range(2))
+    gs = np.asarray(sizes, np.int32)
+    cfg_j, _ = _cfgs("tiny_moe", moe_act=act)
+    gate, up = _ragged_jax(xs, wg, gs, bg), _ragged_jax(xs, wu, gs, bu)
+    assert float(jnp.max(gate)) > 7 and float(jnp.min(up)) < -7
+    want = np.asarray(jl.moe_act(cfg_j, gate, up).astype(jnp.asarray(xs).dtype),
+                      np.float32)
+    t = (lambda a: None if a is None else _as_torch(a))
+    got = tmoe.grouped_glu(_as_torch(xs), _as_torch(wg), _as_torch(wu), t(bg),
+                           t(bu), _offs(gs), act)
+    assert got.dtype == _as_torch(xs).dtype and got.shape == (A, N)
+    got = got.float().numpy()
+    if dtype == np.float32:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert np.all(np.abs(got - want) <= _bf16_ulp(want) + 1e-6)
+
+
+def test_grouped_glu_cuda_wrapper_refuses_cpu_tensors():
+    """The fused kernel's wrapper takes CUDA tensors only."""
+    xs, w, _ = _ragged_case([2, 2])
+    with pytest.raises(ValueError, match="CUDA"):
+        tmoe.grouped_glu_cuda(torch.from_numpy(xs), torch.from_numpy(w),
+                              torch.from_numpy(w), None, None,
+                              torch.tensor([0, 2, 4], dtype=torch.int32), "silu")
+
+
+@pytest.mark.parametrize("E,K,N,slices", [(1, 2880, 32, 15), (32, 2880, 2880, 1),
+                                          (132, 64, 24, 1), (1, 200, 8, 2)],
+                         ids=["router", "experts", "many_small_experts",
+                              "tiny_router"])
+def test_k_slices_depend_on_the_weight_only(E, K, N, slices):
+    """Split-K where E * ceil(N / 128) output tiles cannot fill 132 SMs:
+    slices of three 64-deep K tiles; the row count never enters, so a
+    row's sum order is the same in every batch."""
+    assert tmoe.k_slices(E, K, N) == slices
+
+
+@pytest.mark.parametrize("A,E,rows", [(32, 32, 64), (1535, 32, 64), (1536, 32, 128),
+                                      (8, 1, 64), (512, 1, 128)])
+def test_tile_rows_per_average_group(A, E, rows):
+    """64-row tiles at decode, 128 once the average group reaches 48 rows
+    (an expert's weights then stream once per 128 rows)."""
+    assert tmoe.tile_rows(A, E) == rows

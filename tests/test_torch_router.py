@@ -570,6 +570,53 @@ async def test_clear_kv_blocks_empties_the_workers_index(jax_params):
         await control.stop()
 
 
+async def test_clear_kv_blocks_waits_for_a_fused_chains_deferred_frees(jax_params):
+    """The race's window, forced: a fused prefill->decode request's last
+    output reaches the loop while its pages still sit in the step's
+    deferred frees (held there until the clear has been sent).  The
+    worker's clear must wait for the step and reclaim every committed
+    page, with the pool's LRU empty after it."""
+    import threading
+    import time
+
+    from dynamo_tpu_torch.runtime import Context
+    from dynamo_tpu_torch.worker import EngineWorker
+
+    engine = port_engine(jax_params)
+    assert engine.cfg.fuse_prefill_decode
+    worker = EngineWorker(engine)
+    ended = threading.Event()
+    window = []
+    free = engine.pool.free
+
+    def held_free(pages):
+        # the step thread's frees wait for the stream's end at the loop,
+        # then a little more, so an unordered clear would read first
+        if pages and threading.current_thread().name.startswith("torch-engine-step"):
+            if ended.wait(timeout=10):
+                window.append(len(pages))
+                time.sleep(0.2)
+        return free(pages)
+
+    engine.pool.free = held_free
+    try:
+        req = {"token_ids": prompt(5), "sampling_options": {"temperature": 0.0},
+               "stop_conditions": {"max_tokens": 2, "ignore_eos": True}}
+        outs = []
+        async for out in engine.generate(req):
+            outs.append(out)
+            if out.get("finish_reason"):
+                ended.set()
+        cleared = [o async for o in worker.handle({"control": "clear_kv_blocks"},
+                                                  Context())]
+        assert window, "the finished request's pages were not held in a deferred free"
+        assert cleared[0]["pages_cleared"] == 5
+        assert not engine.pool._lru
+    finally:
+        engine.pool.free = free
+        await engine.shutdown()
+
+
 async def test_standalone_router_service_chooses_the_holder(jax_params):
     """`python -m dynamo_tpu_torch.router` over two port workers: its
     `choose` op names the worker holding a prefix, `finished` frees it."""
