@@ -30,14 +30,23 @@ the JAX engine's names:
   a drain thread and onboards them into the prefix cache at admission.
   Pages move with a gather (`index_select`) and an in-place scatter
   (`index_copy_`): the pool tensors are never reallocated, since every
-  captured graph holds their addresses.
+  captured graph holds their addresses;
+- disaggregated serving (`disagg/`): a prefill worker's `prefill_remote`
+  computes the prompt and its first token and holds the pages
+  (`_hold_pages`) for the data plane, which moves them into a decode
+  worker's pages (`alloc_pages`, `import_page_chunk`, or one `kv_repage`
+  launch on a device lane); `generate_imported` adopts them there as a
+  prompt computed elsewhere.  Page operations requested from outside the
+  pump (`_device_op`) run on the step thread between steps, under the
+  step lock and on the engine's stream; chains, fusion and the
+  continuous loop yield to them.
 
 With ``quantization="int8"`` the model's dense projections and LM head
 are quantized at construction, in place (`models.quantization.
 quantize_params`, layer by layer), as `JaxEngine` quantizes its params.
 
-Not ported yet (later slices): disagg KV transfer, meshes (dp/tp/pp/sp,
-kv_partition), multihost and vision.
+Not ported yet (later slices): meshes (dp/tp/pp/sp, kv_partition),
+multihost and vision.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from ..models.config import ModelConfig
 from ..models.llama import KVCache, Llama
 from ..models.quantization import quantize_params
 from ..runtime.engine import Context
+from ..tokens import compute_block_hash_for_seq
 from . import blocks
 from .blocks import TOPLP, Variant
 from .config import EngineConfig, bucket_for
@@ -188,7 +198,11 @@ class TorchEngine:
         self._step_lock = threading.RLock()
         self._closed = False
         self._pending_aborts: set = set()
-        self._pending_adds: List[Sequence] = []
+        # ("add" | "imported", seq): imported sequences hold KV written
+        # elsewhere and are admitted without a prefill
+        self._pending_adds: List[Tuple[str, Sequence]] = []
+        # (op, future) page operations for the step thread (`_device_op`)
+        self._pending_ops: List[Tuple[Callable[[], Any], asyncio.Future]] = []
         self._requests_total = 0
         self._ttft = {"block_wait_ms": 0.0, "queue_wait_ms": 0.0,
                       "prefill_ms": 0.0}
@@ -340,11 +354,13 @@ class TorchEngine:
         seq.priority = priority
         seq.t_arrival = time.monotonic()
         seq.seed = opts.seed if opts.seed is not None else self._py_rng.getrandbits(31)
+        # a remote prefill keeps its pages past finish for the data plane
+        seq.hold_pages = bool(request.get("_hold_pages"))
         queue: asyncio.Queue = asyncio.Queue()
         self._queues[context.id] = queue
         self._contexts[context.id] = context
         self._requests_total += 1
-        self._pending_adds.append(seq)
+        self._pending_adds.append(("add", seq))
         self._wake.set()
         killed = asyncio.create_task(context.killed())
         finished = False
@@ -395,6 +411,11 @@ class TorchEngine:
         if self.scheduler.deferred_free:
             self.pool.free(self.scheduler.deferred_free)
             self.scheduler.deferred_free = None
+        # page operations the pump will never run
+        while self._pending_ops:
+            _, fut = self._pending_ops.pop(0)
+            if not fut.done():
+                fut.set_exception(RuntimeError("engine shut down"))
         loop = asyncio.get_running_loop()
         for name in ("_executor", "_drain_pool"):
             pool = getattr(self, name)
@@ -411,7 +432,11 @@ class TorchEngine:
         sequence) and graceful stops, then plan the next step."""
         with self._step_lock:
             while self._pending_adds:
-                self.scheduler.add(self._pending_adds.pop(0))
+                kind, seq = self._pending_adds.pop(0)
+                if kind == "imported":
+                    self.scheduler.add_imported(seq)
+                else:
+                    self.scheduler.add(seq)
             while self._pending_aborts:
                 self.scheduler.abort(self._pending_aborts.pop())
             for rid, ctx in list(self._contexts.items()):
@@ -425,6 +450,17 @@ class TorchEngine:
     async def _pump(self) -> None:
         loop = asyncio.get_running_loop()
         while not self._closed:
+            # queued page operations (disagg export/import, alloc, free)
+            while self._pending_ops:
+                op, fut = self._pending_ops.pop(0)
+                try:
+                    result = await loop.run_in_executor(
+                        self._executor, self._step, _call, op)
+                    if not fut.done():
+                        fut.set_result(result)
+                except Exception as e:  # noqa: BLE001 — the caller's error
+                    if not fut.done():
+                        fut.set_exception(e)
             # launch one batch of queued offloads (KVBM): the gather runs
             # on the step thread between steps, the copy on the drain
             if self.tiered is not None and self.tiered.pending_offloads:
@@ -445,7 +481,7 @@ class TorchEngine:
                                "without admission; retry later"})
             if plan.kind == "idle":
                 if not (self.scheduler.has_work or self._pending_adds
-                        or self._pending_aborts):
+                        or self._pending_aborts or self._pending_ops):
                     if self.tiered is not None and self.tiered.pending_offloads:
                         # only offload work remains: keep pumping batches,
                         # with a real sleep — a backpressured dispatch
@@ -626,6 +662,13 @@ class TorchEngine:
             "seeds": seeds, "ctr": counters, **samp})
         logits = self.model.forward_prefill(
             self.kv, d["tokens"], d["table"], d["prefix"], d["chunk"])
+        for it in items:
+            if it.samples and it.seq.hold_pages and self.device.type == "cuda":
+                # the held prompt's KV is all written once this chunk is:
+                # an event recorded here orders a reader in another
+                # process after these writes and after nothing later
+                it.seq.kv_ready = torch.cuda.Event(interprocess=True)
+                it.seq.kv_ready.record()
         tok_d, packed = blocks.sample_pack(logits, d, d["ctr"],
                                            Variant(with_top=v.with_top,
                                                    greedy=v.greedy))
@@ -689,7 +732,7 @@ class TorchEngine:
             return None
         # same gating as _chain_ok block 0: nothing else needs the pump,
         # and no other running prompt waits behind the chain
-        if self._pending_aborts or self.scheduler.waiting:
+        if self._pending_aborts or self._pending_ops or self.scheduler.waiting:
             return None
         if any(not s.prefill_done for s in self.scheduler.running
                if s not in seqs):
@@ -747,7 +790,7 @@ class TorchEngine:
         waits for its prefill, at least one sequence can still use the
         block, and every page can grow without preemption (preempting
         would invalidate in-flight tables)."""
-        if self._pending_aborts or self.scheduler.waiting:
+        if self._pending_aborts or self._pending_ops or self.scheduler.waiting:
             return False
         if any(not s.prefill_done for s in self.scheduler.running):
             return False
@@ -1000,7 +1043,10 @@ class TorchEngine:
         the next block and falls out itself when it cannot."""
         if self._closed:
             return "shutdown"
-        if (self._pending_adds and not splice) or self._pending_aborts:
+        # a chain splices plain adds; imported adoptions and page
+        # operations need the pump
+        adds = [e for e in self._pending_adds if e[0] != "add" or not splice]
+        if adds or self._pending_aborts or self._pending_ops:
             return "pending_work"
         if (not splice and self.scheduler.waiting
                 and self.scheduler.admission_ready()):
@@ -1030,8 +1076,8 @@ class TorchEngine:
         prompt into a free padding slot.  Returns (spliced slots, fall-out
         reason): "admit" when an admissible prompt cannot ride this chain
         (no free slot, or its sampling needs another variant)."""
-        while self._pending_adds:
-            self.scheduler.add(self._pending_adds.pop(0))
+        while self._pending_adds and self._pending_adds[0][0] == "add":
+            self.scheduler.add(self._pending_adds.pop(0)[1])
         spliced: List[int] = []
         while self.scheduler.waiting and self.scheduler.admission_ready():
             head = self.scheduler.waiting[0]
@@ -1465,12 +1511,210 @@ class TorchEngine:
                 vd[i].copy_(v, non_blocking=True)
             self._import_dev(pages, kd.transpose(0, 1), vd.transpose(0, 1))
 
+    # -- disaggregated serving: page ops, remote prefill, adoption ---------- #
+
+    async def _device_op(self, op: Callable[[], Any]) -> Any:
+        """Run `op` on the step thread between steps (under the step lock,
+        on the engine's stream) and return its result: every page
+        operation requested from outside the pump goes through here."""
+        if self._closed:
+            raise RuntimeError("engine shut down")
+        self._ensure_pump()
+        fut = self._loop.create_future()
+        self._pending_ops.append((op, fut))
+        self._wake.set()
+        return await fut
+
+    async def export_pages(self, pages: List[int]):
+        """Copy pages device->host: (k, v) host tensors [L, n, page, n_kv,
+        hd] (page-locked on CUDA)."""
+        def op():
+            return tuple(to_host(list(self._export_dev(pages))))
+
+        return await self._device_op(op)
+
+    async def alloc_pages(self, n: int) -> List[int]:
+        return await self._device_op(lambda: self.pool.allocate(n))
+
+    async def free_pages(self, pages: List[int]) -> None:
+        await self._device_op(lambda: self.pool.free(pages))
+
+    async def import_page_chunk(self, pages: List[int], k_chunk: torch.Tensor,
+                                v_chunk: torch.Tensor) -> None:
+        """Write KV pages [L, n, page, n_kv, hd] (host or device tensors)
+        into the pool at the given page ids, in place."""
+        await self._device_op(lambda: self._import_dev(pages, k_chunk, v_chunk))
+
+    async def _release_held(self, held) -> None:
+        """Free the pages a failed remote prefill held (`held`: the
+        (pages, event) its last output carried, or None)."""
+        if held is None or not held[0]:
+            return
+        try:
+            await self.free_pages(held[0])
+        except Exception:  # noqa: BLE001
+            logger.exception("failed to release held pages")
+
+    def cached_prefix_len(self, prompt: List[int]) -> int:
+        """Tokens of this prompt already in the device prefix cache (no
+        references taken): the disagg router's input."""
+        if not self.cfg.enable_prefix_caching or not prompt:
+            return 0
+        ps = self.cfg.page_size
+        hashes = compute_block_hash_for_seq(prompt, ps, self.cfg.block_hash_salt)
+        if len(prompt) % ps == 0 and hashes:
+            hashes = hashes[:-1]
+        return self.pool.peek(hashes) * ps
+
+    async def prefill_remote(self, request: Dict[str, Any],
+                             context: Optional[Context] = None,
+                             transfer_source=None) -> Dict[str, Any]:
+        """Prefill only: compute the prompt, sample the first token and hand
+        the KV pages over.  With `transfer_source` (`disagg.transfer.
+        KvTransferSource`) the pages stay held under a transfer handle and
+        the answer carries only its descriptor; without it the KV rides
+        inline (the JAX package's fallback blob)."""
+        from ..disagg.transfer import tensor_bytes
+
+        request = dict(request)
+        request["stop_conditions"] = {
+            **(request.get("stop_conditions") or {}), "max_tokens": 1}
+        request["_hold_pages"] = True
+        context = context or Context()
+        prompt_len = len(request["token_ids"])
+        first_token = None
+        held = None
+        async for out in self.generate(request, context):
+            held = out.get("_held", held)
+            if out.get("finish_reason") == "error":
+                await self._release_held(held)
+                return {"error": out.get("error", "prefill failed")}
+            if out.get("token_ids"):
+                first_token = out["token_ids"][0]
+        if held is None or first_token is None:
+            await self._release_held(held)
+            return {"error": "prefill produced no token"}
+        pages, kv_ready = held
+        if transfer_source is not None:
+            tid = await transfer_source.register(pages, prompt_len, kv_ready)
+            return {"token_ids": [first_token],
+                    "kv_descriptor": transfer_source.descriptor(tid)}
+
+        def export_op():
+            k, v = to_host(list(self._export_dev(pages)))
+            # release the held pages now that the copy is out
+            self.pool.free(pages)
+            return k, v
+
+        k, v = await self._device_op(export_op)
+        return {"token_ids": [first_token],
+                "kv": {"k": tensor_bytes(k), "v": tensor_bytes(v),
+                       "dtype": str(k.dtype).removeprefix("torch."),
+                       "shape": list(k.shape), "prompt_len": prompt_len,
+                       "page_size": self.cfg.page_size}}
+
+    async def generate_with_kv(
+        self, request: Dict[str, Any], first_token: int,
+        kv_blob: Dict[str, Any], context: Optional[Context] = None,
+    ) -> AsyncIterator[Dict[str, Any]]:
+        """Decode side of the inline-blob fallback: import a whole KV blob,
+        then continue decoding (the block-ID path is `generate_imported`
+        fed by the data plane)."""
+        from ..disagg.transfer import DTYPES
+
+        context = context or Context()
+        if kv_blob["page_size"] != self.cfg.page_size:
+            yield {"token_ids": [], "finish_reason": "error",
+                   "error": "kv import rejected: page_size mismatch on the "
+                            "inline path (use the transfer service)"}
+            return
+        shape = kv_blob["shape"]
+        dtype = DTYPES[kv_blob["dtype"]]
+        k = torch.frombuffer(bytearray(kv_blob["k"]), dtype=dtype).reshape(shape)
+        v = torch.frombuffer(bytearray(kv_blob["v"]), dtype=dtype).reshape(shape)
+
+        def import_op():
+            pages = self.pool.allocate(shape[1])
+            self._import_dev(pages, k, v)
+            return pages
+
+        try:
+            pages = await self._device_op(import_op)
+        except NoPagesError as e:
+            # the pool cannot take the prefix now: the caller prefills
+            # locally (which queues normally)
+            yield {"token_ids": [], "finish_reason": "error",
+                   "error": f"kv import rejected: {e}"}
+            return
+        async for out in self.generate_imported(request, first_token, pages,
+                                                context):
+            yield out
+
+    async def generate_imported(
+        self, request: Dict[str, Any], first_token: int, pages: List[int],
+        context: Optional[Context] = None,
+    ) -> AsyncIterator[Dict[str, Any]]:
+        """Adopt pages already written into the pool (by the data plane or
+        the blob path) as a prompt computed elsewhere, and stream the
+        continuation after its first token.  The sequence reaches the
+        scheduler through `add_imported` (never `add`, which would prefill
+        it again)."""
+        context = context or Context()
+        self._ensure_pump()
+        opts = _opts_from_request(request)
+        prompt = list(request["token_ids"])
+        seq = Sequence(context.id, prompt, opts)
+        seq.seed = opts.seed if opts.seed is not None else self._py_rng.getrandbits(31)
+        seq.t_arrival = time.monotonic()
+        seq.pages = list(pages)
+        seq.num_computed = len(prompt)
+        seq.num_cached = len(prompt)
+        seq.output_tokens = [first_token]
+        queue: asyncio.Queue = asyncio.Queue()
+        self._queues[context.id] = queue
+        self._contexts[context.id] = context
+        self._requests_total += 1
+        # the remote first token counts toward stop conditions
+        reason = self.scheduler.check_stop(seq, self.eos_token_ids)
+        yield {"token_ids": [first_token], "finish_reason": reason}
+        if reason:
+            self._queues.pop(context.id, None)
+            self._contexts.pop(context.id, None)
+            await self.free_pages(seq.pages)
+            seq.pages = []
+            return
+        self._pending_adds.append(("imported", seq))
+        self._wake.set()
+        killed = asyncio.create_task(context.killed())
+        finished = False
+        try:
+            while True:
+                get = asyncio.create_task(queue.get())
+                done, _ = await asyncio.wait(
+                    {get, killed}, return_when=asyncio.FIRST_COMPLETED)
+                if get not in done:
+                    get.cancel()
+                    return
+                out = get.result()
+                yield out
+                if out.get("finish_reason"):
+                    finished = True
+                    return
+        finally:
+            killed.cancel()
+            self._queues.pop(context.id, None)
+            self._contexts.pop(context.id, None)
+            if not finished:
+                self._pending_aborts.add(context.id)
+                self._wake.set()
+
     def _recover_after_error(self) -> None:
         """A failed step may have left the pool half-written: error out the
         running sequences, zero the pool IN PLACE (captured graphs hold
         its addresses), rebuild the page pool and re-prefill the
         waiting."""
         for seq in list(self.scheduler.running):
+            seq.hold_pages = False  # held pages go with the pool
             self.scheduler.finish(seq, "error")
             self._deliver(seq, [], "error")
         self.scheduler.deferred_free = None
@@ -1526,6 +1770,11 @@ class TorchEngine:
         if queue is None:
             return
         out: Dict[str, Any] = {"token_ids": tokens, "finish_reason": finish_reason}
+        if seq.hold_pages and finish_reason:
+            # a held prompt's last output hands `prefill_remote` its pages
+            # and the event after their writes
+            out["_held"] = (list(seq.pages), seq.kv_ready)
+            seq.pages = []
         if error is not None:
             out["error"] = error
         if logprob is not None and seq.opts.logprobs:
@@ -1565,6 +1814,10 @@ class TorchEngine:
         except RuntimeError:
             if not self._loop.is_closed():
                 raise
+
+
+def _call(fn: Callable[[], Any]) -> Any:
+    return fn()
 
 
 def _tops_for(seq: Sequence, tids, tlps, idx):

@@ -63,6 +63,8 @@ class Sequence:
         self.opts = opts
         self.seed = 0  # per-request sampling seed (engine assigns)
         self.hold_pages = False  # finish() keeps pages (disagg KV export)
+        # on a card: the interprocess event after a held prompt's KV writes
+        self.kv_ready = None
         # overload-control class: "interactive" rides ahead of "batch" in
         # the waiting queue and may claim the watermark reserve; "batch"
         # absorbs overload (queued with a deadline, shed, or preempted
@@ -257,6 +259,7 @@ class Scheduler:
                 seq.finish_reason = "cancelled"
         for seq in self.running:
             if seq.request_id == request_id:
+                seq.hold_pages = False  # no one takes a cancelled hold
                 self._finish(seq, "cancelled")
 
     def _release_parked(self, seq: Sequence) -> None:

@@ -27,6 +27,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
+from ..disagg.transfer import KvLayout
 from ..runtime.transport.wire import pack, unpack
 from .disk import DiskTier
 from .host_pool import HostBlockPool
@@ -38,39 +39,6 @@ logger = logging.getLogger(__name__)
 __all__ = ["KvLayout", "KvbmConfig", "KvbmLeader", "KvbmWorker"]
 
 PREFIX = "/kvbm"
-
-
-@dataclass
-class KvLayout:
-    """KV pool geometry, registered once per worker (the JAX package's
-    `disagg/transfer.py` `KvLayout`).  `dtype` carries the JAX package's
-    names ("bfloat16", "float32"), which numpy cannot give for bf16."""
-
-    layers: int
-    page_size: int
-    n_kv_heads: int
-    head_dim: int
-    dtype: str
-
-    @classmethod
-    def of_engine(cls, engine) -> "KvLayout":
-        mc = engine.model_cfg
-        return cls(
-            layers=mc.num_hidden_layers,
-            page_size=engine.cfg.page_size,
-            n_kv_heads=mc.num_key_value_heads,
-            head_dim=mc.head_dim_,
-            dtype=str(engine.kv.k.dtype).removeprefix("torch."),
-        )
-
-    def to_dict(self) -> Dict[str, Any]:
-        return {
-            "layers": self.layers,
-            "page_size": self.page_size,
-            "n_kv_heads": self.n_kv_heads,
-            "head_dim": self.head_dim,
-            "dtype": self.dtype,
-        }
 
 
 @dataclass

@@ -1,8 +1,8 @@
 """Mutation check of the CUDA kernels against `chip_smoke.py` phase 3.
 
 Each mutant is a copy of the checkout, in a temporary directory, whose
-`csrc/paged_attention.cu` or `csrc/grouped_gemm.cu` carries one planted
-fault.  Every copy builds
+`csrc/paged_attention.cu`, `csrc/grouped_gemm.cu` or `csrc/kv_transfer.cu`
+carries one planted fault.  Every copy builds
 its own kernels (in parallel), then runs phase 3 alone; phase 3 must fail
 with "kernel disagrees".  Needs a CUDA card:
 
@@ -10,7 +10,8 @@ with "kernel disagrees".  Needs a CUDA card:
     python3 -m dynamo_tpu_torch.mutants NAME ...   # some of them
 
 Prints one JSON line per mutant (caught or not, and each case's error
-relative to its tolerance), then exits 1 if any mutant went unseen.
+relative to its tolerance, or for the byte-exact re-page cases the count
+of differing elements), then exits 1 if any mutant went unseen.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("dynamo_tpu_torch", "csrc")
-PA, GG = "paged_attention.cu", "grouped_gemm.cu"
+PA, GG, KT = "paged_attention.cu", "grouped_gemm.cu", "kv_transfer.cu"
 
 # name -> (source file, a text of it, its faulty replacement); each text
 # occurs once
@@ -66,6 +67,16 @@ MUTANTS = {
         "__floats2bfloat162_rn(moe_act(act, u0, v0), moe_act(act, u1, v1))"),
     "split-K sum drops the last slice": (
         GG, "for (int z = 1; z < S; ++z)", "for (int z = 1; z < S - 1; ++z)"),
+    # the KV re-page (the pages a case reads never include the pool's
+    # last, so the next page id stays inside it)
+    "re-page reads the next source page": (
+        KT, "const int sp = src_pages[t / ps_s];",
+        "const int sp = src_pages[t / ps_s] + 1;"),
+    "re-page copies past prompt_len instead of zeros": (
+        KT, "    if (t >= prompt_len) {\n      zero8(out);\n      continue;\n    }\n",
+        ""),
+    "re-page counts destination tokens in source pages": (
+        KT, "const int t = j * ps_d + s;", "const int t = j * ps_s + s;"),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
@@ -111,7 +122,8 @@ def main(argv=None) -> int:
             missed += not caught
             print(json.dumps({
                 "mutant": n, "caught": caught,
-                "rel_err_over_tol": {c["case"]: c["max_rel_err"] / c["rtol"]
+                "rel_err_over_tol": {c["case"]: (c["max_rel_err"] / c["rtol"]
+                                                 if c["rtol"] else c["max_rel_err"])
                                      for c in cases},
                 "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
             }), flush=True)

@@ -152,7 +152,7 @@ class ServedEndpoint:
     async def deregister(self) -> None:
         """Remove from discovery (stop receiving new requests)."""
         for attr in ("kv_publisher", "metrics_publisher",
-                     "tier_summary_publisher"):
+                     "tier_summary_publisher", "transfer_source"):
             svc = getattr(self, attr, None)
             if svc is not None:
                 await svc.stop()

@@ -16,10 +16,11 @@ The port's copy of the JAX package's `runtime/transport/control_plane.py`
     KV-event stream the router's index is built from.
   * **Object store**: named buckets of blobs — radix snapshots and the
     KVBM object-store tier (G4).
+  * **Work queues**: named FIFOs with a blocking pop — the prefill queue
+    of disaggregated serving.
 
 The ops, their replies and the wire format are the JAX package's, so a
-port process can join a JAX control plane and the other way round.  The
-work queues wait for the disagg slice; their ops answer "unknown op".
+port process can join a JAX control plane and the other way round.
 """
 
 from __future__ import annotations
@@ -137,6 +138,9 @@ class ControlPlaneServer:
         self._stream_waiters: dict[str, list[asyncio.Event]] = defaultdict(list)
         # Object store
         self._objects: dict[str, dict[str, bytes]] = defaultdict(dict)
+        # Work queues
+        self._queues: dict[str, deque[bytes]] = defaultdict(deque)
+        self._queue_waiters: dict[str, deque[asyncio.Future]] = defaultdict(deque)
         self._reaper_task: asyncio.Task | None = None
         self._conns: set[_Conn] = set()
         # strong refs to in-flight op dispatches: the loop only weakly
@@ -441,6 +445,43 @@ class ControlPlaneServer:
     async def _op_obj_list(self, conn, args, frame):
         return {"names": sorted(self._objects.get(args["bucket"], {}))}
 
+    # -- ops: work queues --------------------------------------------------- #
+
+    async def _op_queue_push(self, conn, args, frame):
+        name = args["queue"]
+        waiters = self._queue_waiters[name]
+        # a blocked pop takes the item straight away
+        while waiters:
+            fut = waiters.popleft()
+            if not fut.done():
+                fut.set_result(args["data"])
+                return {"ok": True, "depth": len(self._queues[name])}
+        self._queues[name].append(args["data"])
+        return {"ok": True, "depth": len(self._queues[name])}
+
+    async def _op_queue_pop(self, conn, args, frame):
+        name = args["queue"]
+        timeout = args.get("timeout_ms", 0) / 1000.0
+        q = self._queues[name]
+        if q:
+            return {"found": True, "data": q.popleft()}
+        if timeout <= 0:
+            return {"found": False, "data": b""}
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._queue_waiters[name].append(fut)
+        try:
+            data = await asyncio.wait_for(fut, timeout)
+            return {"found": True, "data": data}
+        except asyncio.TimeoutError:
+            return {"found": False, "data": b""}
+        finally:
+            waiters = self._queue_waiters.get(name)
+            if waiters and fut in waiters:
+                waiters.remove(fut)
+
+    async def _op_queue_depth(self, conn, args, frame):
+        return {"depth": len(self._queues[args["queue"]])}
+
 
 _NO_REPLY = object()
 
@@ -647,6 +688,18 @@ class ControlPlaneClient:
 
     async def obj_list(self, bucket: str) -> list[str]:
         return (await self._call("obj_list", {"bucket": bucket}))["names"]
+
+    # -- work queues -------------------------------------------------------- #
+
+    async def queue_push(self, queue: str, data: bytes) -> int:
+        return (await self._call("queue_push", {"queue": queue, "data": data}))["depth"]
+
+    async def queue_pop(self, queue: str, timeout_ms: int = 0) -> bytes | None:
+        r = await self._call("queue_pop", {"queue": queue, "timeout_ms": timeout_ms})
+        return r["data"] if r["found"] else None
+
+    async def queue_depth(self, queue: str) -> int:
+        return (await self._call("queue_depth", {"queue": queue}))["depth"]
 
 
 async def watch_resilient(control: "ControlPlaneClient", prefix: str,

@@ -234,3 +234,7 @@ async def read_frame(reader: asyncio.StreamReader) -> Frame:
     stream_id = hdr.pop("s", 0)
     return Frame(kind=kind, stream_id=stream_id, header=hdr, payload=payload)
 
+
+
+def write_frame(writer: asyncio.StreamWriter, frame: Frame) -> None:
+    writer.write(frame.encode())

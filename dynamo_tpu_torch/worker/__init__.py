@@ -3,7 +3,9 @@ routable model endpoint.
 
 The port's copy of the JAX package's `worker/__init__.py` (`EngineWorker`,
 `serve_engine`), with the publishers that feed the KV router: KV events,
-load metrics and, for an engine with KVBM tiers, the tier summary.
+load metrics and, for an engine with KVBM tiers, the tier summary.  The
+served engine may wrap a `TorchEngine` (the disagg roles' prefill facade
+and decode handler hold theirs as ``.engine``).
 Data-parallel ranks (`DpRankEngine`) are a later slice.
 """
 
@@ -77,6 +79,7 @@ async def serve_engine(
     the component's subject, and an engine with KVBM tiers attached its
     lease-scoped tier summary — what a KV router scores."""
     worker = EngineWorker(engine)
+    inner = getattr(engine, "engine", engine)
     ep = runtime.namespace(namespace).component(component).endpoint(endpoint)
     served = await ep.serve_endpoint(
         worker.handle,
@@ -95,21 +98,21 @@ async def serve_engine(
     # KVBM fleet-wide prefix reuse: a worker with KV tiers attached also
     # publishes its host/disk tier summary (lease-scoped) so routers can
     # score overlap against blocks that left this worker's device cache
-    if publish_kv_events and getattr(engine, "tiered", None) is not None:
+    if publish_kv_events and getattr(inner, "tiered", None) is not None:
         from ..kvbm.summary import TierSummaryPublisher
         from ..router.worker_key import pack_worker
 
         served.tier_summary_publisher = TierSummaryPublisher(
-            runtime, engine.tiered, namespace, component,
+            runtime, inner.tiered, namespace, component,
             worker_id=pack_worker(wid, 0),
         ).start()
-    if isinstance(engine, TorchEngine):
-        mdc.kv_cache_block_size = engine.cfg.page_size
-        mdc.context_length = engine.cfg.max_model_len
+    if isinstance(inner, TorchEngine):
+        mdc.kv_cache_block_size = inner.cfg.page_size
+        mdc.context_length = inner.cfg.max_model_len
         mdc.runtime_config = RuntimeConfig(
-            total_kv_blocks=engine.cfg.usable_pages,
-            max_num_seqs=engine.cfg.max_num_seqs,
-            max_num_batched_tokens=engine.cfg.max_prefill_tokens,
+            total_kv_blocks=inner.cfg.usable_pages,
+            max_num_seqs=inner.cfg.max_num_seqs,
+            max_num_batched_tokens=inner.cfg.max_prefill_tokens,
         )
     await register_llm(runtime, served, mdc)
     return served

@@ -21,10 +21,16 @@ leader's ``--kvbm-g4-bucket`` names the shared object-store bucket).  The
 worker publishes its KV events, load metrics and (with KVBM) its tier
 summary for a frontend in ``--router-mode kv``.  ``--quantization
 int8`` serves int8 projections (quantized at engine construction); KV
-partitioning is accepted and refused by `TorchEngine`; vision, disagg,
-meshes, multihost and mock engines are later slices.  ``--status-port``
-serves the engine's counters on ``/metrics``.  Runs on CUDA unless given
-``--device cpu``.
+partitioning is accepted and refused by `TorchEngine`; vision, meshes,
+multihost and mock engines are later slices.  ``--disagg-role prefill``
+serves a prefill-only worker (component ``prefill``, its KV layout and
+data plane registered), ``--disagg-role decode`` wraps the engine in the
+disagg decode handler (long prompts prefill remotely, through the router
+service ``--prefill-router`` names when given); ``encode`` waits for the
+vision slice and is refused.  ``--status-port`` serves the engine's
+counters on ``/metrics`` (with the data plane's for a disagg role) and,
+on ``/metrics.json``, the kernel launch counts too.  Runs on CUDA unless
+given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -207,6 +213,7 @@ def build_engine(args):
         eos_token_ids=eos,
         context_length=args.max_model_len,
         priority_class=args.priority_class,
+        disagg_role=getattr(args, "disagg_role", "both"),
     )
     return engine, mdc
 
@@ -233,6 +240,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "bucket host evictions demote to when there is no "
                          "disk tier (set on the leader)")
     ap.add_argument("--kvbm-host-bytes", type=int, default=1 << 30)
+    # disaggregated prefill/decode
+    ap.add_argument("--disagg-role", default="both",
+                    choices=["both", "prefill", "decode", "encode"],
+                    help="prefill: serve remote prefills (component "
+                         "'prefill'); decode: prefill long prompts remotely "
+                         "and adopt their KV; encode: the vision slice "
+                         "(refused)")
+    ap.add_argument("--prefill-router", default="", metavar="COMPONENT",
+                    help="route remote prefills through a standalone router "
+                         "service registered at this component (decode role "
+                         "only)")
     add_model_args(ap)
     return ap
 
@@ -242,6 +260,7 @@ async def start_status_server(engine, args):
     families) and /metrics.json on `--status-port`."""
     from ..frontend.http_server import HttpServer, Response, json_response
     from ..frontend.metrics import engine_stats_exposition
+    from ..ops._launches import LAUNCHES
 
     def stats():
         return vars(engine.metrics())
@@ -257,7 +276,7 @@ async def start_status_server(engine, args):
                                                 args.component))
 
     async def metrics_json(_req):
-        return json_response(stats())
+        return json_response({**stats(), "kernel_launches": dict(LAUNCHES)})
 
     return await HttpServer({("GET", "/health"): ok, ("GET", "/live"): live,
                              ("GET", "/metrics"): metrics,
@@ -265,8 +284,30 @@ async def start_status_server(engine, args):
                             port=args.status_port).start()
 
 
+def check_role(args) -> None:
+    """Refuse the role combinations the port cannot serve."""
+    if args.disagg_role == "encode":
+        raise SystemExit("--disagg-role encode needs the vision tower, which "
+                         "the port does not have yet (the vision slice)")
+    if args.prefill_router and args.disagg_role != "decode":
+        raise SystemExit("--prefill-router routes a decode worker's remote "
+                         "prefills: it needs --disagg-role decode")
+    if args.disagg_role == "prefill" and args.kvbm:
+        raise SystemExit("a prefill worker hands its pages to decode workers; "
+                         "--kvbm tiers are served by --disagg-role both|decode")
+    if args.disagg_role == "prefill" and args.device != "cpu":
+        from ..disagg.device_transfer import expandable_segments
+
+        if expandable_segments():
+            raise SystemExit(
+                "a prefill worker on a card serves its pages through CUDA "
+                "IPC, which cannot export memory allocated under "
+                "PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True; unset it")
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    check_role(args)
     logging.basicConfig(level=args.log_level.upper(),
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     asyncio.run(_run(args))
@@ -295,8 +336,25 @@ async def _run(args) -> None:
         await KvbmWorker(runtime, engine, namespace=args.namespace).start()
         if leader_task is not None:
             await leader_task
-    await serve_engine(runtime, engine, mdc, namespace=args.namespace,
-                       component=args.component, endpoint=args.endpoint)
+    if args.disagg_role == "prefill":
+        from ..disagg import serve_prefill_worker
+
+        engine = (await serve_prefill_worker(runtime, engine, mdc,
+                                             namespace=args.namespace)).facade
+    elif args.disagg_role == "decode":
+        from ..disagg import DisaggDecodeHandler
+        from ..disagg.handler import RemoteRouterClient
+
+        prefill_router = (
+            RemoteRouterClient(runtime, args.namespace, args.prefill_router)
+            if args.prefill_router else None)
+        engine = DisaggDecodeHandler(engine, runtime, namespace=args.namespace,
+                                     prefill_router=prefill_router)
+        await serve_engine(runtime, engine, mdc, namespace=args.namespace,
+                           component=args.component, endpoint=args.endpoint)
+    else:
+        await serve_engine(runtime, engine, mdc, namespace=args.namespace,
+                           component=args.component, endpoint=args.endpoint)
     status = None
     if args.status_port >= 0:
         status = await start_status_server(engine, args)

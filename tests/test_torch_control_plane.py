@@ -199,3 +199,53 @@ async def test_port_client_stream_len(server_pkg):
     finally:
         await client.close()
         await server.stop()
+
+
+async def scripted_queue_ops(client) -> list:
+    """The work queues: FIFO order, depth, an empty pop with and without a
+    wait, and a blocked pop woken by a later push."""
+    out = []
+    call = client._call
+    for i in range(3):
+        out.append(await call("queue_push", {"queue": "q", "data": bytes([i])}))
+    out.append(await call("queue_depth", {"queue": "q"}))
+    out.append(await call("queue_pop", {"queue": "q"}))
+    out.append(await call("queue_pop", {"queue": "q", "timeout_ms": 50}))
+    out.append(await call("queue_depth", {"queue": "other"}))
+    out.append(await call("queue_pop", {"queue": "other"}))
+    out.append(await call("queue_pop", {"queue": "other", "timeout_ms": 50}))
+    waiter = asyncio.ensure_future(client.queue_pop("late", timeout_ms=5000))
+    await asyncio.sleep(0.1)
+    out.append(("push to a waiter", await client.queue_push("late", b"w")))
+    out.append(("blocked pop", await asyncio.wait_for(waiter, 5)))
+    out.append(("methods", await client.queue_pop("q"),
+                await client.queue_pop("q"), await client.queue_depth("q")))
+    return out
+
+
+async def run_queue_script(server_pkg: str, client_pkg: str) -> list:
+    server = await PKGS[server_pkg].ControlPlaneServer().start()
+    client = await PKGS[client_pkg].ControlPlaneClient(server.address).connect()
+    try:
+        return await scripted_queue_ops(client)
+    finally:
+        await client.close()
+        await server.stop()
+
+
+@pytest.mark.parametrize("server,client", [("torch", "torch"),
+                                           ("jax", "torch"),
+                                           ("torch", "jax")])
+def test_queue_ops_equal_the_jax_server(server, client):
+    reference = asyncio.run(run_queue_script("jax", "jax"))
+    assert asyncio.run(run_queue_script(server, client)) == reference
+    # and the reference reads as a FIFO with a blocking pop
+    assert [r["depth"] for r in reference[:3]] == [1, 2, 3]
+    assert reference[3] == {"depth": 3}
+    assert reference[4] == {"found": True, "data": b"\x00"}
+    assert reference[5] == {"found": True, "data": b"\x01"}
+    assert reference[6] == {"depth": 0}
+    assert reference[7] == reference[8] == {"found": False, "data": b""}
+    assert reference[9] == ("push to a waiter", 0)
+    assert reference[10] == ("blocked pop", b"w")
+    assert reference[11] == ("methods", b"\x02", None, 0)

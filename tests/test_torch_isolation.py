@@ -107,3 +107,64 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
     golden = os.path.join(ROOT, "tests", "fixtures", "torch_golden_llama_hd64")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_params(golden, ModelConfig.from_pretrained(golden), torch.float32)
+
+
+DISAGG = ("router", "transfer", "device_transfer", "handler")
+
+
+def test_disagg_modules_are_covered():
+    """The disagg slice's modules are among the sources the import checks
+    walk, and each imports none of the forbidden packages even lazily
+    (inside a function): the AST walk above sees every import statement."""
+    walked = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in DISAGG + ("__init__",):
+        assert os.path.join("disagg", f"{mod}.py") in walked
+    assert os.path.join("ops", "kv_transfer.py") in walked
+    assert os.path.exists(os.path.join(PKG, "csrc", "kv_transfer.cu"))
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_disagg_roles_refuse_without_cuda(monkeypatch, role):
+    """`--disagg-role` builds its engine on the card like every role: with
+    no card and no `--device cpu` the worker refuses before it connects."""
+    from dynamo_tpu_torch.worker.__main__ import build_engine, build_parser, check_role
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = build_parser().parse_args(["--control", "x:1", "--disagg-role", role])
+    check_role(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(args)
+    cpu = build_parser().parse_args(["--control", "x:1", "--disagg-role", role,
+                                     "--device", "cpu"])
+    engine, mdc = build_engine(cpu)
+    assert engine.device.type == "cpu" and mdc.disagg_role == role
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--disagg-role", "encode"], "vision"),
+    (["--prefill-router", "router"], "--disagg-role decode"),
+    (["--disagg-role", "prefill", "--prefill-router", "router"],
+     "--disagg-role decode"),
+    (["--disagg-role", "prefill", "--kvbm"], "--kvbm"),
+])
+def test_worker_refuses_roles_it_cannot_serve(argv, match):
+    from dynamo_tpu_torch.worker.__main__ import build_parser, check_role
+
+    with pytest.raises(SystemExit, match=match):
+        check_role(build_parser().parse_args(["--control", "x:1", *argv]))
+
+
+def test_prefill_role_on_a_card_refuses_expandable_segments(monkeypatch):
+    """A prefill worker on a card serves its pages through CUDA IPC, which
+    cannot export memory allocated with expandable segments: the worker
+    refuses before it loads a model.  On the CPU the setting is moot."""
+    from dynamo_tpu_torch.worker.__main__ import build_parser, check_role
+
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    with pytest.raises(SystemExit, match="expandable_segments"):
+        check_role(build_parser().parse_args(
+            ["--control", "x:1", "--disagg-role", "prefill"]))
+    check_role(build_parser().parse_args(
+        ["--control", "x:1", "--disagg-role", "prefill", "--device", "cpu"]))
+    check_role(build_parser().parse_args(
+        ["--control", "x:1", "--disagg-role", "decode"]))
