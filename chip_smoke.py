@@ -42,7 +42,18 @@ final line):
    a 2049-token prompt from pages of 16 into pages of 16 and of 32 (timed,
    with the engine's `index_select` + `index_copy_` page move as the
    yardstick where the page sizes match), a 77-token prompt 16 -> 16 and
-   an f32 -> bf16 cast of 333 tokens 16 -> 32.
+   an f32 -> bf16 cast of 333 tokens 16 -> 32.  Both attention kernels at
+   Qwen2's head groups (not powers of two): 28 q / 4 kv heads of 128 (G 7:
+   Qwen2.5-7B and the Qwen2.5-VL-7B text stack; decode ragged and serving
+   rows, prefill of a 512-token chunk after a 1536-token prefix, all
+   timed), 12 / 2 (G 6, timed), 14 / 2 of 64 (G 7, Qwen2.5-0.5B) and f32.
+   The vision towers' segment attention (`csrc/vision_attention.cu`, f32)
+   against its plain per-segment softmax at a Qwen2.5-VL-7B full layer
+   over one 1288x728 image (4784 patches, 16 heads of 80), a windowed
+   layer over the same image (84 windows) and CLIP ViT-L/14-336 over 2
+   images of 577 tokens (16 heads of 64), each timed with
+   `scaled_dot_product_attention` and the boolean block mask as the
+   yardstick, and the golden LLaVA tower's 2 heads of 16.
    Then the seeded sampler's threefry bits on the card against the CPU's,
    and the sampler's time per step;
 4. serving: `TorchEngine` at Llama-3.1-8B full width and depth (random bf16
@@ -185,19 +196,48 @@ final line):
    worker's pool released; then the prefill worker is killed and the
    greedy prompts resent: prefilled locally, counted as fallbacks, the
    same text.  TTFT remote against local, transfer ms and GB/s per lane
-   and the `kv_repage` launches go on its lines.
+   and the `kv_repage` launches go on its lines;
+13. vision (after 11, the card free): (a) the golden LLaVA checkpoint
+   (``tests/fixtures/golden_llava``): its CLIP tower on the card through
+   the segment kernel, its LLM (head dim 16, below the paged kernels') on
+   the CPU, logits against transformers' at tests/test_golden.py's limits;
+   then Qwen2.5-VL-7B-Instruct at full width and depth (28 layers, h 3584,
+   28 q / 4 kv heads of 128, M-RoPE [16, 24, 24]; the 32-layer 2.5 tower
+   with 112-px windows) built as ``python -m dynamo_tpu_torch.worker
+   --model qwen2.5-vl-7b --seed S --sharpen`` builds it (random weights,
+   sharpened: embedding x50, q/k x1.5, the merger scaled to the token
+   embeddings' RMS); (b) the whole tower on the kernel against its plain
+   version on a 448x448 image (relative error), the first token's logits
+   of the kernel path against the plain path within LOGIT_TOL std, and
+   another image under the same text moving them beyond it; the tower's
+   host-clock ms on a 1288x728 image; (c) `TorchEngine` serving chats
+   built by the port's preprocessor from PNG / APNG data URIs (the port's
+   codec): text only, a 448x448 image (256 tokens), a 1288x728 image (1196
+   tokens, crossing two 512-token chunk boundaries), two images, a 4-frame
+   video (t 2), the first image again (a prefix hit of at least its run)
+   and another image under the same text (no reuse, other tokens), in a
+   one-step engine (the main path, its launches counted: both attention
+   kernels and the segment kernel) and an 8-step one: greedy rows equal
+   across engines up to near-ties (the margin at a flip on the plain
+   prefill path), TTFT per request and decode tokens/s; (d) the control
+   plane, an encode worker (``--disagg-role encode``, its LLM cut to one
+   layer), a serving worker (``--encode-component encoder``, no tower)
+   and the frontend as processes: a chat with a data: PNG over HTTP gives
+   (c)'s text for the same chat served alone.
 
 On the card every decode block is a replayed CUDA graph; the wrappers
 count launches in Python, so the graph runner adds each graph's recorded
 launches at every replay.  Every JSON line is also written to
 ``chip_smoke.jsonl`` in the output directory below, for the lines a
 terminal's scrollback loses.  Launch counts are read per path (phases 4, 6
-and 7, each arm of 8, 9, 10, 11 and 12, each zeroed just before it): the
+and 7, each arm of 8, 9, 10, 11, 12 and 13, each zeroed just before it): the
 kernel summary line's ``launches`` are those of the HTTP traffic, the
 main path, for the attention kernels, of phase 11's one-step gpt-oss
-serving for the grouped GEMM and the fused gate||up, and of phase 12
+serving for the grouped GEMM and the fused gate||up, of phase 12
 (b)'s decode worker process (read from its /metrics.json before and
-after the measured round), this slice's path, for the KV re-page.  Then
+after the measured round) for the KV re-page, and of phase 13 (c)'s
+one-step Qwen2.5-VL-7B engine, this slice's path, for the segment
+attention.  Then
 the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.
@@ -571,6 +611,111 @@ SERVING_VERIFY = dict(S=5, prefix=[96, 1256, 2080, 1556, 332, 300, 64, 0],
                       chunk=[5] * 8, trash_rows=(7,))
 
 
+# Qwen2's head groups: Qwen2.5-7B and the Qwen2.5-VL-7B
+# text stack have 28 q / 4 kv heads of 128 (G 7), Qwen2-VL-2B 12 / 2 (G 6),
+# Qwen2.5-0.5B 14 / 2 of 64 (G 7)
+QWEN_G7 = dict(hd=128, H=28, n_kv=4)
+QWEN_G6 = dict(hd=128, H=12, n_kv=2)
+
+# The vision towers' segment attention (f32, `csrc/vision_attention.cu`):
+# q std 2 over k, v std 1 spreads each head's scores by 2, so every softmax
+# is peaked and the online rescale between key tiles decides the result.
+SEG_Q_STD = 2.0
+
+
+def segment_layouts():
+    """cu_seqlens of the main path's shapes: a Qwen2.5-VL-7B full layer and
+    windowed layer over one 1288x728 image (grid 1 x 52 x 92: 4784
+    patches), and CLIP ViT-L/14-336 over 2 images of 577 tokens."""
+    from dynamo_tpu_torch.models import qwen_vl as tq
+
+    vcfg = tq.vision_config("qwen2.5-vl-7b")
+    _, cu_frames, cu_win = tq.stream_layout((1, 52, 92), vcfg)
+    return {"full": cu_frames, "window": cu_win, "clip": [0, 577, 1154]}
+
+
+def segment_case(name, gen, cu, nh, hd, timed=False):
+    from dynamo_tpu_torch.ops import vision_attention as va
+
+    L = cu[-1]
+    q = torch.randn((L, nh, hd), generator=gen, device="cuda") * SEG_Q_STD
+    k = torch.randn((L, nh, hd), generator=gen, device="cuda")
+    v = torch.randn((L, nh, hd), generator=gen, device="cuda")
+    out = va.segment_attention_cuda(q, k, v, cu)
+    ref = va.segment_attention_plain(q, k, v, cu)
+    torch.cuda.synchronize()
+    res = {"case": name, "kernel": "segment_attention", "dtype": str(torch.float32),
+           **_errors(out, ref, torch.float32),
+           "finite": bool(torch.isfinite(out).all()),
+           "tokens": L, "segments": len(cu) - 1}
+    if timed:
+        lens = [b - a for a, b in zip(cu[:-1], cu[1:])]
+        flops = sum(4 * n * n * hd * nh for n in lens)
+        nbytes = 4 * q.numel() * 4  # q, k, v read once, out written once
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+        # library yardstick: one SDPA call over the stream with the
+        # boolean block mask of the segments
+        seg = torch.repeat_interleave(torch.arange(len(lens), device="cuda"),
+                                      torch.tensor(lens, device="cuda"))
+        mask = (seg[:, None] == seg[None, :])[None, None]
+        q_l, k_l, v_l = (t.permute(1, 0, 2)[None] for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(q_l, k_l, v_l, attn_mask=mask)[0].permute(1, 0, 2)
+        res.update({
+            "library_max_rel_err": _errors(lib, ref, torch.float32)["max_rel_err"],
+            "ms": time_ms(lambda: va.segment_attention_cuda(q, k, v, cu)),
+            "host_paced_ms": host_paced_ms(
+                lambda: va.segment_attention_cuda(q, k, v, cu)),
+            # host-paced: the windowed layout's ~1000 launches a call
+            # outrun the launch queue behind the sleep
+            "plain_ms": host_paced_ms(
+                lambda: va.segment_attention_plain(q, k, v, cu), iters=3),
+            "library_ms": time_ms(lambda: sdpa(q_l, k_l, v_l, attn_mask=mask)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+        })
+    return res
+
+
+def group_and_segment_cases(gen):
+    """Phase 3's vision-slice cases: both attention kernels at Qwen2's head
+    groups, and the segment kernel at the towers' shapes."""
+    bf, f32 = torch.bfloat16, torch.float32
+    sp = SERVING_PREFILL
+    g7, g6 = QWEN_G7, QWEN_G6
+    lay = segment_layouts()
+    return [
+        decode_case("decode qwen2.5-7b: 28 q / 4 kv (G 7), ragged", gen, bf,
+                    g7["hd"], g7["H"], g7["n_kv"], [1, 17, 1000, 4095], timed=True),
+        decode_case("decode qwen2.5-7b: 28 q / 4 kv (G 7), serving rows", gen, bf,
+                    g7["hd"], g7["H"], g7["n_kv"], SERVING_DECODE, timed=True),
+        decode_case("decode G 6: 12 q / 2 kv, serving rows", gen, bf,
+                    g6["hd"], g6["H"], g6["n_kv"], SERVING_DECODE, timed=True),
+        decode_case("decode f32 hd64 G 7 (qwen2.5-0.5b) + sinks", gen, f32, 64, 14, 2,
+                    [0, 17, 1000, 333], with_sink=True),
+        prefill_case("prefill qwen2.5-7b: 28 q / 4 kv (G 7), chunk 512 after 1536",
+                     gen, bf, g7["hd"], g7["H"], g7["n_kv"], sp["S"], sp["prefix"],
+                     sp["chunk"], timed=True),
+        prefill_case("prefill G 6: 12 q / 2 kv, chunk 512 after 1536", gen, bf,
+                     g6["hd"], g6["H"], g6["n_kv"], sp["S"], sp["prefix"],
+                     sp["chunk"], timed=True),
+        prefill_case("prefill bf16 hd64 G 7 (qwen2.5-0.5b): chunk 333 / prefixes 37, 0",
+                     gen, bf, 64, 14, 2, 333, [37, 0], [333, 190], window=100),
+        prefill_case("prefill f32 hd128 G 7: chunk 77 / prefix 40", gen, f32,
+                     g7["hd"], g7["H"], g7["n_kv"], 77, [40], [77]),
+        segment_case("segment qwen2.5-vl-7b full layer: 4784 patches, 16 heads of 80",
+                     gen, lay["full"], 16, 80, timed=True),
+        segment_case(f"segment qwen2.5-vl-7b windowed layer: 4784 patches in "
+                     f"{len(lay['window']) - 1} windows, 16 heads of 80", gen,
+                     lay["window"], 16, 80, timed=True),
+        segment_case("segment clip vit-l/14-336: 2 images x 577 tokens, 16 heads of 64",
+                     gen, lay["clip"], 16, 64, timed=True),
+        segment_case("segment golden llava: 2 x 5 tokens, 2 heads of 16", gen,
+                     [0, 5, 10], 2, 16),
+    ]
+
+
 # the MoE grouped GEMM at gpt-oss-20b's expert shapes (K = N = 2880, 32
 # experts, top-4): a decode step of 8 rows and a 512-token prefill chunk
 GG_K = GG_N = 2880
@@ -940,6 +1085,7 @@ def phase_kernels():
                          OFF_GRID_SIZES, "gpt_oss_glu", True, n=40, k=200),
     ]
     results.append(decode_width_case(gen))
+    results += group_and_segment_cases(gen)
     # the KV re-page of disaggregated serving (phase 12's path)
     results += [
         kv_repage_case("kv_repage 2049 tokens, pages 16 -> 16", gen, 2049, 16, 16,
@@ -1048,12 +1194,9 @@ def sharpen(model) -> None:
     and scores spread the same 2.25: gpt-oss-20b with q and k at 1.5
     spreads them 4.1, and its kernel and plain paths then part by 1.8
     logit std against 0.21 at 1.5 / 1.35 (phase 11 (b) on an H100)."""
-    qk = 1.5 / model.rope_scale
-    with torch.no_grad():
-        model.embed.mul_(50.0)
-        for layer in model.layers:
-            layer.wq.mul_(qk)
-            layer.wk.mul_(qk)
+    from dynamo_tpu_torch.testing import sharpen as sharpen_weights
+
+    sharpen_weights(model)
 
 
 _GROUPS = (("attention_decode", ("pa_decode_",)),
@@ -4061,6 +4204,480 @@ def package_versions() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: vision
+# --------------------------------------------------------------------------- #
+
+VL_MODEL = "qwen2.5-vl-7b"
+LLAVA_DIR = os.path.join(ROOT, "tests", "fixtures", "golden_llava")
+VL_TOKENS = 16
+# the tower through the kernel against its plain version: every embedding
+# within VL_TOWER_RTOL of the largest plain value (f32 on both sides; the
+# sums run in another order over 32 layers)
+VL_TOWER_RTOL = 1e-4
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _png_head(rgb) -> bytes:
+    import struct
+
+    h, w, _ = rgb.shape
+    return b"\x89PNG\r\n\x1a\n" + _png_chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+
+
+def _png_rows(rgb) -> bytes:
+    import zlib
+
+    return zlib.compress(b"".join(b"\x00" + row.tobytes() for row in rgb), 6)
+
+
+def png_bytes(rgb) -> bytes:
+    """A non-interlaced 8-bit RGB PNG of `rgb` [H, W, 3] uint8 (this
+    machine has no PIL; the port's codec decodes it)."""
+    return (_png_head(rgb) + _png_chunk(b"IDAT", _png_rows(rgb))
+            + _png_chunk(b"IEND", b""))
+
+
+def apng_bytes(frames) -> bytes:
+    """An APNG of full-size RGB frames (dispose none, blend source)."""
+    import struct
+
+    h, w, _ = frames[0].shape
+    out = [_png_head(frames[0]), _png_chunk(b"acTL", struct.pack(">II", len(frames), 0))]
+    seq = 0
+    for i, f in enumerate(frames):
+        out.append(_png_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0,
+                                                   1, 10, 0, 0)))
+        seq += 1
+        if i == 0:
+            out.append(_png_chunk(b"IDAT", _png_rows(f)))
+        else:
+            out.append(_png_chunk(b"fdAT", struct.pack(">I", seq) + _png_rows(f)))
+            seq += 1
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def vl_image(seed, w, h):
+    """A seeded picture: smooth colour fields with noise on top."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    base = np.stack([np.sin(xx * rng.uniform(2, 9) + rng.uniform(0, 6)),
+                     np.cos(yy * rng.uniform(2, 9) + rng.uniform(0, 6)),
+                     np.sin((xx + yy) * rng.uniform(2, 9))], -1)
+    img = (base * 0.5 + 0.5) * 200 + rng.integers(0, 55, (h, w, 3))
+    return img.clip(0, 255).astype(np.uint8)
+
+
+def data_uri(raw: bytes) -> str:
+    import base64
+
+    return "data:image/png;base64," + base64.b64encode(raw).decode()
+
+
+def vl_chat(text, media=(), max_tokens=VL_TOKENS):
+    """An OpenAI chat body: `media` ("image" | "video", data URI) parts
+    before the text."""
+    content = [{"type": f"{k}_url", f"{k}_url": {"url": u}} for k, u in media]
+    content.append({"type": "text", "text": text})
+    return {"model": VL_MODEL, "messages": [{"role": "user", "content": content}],
+            "max_tokens": max_tokens, "temperature": 0.0,
+            "nvext": {"ignore_eos": True}}
+
+
+def vl_golden():
+    """(a) The golden LLaVA anchor: its CLIP tower (2 heads of 16) on the
+    card through the segment kernel, the LLM (head dim 16, below the
+    paged kernels' 64) on the CPU; logits against transformers' at
+    tests/test_golden.py's limits."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models.llama import KVCache
+    from dynamo_tpu_torch.models.vision import encode_images
+    from dynamo_tpu_torch.models.vlm import load_vision_params, load_vlm
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+
+    llm, cfg, _, vcfg = load_vlm(LLAVA_DIR, dtype=torch.float32, device="cpu")
+    tower = load_vision_params(LLAVA_DIR, vcfg, device="cuda")
+    data = np.load(os.path.join(LLAVA_DIR, "golden_logits.npz"))
+    prompt, off = data["prompt"].tolist(), int(data["image_offset"])
+    pixels = torch.from_numpy(data["pixels"].transpose(0, 2, 3, 1).copy()).cuda()
+    torch.cuda.synchronize()
+    ca.reset_launches()
+    emb = encode_images(tower, pixels).cpu()
+    launches = ca.LAUNCHES["segment_attention"]
+    S, P = len(prompt), emb.shape[1]
+    extra = torch.zeros((1, S, cfg.hidden_size))
+    mask = torch.zeros((1, S), dtype=torch.bool)
+    extra[0, off:off + P], mask[0, off:off + P] = emb[0], True
+    pages = S // 8 + 2
+    kv = KVCache.create(cfg, pages + 1, 8, torch.float32, "cpu")
+    table = torch.arange(1, pages + 1, dtype=torch.int32)[None]
+    got = llm.forward_prefill(kv, torch.tensor([prompt]), table,
+                              torch.zeros(1, dtype=torch.int32),
+                              torch.tensor([S], dtype=torch.int32), extra, mask)[0].numpy()
+    want = data["last_logits"]
+    tol = GOLDEN_TOL[torch.float32]
+    res = {"what": "golden_llava", "segment_launches": launches,
+           "max_abs_err": float(np.abs(got - want).max()),
+           "within_tol": bool(np.all(np.abs(got - want)
+                                     <= tol["atol"] + tol["rtol"] * np.abs(want))),
+           "argmax_equal": int(got.argmax()) == int(want.argmax()), **tol}
+    emit({"phase": "vision", **res})
+    if not (res["within_tol"] and res["argmax_equal"]) or launches < 1:
+        fail(f"vision (a): the golden LLaVA anchor disagrees: {res}")
+
+
+def vl_embeds(engine, req):
+    """The tower's embeddings of a preprocessed request: [(offset, [P, h])]."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.multimodal import unpack_patches
+    from dynamo_tpu_torch.models.qwen_vl import encode_patches
+
+    tower = engine.vision[0]
+    return [(off, encode_patches(tower, torch.from_numpy(np.array(a)), g))
+            for off, (a, g) in zip(req["mm_offsets"],
+                                   map(unpack_patches, req["mm_patches"]))]
+
+
+def vl_last_logits(engine, req, embeds, after=()):
+    """f32 logits after the prompt (+ `after` tokens), one prefill chunk
+    with the media spliced in and the M-RoPE streams."""
+    from dynamo_tpu_torch.llm.multimodal import unpack_patches
+    from dynamo_tpu_torch.models.llama import KVCache
+    from dynamo_tpu_torch.models.qwen_vl import mrope_positions_from_runs
+
+    model, vcfg = engine.model, engine.vision[1]
+    tokens = list(req["token_ids"]) + list(after)
+    S = len(tokens)
+    runs = [(off, unpack_patches(b)[1]) for off, b in zip(req["mm_offsets"],
+                                                         req["mm_patches"])]
+    pos, _ = mrope_positions_from_runs(S, runs, vcfg)
+    extra = torch.zeros((1, S, engine.model_cfg.hidden_size), device="cuda")
+    mask = torch.zeros((1, S), dtype=torch.bool, device="cuda")
+    for off, e in embeds:
+        extra[0, off:off + e.shape[0]], mask[0, off:off + e.shape[0]] = e, True
+    pages = -(-S // 16)
+    kv = KVCache.create(engine.model_cfg, pages + 1, 16, torch.bfloat16, "cuda")
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None]
+    return model.forward_prefill(
+        kv, torch.tensor([tokens], device="cuda"), table,
+        torch.zeros(1, dtype=torch.int32, device="cuda"),
+        torch.tensor([S], dtype=torch.int32, device="cuda"), extra, mask,
+        torch.from_numpy(pos[None]).cuda())[0]
+
+
+def vl_paths(engine, req, other):
+    """(b) The whole tower on the kernel against its plain version on a
+    448x448 image, then the first token's logits of the kernel path (the
+    tower and the paged attention kernels) against the plain path's; the
+    same text under another image must move them."""
+    import dynamo_tpu_torch.models.llama as llama
+    import dynamo_tpu_torch.models.qwen_vl as qv
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import vision_attention as va
+
+    saved = (qv.segment_attention, llama.prefill_attention)
+    kern = vl_embeds(engine, req)
+    kern_logits = vl_last_logits(engine, req, kern)
+    other_logits = vl_last_logits(engine, other, vl_embeds(engine, other))
+    qv.segment_attention = va.segment_attention_plain
+    llama.prefill_attention = pa.prefill_attention_plain
+    try:
+        plain = vl_embeds(engine, req)
+        plain_logits = vl_last_logits(engine, req, plain)
+    finally:
+        qv.segment_attention, llama.prefill_attention = saved
+    ref = plain[0][1]
+    sd = plain_logits.std().item()
+    res = {"what": "kernel_vs_plain_path", "image": "448x448",
+           "tower_tokens": int(ref.shape[0]),
+           "tower_max_rel_err": ((kern[0][1] - ref).abs().max()
+                                 / ref.abs().max()).item(),
+           "tower_rtol": VL_TOWER_RTOL,
+           "first_token_logit_err_in_std":
+               (kern_logits - plain_logits).abs().max().item() / sd,
+           "other_image_logit_move_in_std":
+               (other_logits - kern_logits).abs().max().item() / sd,
+           "tol_in_std": LOGIT_TOL, "plain_logit_std": sd}
+    emit({"phase": "vision", **res})
+    if res["tower_max_rel_err"] > VL_TOWER_RTOL:
+        fail(f"vision (b): the tower's kernel path disagrees with its plain path: {res}")
+    if res["first_token_logit_err_in_std"] > LOGIT_TOL:
+        fail(f"vision (b): kernel-path logits disagree with the plain path: {res}")
+    if res["other_image_logit_move_in_std"] <= LOGIT_TOL:
+        fail(f"vision (b): another image does not move the logits: {res}")
+    return plain_logits
+
+
+def vl_engine_args(extra=()):
+    from dynamo_tpu_torch.worker.__main__ import build_parser
+
+    return build_parser().parse_args(
+        ["--control", "127.0.0.1:0", "--model", VL_MODEL, "--seed", str(SEED),
+         "--sharpen", "--num-pages", "1024", "--max-num-seqs", "8", *extra])
+
+
+def vl_requests(pre):
+    """(name, preprocessed request) of phase 13 (c)'s traffic."""
+    a, b = vl_image(1, 448, 448), vl_image(2, 1288, 728)
+    c, d = vl_image(3, 448, 224), vl_image(4, 448, 448)
+    video = [vl_image(10 + i, 224, 224) for i in range(4)]
+    ask = "Describe what you see in one sentence."
+    bodies = {
+        "text": vl_chat("Write one line about the sea."),
+        "img448": vl_chat(ask, [("image", data_uri(png_bytes(a)))]),
+        "img1288x728": vl_chat(ask, [("image", data_uri(png_bytes(b)))]),
+        "two_images": vl_chat("Compare the two pictures.",
+                              [("image", data_uri(png_bytes(a))),
+                               ("image", data_uri(png_bytes(c)))]),
+        "video_4_frames": vl_chat("What happens in this clip?",
+                                  [("video", data_uri(apng_bytes(video)))]),
+        "img448_again": vl_chat(ask, [("image", data_uri(png_bytes(a)))]),
+        "img448_other": vl_chat(ask, [("image", data_uri(png_bytes(d)))]),
+    }
+    reqs = {}
+    for name, body in bodies.items():
+        r = pre.preprocess_chat(body)
+        r["sampling_options"] = {"temperature": 0.0}
+        r["stop_conditions"] = {"max_tokens": VL_TOKENS, "ignore_eos": True}
+        reqs[name] = r
+    return bodies, reqs
+
+
+def vl_first_flip(engine, req, ref, got):
+    """Where two greedy rows part: the plain-prefill logits after the
+    common prefix, and the second row's token's gap below the best in std
+    units (a near-tie when within LOGIT_TOL)."""
+    n = next(i for i, (x, y) in enumerate(zip(ref, got)) if x != y)
+    logits = vl_last_logits(engine, req, vl_embeds(engine, req), ref[:n])
+    gap = (logits.max() - logits[got[n]]).item() / logits.std().item()
+    return {"step": n, "gap_in_std": gap}
+
+
+def vl_serving(engine, mdc, tok):
+    """(c) `TorchEngine` serving Qwen2.5-VL-7B: the one-step engine (the
+    main path, its launches counted), then an 8-step engine on the same
+    weights; returns (launches, direct texts by name, per-engine rows)."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.llm import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.backend import StreamPostprocessor
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+
+    bodies, reqs = vl_requests(OpenAIPreprocessor(mdc, tok))
+    first_wave = ["text", "img448", "img1288x728", "two_images", "video_4_frames"]
+    offs = {n: r.get("mm_offsets", []) for n, r in reqs.items()}
+
+    async def serve(eng, count):
+        # warm-up: graph captures and the kernels' first use
+        await _collect(eng, dict(reqs["text"]))
+        eng.clear_kv_blocks()
+        torch.cuda.synchronize()
+        if count:
+            ca.reset_launches()
+        t0 = time.perf_counter()
+        outs = dict(zip(first_wave, await asyncio.gather(
+            *[_collect(eng, dict(reqs[n])) for n in first_wave])))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c0 = eng.metrics().prefix_cached_tokens_total
+        outs["img448_again"] = await _collect(eng, dict(reqs["img448_again"]))
+        c1 = eng.metrics().prefix_cached_tokens_total
+        outs["img448_other"] = await _collect(eng, dict(reqs["img448_other"]))
+        c2 = eng.metrics().prefix_cached_tokens_total
+        torch.cuda.synchronize()
+        launches = dict(ca.LAUNCHES)
+        # alone from a cold cache, as a worker process serves one chat
+        eng.clear_kv_blocks()
+        solo = await _collect(eng, dict(reqs["img448"]))
+        await eng.shutdown()
+        return outs, wall, launches, (c1 - c0, c2 - c1), solo
+
+    arms = {}
+    launches = None
+    for arm, steps in (("a_steps1", 1), ("b_steps8", 8)):
+        eng = engine if steps == 1 else TorchEngine(
+            engine.model_cfg, engine.model,
+            dataclasses.replace(engine.cfg, decode_steps=steps),
+            eos_token_ids=engine.eos_token_ids, device="cuda", vision=engine.vision)
+        outs, wall, got_launches, hits, solo = asyncio.run(serve(eng, steps == 1))
+        if steps == 1:
+            launches, solo_tokens = got_launches, solo["tokens"]
+        for name, r in outs.items():
+            if r["finish_reason"] != "length" or len(r["tokens"]) != VL_TOKENS:
+                fail(f"vision (c) {arm}: {name} ended {r['finish_reason']} with "
+                     f"{len(r['tokens'])} tokens")
+        run_end = offs["img448"][0] + 256
+        arms[arm] = {
+            "wall_s": wall,
+            "ttft_ms": {n: outs[n]["ttft_ms"] for n in outs},
+            "decode_tokens_per_s": sum(VL_TOKENS - 1 for _ in first_wave) / max(
+                max(outs[n]["t_last"] for n in first_wave)
+                - min(outs[n]["t_first"] for n in first_wave), 1e-9),
+            "prefix_hit_same_image": hits[0], "prefix_hit_other_image": hits[1],
+            "tokens": {n: outs[n]["tokens"] for n in outs},
+        }
+        if hits[0] < run_end // 16 * 16:
+            fail(f"vision (c) {arm}: the same image again hit {hits[0]} tokens, "
+                 f"not its run (to {run_end})")
+        if hits[1] != 0:
+            fail(f"vision (c) {arm}: another image reused {hits[1]} cached tokens")
+        if outs["img448_again"]["tokens"] != outs["img448"]["tokens"]:
+            fail(f"vision (c) {arm}: the same image again gave other tokens")
+    if min(launches[k] for k in (*ATTENTION_KERNELS, "segment_attention")) <= 0:
+        fail(f"vision (c): the one-step engine did not launch every kernel: {launches}")
+    ref, got = arms["a_steps1"]["tokens"], arms["b_steps8"]["tokens"]
+    flips = {n: vl_first_flip(engine, reqs[n], ref[n], got[n])
+             for n in ref if ref[n] != got[n]}
+    res = {"what": "serving", "model": VL_MODEL,
+           "prompt_tokens": {n: len(r["token_ids"]) for n, r in reqs.items()},
+           "media_offsets": offs, "arms": {a: {k: v for k, v in d.items() if k != "tokens"}
+                                           for a, d in arms.items()},
+           "launches_one_step": launches, "rows_equal_across_engines":
+               {n: ref[n] == got[n] for n in ref}, "flips": flips,
+           "distinct_rows": len({tuple(t) for t in ref.values()})}
+    emit({"phase": "vision", **res})
+    for n, f in flips.items():
+        if f["gap_in_std"] > LOGIT_TOL:
+            fail(f"vision (c): {n} parts across engines beyond a near-tie: {f}")
+    if res["distinct_rows"] < len(ref) - 1:  # img448_again repeats img448
+        fail(f"vision (c): media do not move the greedy rows: {ref}")
+    post = StreamPostprocessor(tok, reqs["img448"]["token_ids"])
+    direct = {"img448": "".join(post.push_tokens([t]) for t in solo_tokens)
+              + post.flush()}
+    return launches, bodies, direct
+
+
+def vl_processes(bodies, direct):
+    """(d) The control plane, an encode worker (`--disagg-role encode`,
+    its LLM cut to one layer: it runs only the tower), a serving worker
+    with `--encode-component encoder` (no tower) and the frontend, as
+    processes; a chat with a data: PNG over HTTP must give (c)'s text."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    procs = []
+
+    def spawn(*args):
+        p = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                             stdout=subprocess.PIPE, text=True)
+        procs.append(p)
+        return p
+
+    def ready(p, prefix, what, timeout=600):
+        def scan():
+            seen = []
+            for line in p.stdout:
+                if line.startswith(prefix):
+                    return line.strip()
+                seen.append(line)
+            fail(f"vision (d): {what} exited, printing {seen!r}")
+
+        with ThreadPoolExecutor(1) as ex:
+            return ex.submit(scan).result(timeout=timeout)
+
+    t0 = time.perf_counter()
+    try:
+        cp = spawn("dynamo_tpu_torch.runtime", "--host", "127.0.0.1", "--port", "0",
+                   "--log-level", "warning")
+        addr = ready(cp, "READY ", "the control plane").split()[1]
+        common = ["--control", addr, "--model", VL_MODEL, "--seed", str(SEED),
+                  "--sharpen", "--status-port", "-1", "--log-level", "warning"]
+        enc = spawn("dynamo_tpu_torch.worker", *common, "--disagg-role", "encode",
+                    "--num-layers", "1", "--num-pages", "64")
+        srv = spawn("dynamo_tpu_torch.worker", *common, "--encode-component",
+                    "encoder", "--num-pages", "1024", "--max-num-seqs", "8")
+        front = spawn("dynamo_tpu_torch.frontend", "--control", addr, "--host",
+                      "127.0.0.1", "--port", "0", "--log-level", "warning")
+        port = int(ready(front, "READY http://", "the frontend").rsplit(":", 1)[1])
+        ready(enc, "READY worker", "the encode worker")
+        ready(srv, "READY worker", "the serving worker")
+        ready_s = time.perf_counter() - t0
+        for _ in range(1200):
+            st, models = _http(port, "GET", "/v1/models")
+            if st == 200 and VL_MODEL.encode() in models:
+                break
+            time.sleep(0.1)
+        else:
+            fail(f"vision (d): the frontend never listed {VL_MODEL}")
+        t1 = time.perf_counter()
+        st, raw = _http(port, "POST", "/v1/chat/completions", bodies["img448"])
+        chat_ms = (time.perf_counter() - t1) * 1e3
+        if st != 200:
+            fail(f"vision (d): the chat answered {st}: {raw[:300]!r}")
+        text = json.loads(raw)["choices"][0]["message"]["content"]
+        res = {"what": "processes", "ready_s": ready_s, "chat_ms": chat_ms,
+               "body_bytes": len(json.dumps(bodies["img448"])),
+               "equals_direct": text == direct["img448"]}
+        emit({"phase": "vision", **res})
+        if not res["equals_direct"]:
+            fail(f"vision (d): the HTTP chat's text differs from the direct run: "
+                 f"{text!r} vs {direct['img448']!r}")
+    finally:
+        for p in procs[::-1]:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def phase_vision():
+    """Phase 13 (see the module docstring).  Runs with no other model on
+    the card; returns the launches of (c)'s one-step engine."""
+    import gc
+
+    from dynamo_tpu_torch.llm import HuggingFaceTokenizer, OpenAIPreprocessor
+    from dynamo_tpu_torch.worker.__main__ import build_engine
+
+    t0 = time.perf_counter()
+    vl_golden()
+    engine, mdc = build_engine(vl_engine_args())
+    # the tokenizer as the frontend loads it from the card
+    tok = HuggingFaceTokenizer.from_json_str(
+        mdc.tokenizer_json, eos_token_ids=list(mdc.eos_token_ids),
+        bos_token_id=mdc.bos_token_id, chat_template=mdc.chat_template)
+    emit({"phase": "vision", "what": "model_init", "model": VL_MODEL,
+          "weights_gb": torch.cuda.memory_allocated() / 1e9})
+    _, reqs = vl_requests(OpenAIPreprocessor(mdc, tok))
+    vl_paths(engine, reqs["img448"], reqs["img448_other"])
+    tower_ms = time_ms_host(lambda: vl_embeds(engine, reqs["img1288x728"]))
+    emit({"phase": "vision", "what": "tower_ms", "image": "1288x728",
+          "patches": 4784, "host_clock_ms": tower_ms})
+    launches, bodies, direct = vl_serving(engine, mdc, tok)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    vl_processes(bodies, direct)
+    emit({"phase": "vision", "what": "done", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def time_ms_host(fn, iters: int = 3) -> float:
+    """Host-clock ms of fn() to a synchronize, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def main() -> int:
     import gc
 
@@ -4117,6 +4734,7 @@ def main() -> int:
     emit({"phase": "breadth", "what": "card_freed",
           "allocated_gb": torch.cuda.memory_allocated() / 1e9})
     breadth_launches, int8_launches = phase_breadth(direct)
+    vision_launches = phase_vision()
     by_path = {"serving (phase 4, generate)": serving_launches,
                "golden (phase 6)": golden_launches,
                "http (phase 7, the main path)": http_launches,
@@ -4128,7 +4746,9 @@ def main() -> int:
                **{f"breadth gpt-oss-20b serving {arm} (phase 11, this slice's path)": n
                   for arm, n in breadth_launches.items()},
                "breadth int8 8B serving (phase 11)": int8_launches,
-               **disagg_launches}
+               **disagg_launches,
+               "vision qwen2.5-vl-7b serving a_steps1 (phase 13, this slice's path)":
+                   vision_launches}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),
@@ -4206,6 +4826,31 @@ def main() -> int:
         "ms": timed[0]["ms"], "plain_ms": timed[0]["plain_ms"],
         "bound_ms": timed[0]["bound_ms"], "bound_by": timed[0]["bound_by"],
         "library_ms": timed[0]["library_ms"], "timed_case": timed[0]["case"],
+        "timed_cases": [{k: c[k] for k in keys} for c in timed],
+    })
+    # the segment attention: its path is phase 13 (c)'s one-step engine
+    # serving Qwen2.5-VL-7B; the windowed layer (28 of the tower's 32) is
+    # the timed case
+    mine = [c for c in checks if c["kernel"] == "segment_attention"]
+    timed = [c for c in mine if "ms" in c]
+    head = next(c for c in timed if "windowed" in c["case"])
+    keys = ("case", "ms", "host_paced_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
+    kernels.append({
+        "name": "segment_attention", "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/vision_attention.cu",
+        "replaces": "dynamo_tpu/models/qwen_vl.py:304",
+        "replaces_what": "the towers' masked attention, einsum + -1e9 mask + "
+                         "softmax + einsum (qwen_vl.py:304-309, "
+                         "vision.py:146-149); XLA ops, not a Pallas kernel",
+        "launches": vision_launches["segment_attention"],
+        "launches_by_path": {p: c.get("segment_attention", 0)
+                             for p, c in by_path.items()},
+        "max_abs_err": max(c["max_abs_err"] for c in mine),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "timed_case": head["case"],
+        "library": "scaled_dot_product_attention with the boolean block mask",
         "timed_cases": [{k: c[k] for k in keys} for c in timed],
     })
     emit({"kernels": kernels})

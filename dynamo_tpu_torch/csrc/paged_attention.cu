@@ -14,7 +14,11 @@
 // dynamo_tpu_torch/ops/paged_attention.py):
 //   - pools are [P, page, n_kv, hd]; a sequence's keys live in the pages
 //     its table row names, token t at (table[t / page], t % page);
-//   - GQA: q head h reads kv head h / (H / n_kv);
+//   - GQA: q head h reads kv head h / (H / n_kv), for any group G = H / n_kv
+//     from 1 to 8 (Qwen2's 7 and 6 included).  The decode split pass sizes
+//     its lane split from G rounded up to a power of two and holds G rows;
+//     the bf16 prefill tile holds floor(64 / G) positions x G heads, so at
+//     G 7 one row of 64 is spare: it loads zeros and is never stored;
 //   - scores are q.k * 1/sqrt(hd) in f32; an f32 online softmax (running
 //     max m, denominator l, accumulator acc) streams the keys.  Scores are
 //     kept in log2 units (scaled by log2(e)) so the exponentials are exp2;
@@ -330,11 +334,20 @@ __device__ __forceinline__ void load_f(const __nv_bfloat16* p, float* f) {
   }
 }
 
+// The group rounded up to a power of two: 3 -> 4, 5..7 -> 8.
+__host__ __device__ constexpr int pow2_ceil(int g) {
+  return g <= 1 ? 1 : (g <= 2 ? 2 : (g <= 4 ? 4 : 8));
+}
+
 // Lanes that share one key in the decode split pass: enough that a lane
 // holds at most 64 f32 of q (G heads x hd/LPK) and 64 of acc, at least 4.
+// Sized from the group rounded up to a power of two, so LPK is one (its
+// shuffle tree halves) and divides hd at every group from 1 to 8: Qwen2's
+// 7 (28 / 4 heads) takes G 8's 16 lanes and simply holds 7 heads' rows.
 template <int G, int HD>
 __host__ __device__ constexpr int lanes_per_key() {
-  return G * HD / 64 < 4 ? 4 : (G * HD / 64 > 32 ? 32 : G * HD / 64);
+  constexpr int GP = pow2_ceil(G);
+  return GP * HD / 64 < 4 ? 4 : (GP * HD / 64 > 32 ? 32 : GP * HD / 64);
 }
 
 // Dynamic shared memory of the split pass: the K/V ring (reused by the
@@ -717,7 +730,7 @@ pa_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, H, H
                       __nv_bfloat16* __restrict__ out,      // [B, S, H, HD]
                       int S, int n_kv, int maxp, int page, int page_shift,
                       int window, float scale_log2) {
-  constexpr int R = MROWS / G;      // query positions per block
+  constexpr int R = MROWS / G;      // query positions per block (rows R * G..63 spare)
   constexpr int CPR = HD / 8;       // 16-byte chunks per row
   constexpr int NT_S = NKEYS / 8;   // score n-tiles (8 keys each)
   constexpr int NT_O = HD / 8;      // output n-tiles (8 dims each)
@@ -942,7 +955,7 @@ pa_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, H, H
     l[h] += __shfl_xor_sync(FULL, l[h], 1);
     l[h] += __shfl_xor_sync(FULL, l[h], 2);
     const int r = row0 + 8 * h, p = r / G, gh = r % G;
-    if (p >= q_rows) continue;
+    if (p >= q_rows) continue;  // a spare row (R * G <= r: G 3, 5, 6, 7) or past S
     const float L = l[h] + (sink != nullptr ? fast_exp2(sink[kh * G + gh] * LOG2E - mu[h]) : 0.f);
     const float inv = q0 + p < cl ? 1.f / fmaxf(L, 1e-30f) : 0.f;
     __nv_bfloat16* orow = o_base + ((size_t)p * H + gh) * HD + 2 * t4;
@@ -986,7 +999,11 @@ int decode_by_groups(int G, const void* q, const void* kp, const void* vp,
   switch (G) {
     case 1: return launch_decode<T, HD, 1>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
     case 2: return launch_decode<T, HD, 2>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
+    case 3: return launch_decode<T, HD, 3>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
     case 4: return launch_decode<T, HD, 4>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
+    case 5: return launch_decode<T, HD, 5>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
+    case 6: return launch_decode<T, HD, 6>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
+    case 7: return launch_decode<T, HD, 7>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
     case 8: return launch_decode<T, HD, 8>(q, kp, vp, table, seq_lens, sink, out, ml, acc, B, n_kv, maxp, page, window, n_split, split_keys, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1050,7 +1067,11 @@ int prefill_wgmma_by_groups(int G, const void* q, const void* kn, const void* vn
   switch (G) {
     case 1: return launch_prefill_wgmma<HD, 1>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
     case 2: return launch_prefill_wgmma<HD, 2>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
+    case 3: return launch_prefill_wgmma<HD, 3>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
     case 4: return launch_prefill_wgmma<HD, 4>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
+    case 5: return launch_prefill_wgmma<HD, 5>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
+    case 6: return launch_prefill_wgmma<HD, 6>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
+    case 7: return launch_prefill_wgmma<HD, 7>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
     case 8: return launch_prefill_wgmma<HD, 8>(q, kn, vn, kp, vp, table, prefix, chunk, sink, out, B, S, n_kv, maxp, page, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -14,10 +14,12 @@ package's `disagg/`).
 - the device lanes move pages with one hand-written re-page kernel
   (`device_transfer.py`, `ops/kv_transfer.py`, `csrc/kv_transfer.cu`).
 
-The encode worker (`disagg/encode.py` in the JAX package) comes with the
-vision slice.
+- the encode worker role (`encode.py`): a worker that runs only the
+  vision tower, and `EncodeOffload`, which sends a serving worker's media
+  to it.
 """
 
+from .encode import ENCODE_COMPONENT, EncodeOffload, serve_encode_worker
 from .handler import (
     PREFILL_COMPONENT,
     DisaggDecodeHandler,
@@ -29,6 +31,8 @@ from .router import DisaggRouter
 from .transfer import KvLayout, KvTransferClient, KvTransferSource, lookup_layouts
 
 __all__ = [
+    "ENCODE_COMPONENT",
+    "EncodeOffload",
     "PREFILL_COMPONENT",
     "DisaggDecodeHandler",
     "DisaggRouter",
@@ -38,5 +42,6 @@ __all__ = [
     "PrefillFacade",
     "RemoteRouterClient",
     "lookup_layouts",
+    "serve_encode_worker",
     "serve_prefill_worker",
 ]

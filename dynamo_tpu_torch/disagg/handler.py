@@ -224,7 +224,11 @@ class DisaggDecodeHandler:
                 yield out
             return
         prompt = request.get("token_ids") or []
-        remote = self.router.should_prefill_remotely(
+        # media prompts prefill here: the adopted KV would come without the
+        # sequence's embeddings' M-RoPE delta
+        has_media = any(request.get(k) is not None
+                        for k in ("mm_pixels", "mm_patches", "mm_embeds"))
+        remote = not has_media and self.router.should_prefill_remotely(
             len(prompt),
             cached_prefix_len=self.engine.cached_prefix_len(prompt),
             prefill_workers_available=await self._prefill_available(),

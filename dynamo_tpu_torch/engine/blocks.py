@@ -20,7 +20,10 @@ copied into the next block's inputs on the device with no host between.
 
 Inputs shared by the blocks: ``seeds`` [B] int64; the sampling columns
 ``temperature``, ``top_k``, ``top_p``, ``fp``, ``pp`` [B]; ``table``
-[B, W] int32.  Token ids, positions and counters are int64.
+[B, W] int32; for M-RoPE models ``rope_off`` [B] int64, each row's rope
+delta (a static input like the others: the engine refreshes it before
+every replay, and a spliced row brings its own).  Token ids, positions
+and counters are int64.
 """
 
 from __future__ import annotations
@@ -151,12 +154,14 @@ def sample_pack(logits, inp, ctr, v: Variant):
     return out, pack_out(out, logp, logits if v.with_top else None)
 
 
-def _masked_step(model, kv, tok, pos, ok, table, max_valid_pos):
+def _masked_step(model, kv, tok, pos, ok, table, max_valid_pos,
+                 rope_off=None):
     """One `forward_decode` where rows not `ok` write through an all-trash
-    table row and out-of-window rows use position 0 (`body_common`)."""
+    table row and out-of-window rows use position 0 (`body_common`);
+    `rope_off` shifts the rope position only, never the KV slot."""
     safe = torch.where(pos < max_valid_pos, pos, torch.zeros_like(pos))
     tbl = torch.where(ok[:, None], table, torch.zeros_like(table))
-    return model.forward_decode(kv, tok, safe, tbl)
+    return model.forward_decode(kv, tok, safe, tbl, rope_off)
 
 
 def make_decode_block(model, kv, n_steps: int, max_valid_pos: int,
@@ -172,7 +177,8 @@ def make_decode_block(model, kv, n_steps: int, max_valid_pos: int,
         rows = []
         for _ in range(n_steps):
             logits = _masked_step(model, kv, tok, pos, pos < max_valid_pos,
-                                  inp["table"], max_valid_pos)
+                                  inp["table"], max_valid_pos,
+                                  inp.get("rope_off"))
             if v.penalized:
                 logits = apply_penalties(logits, cts, samp.frequency_penalty,
                                          samp.presence_penalty)
@@ -227,7 +233,7 @@ def make_cc_block(model, kv, n_steps: int, max_valid_pos: int, v: Variant):
         for _ in range(n_steps):
             logits = _masked_step(model, kv, tok, pos,
                                   (pos < max_valid_pos) & act, inp["table"],
-                                  max_valid_pos)
+                                  max_valid_pos, inp.get("rope_off"))
             if v.penalized:
                 logits = apply_penalties(logits, cts, samp.frequency_penalty,
                                          samp.presence_penalty)
@@ -274,7 +280,8 @@ def make_spec_block(model, kv, greedy: bool):
         B, S = tokens.shape
         prefix = inp["pos"].to(torch.int32)
         chunk = torch.full_like(prefix, S)
-        logits = model.forward_verify(kv, tokens, inp["table"], prefix, chunk)
+        logits = model.forward_verify(kv, tokens, inp["table"], prefix, chunk,
+                                      inp.get("rope_off"))
         out, logp = sample_tokens_block(logits, samp_of(inp), inp["seeds"],
                                         inp["ctr"], greedy)
         n_acc = speculative_accept(out, tokens)

@@ -45,8 +45,17 @@ With ``quantization="int8"`` the model's dense projections and LM head
 are quantized at construction, in place (`models.quantization.
 quantize_params`, layer by layer), as `JaxEngine` quantizes its params.
 
-Not ported yet (later slices): meshes (dp/tp/pp/sp, kv_partition),
-multihost and vision.
+Multimodal requests (``vision=(tower, vision_cfg)``; `media.py`): media
+are validated and attached on arrival, the tower runs on the step thread
+before the sequence's first prefill chunk, each chunk splices in the
+embeddings of the runs it covers (and an M-RoPE model's three rope
+streams), and every later position ropes at its index plus the
+sequence's delta: the per-row ``rope_off`` input of every decode, block,
+chain and verify graph, refreshed at each dispatch and splice.  Media
+prompts take the pure prefill path (not mixed plans, not chunk rows).
+
+Not ported yet (later slices): meshes (dp/tp/pp/sp, kv_partition) and
+multihost, so vision under them too.
 """
 
 from __future__ import annotations
@@ -72,7 +81,7 @@ from ..models.llama import KVCache, Llama
 from ..models.quantization import quantize_params
 from ..runtime.engine import Context
 from ..tokens import compute_block_hash_for_seq
-from . import blocks
+from . import blocks, media
 from .blocks import TOPLP, Variant
 from .config import EngineConfig, bucket_for
 from .graphs import GraphRunner, HostFetch
@@ -140,6 +149,7 @@ class TorchEngine:
         event_sink: Optional[Callable[[KvEvent], None]] = None,
         device=None,
         tiered=None,  # kvbm.TieredKvCache — host/disk KV tiers
+        vision=None,  # (tower or None, VisionConfig | Qwen2VLVisionConfig)
     ):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -147,6 +157,9 @@ class TorchEngine:
                 f"model lives on {model.device}, engine on {self.device}")
         self.model_cfg = model_cfg
         self.model = model
+        # the vision tower and its config; a tower of None keeps only the
+        # geometry (a worker whose media an encode worker encodes)
+        self.vision = vision
         self.cfg = engine_cfg or EngineConfig()
         bad = _unported(self.cfg)
         if bad:
@@ -356,6 +369,12 @@ class TorchEngine:
         seq.seed = opts.seed if opts.seed is not None else self._py_rng.getrandbits(31)
         # a remote prefill keeps its pages past finish for the data plane
         seq.hold_pages = bool(request.get("_hold_pages"))
+        if (request.get("mm_pixels") or request.get("mm_patches")
+                or request.get("mm_embeds") is not None):
+            err = media.attach(self, seq, request)
+            if err:
+                yield {"token_ids": [], "finish_reason": "error", "error": err}
+                return
         queue: asyncio.Queue = asyncio.Queue()
         self._queues[context.id] = queue
         self._contexts[context.id] = context
@@ -566,6 +585,13 @@ class TorchEngine:
             "pp": col(lambda o: o.presence_penalty, 0.0, np.float32),
         }
 
+    def _rope_inputs(self, rows: List[Optional[Sequence]]) -> Dict[str, np.ndarray]:
+        """An M-RoPE model's per-row rope offset, a static input of every
+        decode-side graph; nothing for other models."""
+        if not self.model_cfg.mrope_section:
+            return {}
+        return {"rope_off": media.rope_offsets(rows)}
+
     def _decode_arrays(self, rows: List[Optional[Sequence]]):
         """(last tokens [B], positions [B]) for a decode row layout."""
         tokens = np.zeros((len(rows),), np.int64)
@@ -660,8 +686,10 @@ class TorchEngine:
             "prefix": np.asarray([it.chunk_start for it in items], np.int32),
             "chunk": np.asarray([it.chunk_len for it in items], np.int32),
             "seeds": seeds, "ctr": counters, **samp})
+        media.encode_pending(self, seqs)
         logits = self.model.forward_prefill(
-            self.kv, d["tokens"], d["table"], d["prefix"], d["chunk"])
+            self.kv, d["tokens"], d["table"], d["prefix"], d["chunk"],
+            **media.prefill_extras(self, items, S))
         for it in items:
             if it.samples and it.seq.hold_pages and self.device.type == "cuda":
                 # the held prompt's KV is all written once this chunk is:
@@ -779,7 +807,7 @@ class TorchEngine:
         seeds, counters = self._seed_arrays(rows)
         d = self._host({"tok": tokens, "pos": positions, "ctr": counters,
                         "table": self._table_array(rows), "seeds": seeds,
-                        **self._samp_arrays(rows)})
+                        **self._samp_arrays(rows), **self._rope_inputs(rows)})
         if v.penalized:
             d["counts"] = self._counts_tensor(rows)
         return d
@@ -929,7 +957,7 @@ class TorchEngine:
         greedy = self._is_greedy(rows)
         d = self._host({"tokens": tokens, "pos": positions,
                         "ctr": counters, "table": table, "seeds": seeds,
-                        **self._samp_arrays(rows)})
+                        **self._samp_arrays(rows), **self._rope_inputs(rows)})
         key = ("spec", k, greedy, table.shape[1])
         outs = self.graphs.run(key, self._block_fn("spec", k, Variant(greedy=greedy)), d)
         out, logp, n_acc = blocks.unpack_spec(HostFetch(outs["packed"]).numpy(),
@@ -1081,7 +1109,9 @@ class TorchEngine:
         spliced: List[int] = []
         while self.scheduler.waiting and self.scheduler.admission_ready():
             head = self.scheduler.waiting[0]
-            if head.parked:
+            if head.parked or media.has_media(head):
+                # a media prompt's embeddings exist only on the prefill
+                # path: the chain falls out and the pump prefills it
                 return spliced, "admit"
             so = head.opts
             if ((v.greedy and so.temperature > 0)
@@ -1176,7 +1206,8 @@ class TorchEngine:
         cur = self._host({
             "tok": tokens, "pos": positions, "ctr": counters, "act": active,
             "budget": budget, "stops": self._stop_arrays(rows),
-            "table": table, "seeds": seeds, **self._samp_arrays(rows)})
+            "table": table, "seeds": seeds, **self._samp_arrays(rows),
+            **self._rope_inputs(rows)})
         if v.penalized:
             cur["counts"] = self._counts_tensor(rows)
         # quiet-block chunk operands, made once and reused
@@ -1206,7 +1237,8 @@ class TorchEngine:
                         cur.update(self._host({
                             "seeds": self._seed_arrays(rows)[0],
                             "stops": self._stop_arrays(rows),
-                            **self._samp_arrays(rows)}))
+                            **self._samp_arrays(rows),
+                            **self._rope_inputs(rows)}))
                 feed = (self._cc_plan_feed(rows, T, needs_reset, fed_complete)
                         if splice_on else None)
                 chunk_rows = 0

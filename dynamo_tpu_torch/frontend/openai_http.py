@@ -38,6 +38,8 @@ logger = logging.getLogger(__name__)
 # idle SSE connections get a comment ping this often (seconds), measured
 # from the last bytes actually WRITTEN to the connection
 SSE_KEEPALIVE_S = 10.0
+# a request body's limit: one 32 MB medium as base64, with room for the rest
+MAX_REQUEST_BYTES = 48 << 20
 
 # max queue items drained into one write (bounds frame batch size and
 # keeps a badly backed-up stream from starving its siblings)
@@ -80,7 +82,9 @@ class HttpService:
             ("GET", "/metrics"): self.prometheus,
             ("POST", "/clear_kv_blocks"): self.clear_kv_blocks,
         }
-        self._server = HttpServer(routes, host, port)
+        # vision chats carry their media inline as data: URIs, up to the
+        # 32 MB a medium may hold once decoded from base64
+        self._server = HttpServer(routes, host, port, max_body=MAX_REQUEST_BYTES)
 
     # -- lifecycle ----------------------------------------------------------- #
 

@@ -4,7 +4,8 @@ The port's copy of the JAX package's `frontend/service.py`: round-robin,
 random and KV-aware routing (``kv``: a `router.KvRouter` per model picks
 the worker, the request goes to it directly).  Request migration, the
 health watcher and SLO targets are later slices; a card that needs output
-parsers or multimodal input is skipped with an error (not ported).
+parsers is skipped with an error (not ported).  Vision cards (an
+``image_token``) are served: their preprocessor expands media.
 ModelWatcher watches the control-plane `/models` prefix; each PUT is a
 ModelDeploymentCard published by a worker instance under its lease.  The
 watcher builds (or refreshes) a ModelEntry: tokenizer + preprocessor + a
@@ -201,8 +202,8 @@ class ModelWatcher:
             return  # prefill-only / encode-only workers are not
             # client-facing models (their generate surface speaks the
             # internal disagg protocol, not completions)
-        unported = [f for f in ("reasoning_parser", "tool_call_parser",
-                                "image_token") if getattr(mdc, f)]
+        unported = [f for f in ("reasoning_parser", "tool_call_parser")
+                    if getattr(mdc, f)]
         if unported:
             logger.error("model %s needs %s: not ported; skipped", mdc.name,
                          ", ".join(unported))

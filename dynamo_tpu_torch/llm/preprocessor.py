@@ -1,8 +1,11 @@
 """OpenAIPreprocessor — OpenAI request → PreprocessedRequest.
 
 The port's copy of the JAX package's `llm/preprocessor.py`: chat template
-(jinja2), tokenization, sampling-option mapping and validation.
-Multimodal content and embeddings raise `RequestError` (later slices).
+(jinja2), tokenization, sampling-option mapping and validation, and
+multimodal content: image and video parts become the model's placeholder
+runs and the request carries the processed media (`_process_images` for
+CLIP towers, `_process_media_qwen` for dynamic-resolution Qwen towers).
+Embeddings raise `RequestError` (a later slice).
 Mirrors the reference preprocessor contract
 (lib/llm/src/preprocessor.rs:102 `OpenAIPreprocessor`:
 chat-template render → tokenize → sampling-option mapping) producing the
@@ -72,17 +75,113 @@ class OpenAIPreprocessor:
         messages = request.get("messages")
         if not messages:
             raise RequestError("'messages' must be a non-empty list")
-        if _has_media(messages):
+        from .multimodal import extract_media
+
+        media = extract_media(messages)
+        if media and not self.mdc.image_token:
             raise RequestError(
                 f"model {self.mdc.name!r} does not accept image input"
             )
-        prompt = self.apply_template(messages, tools=request.get("tools"))
+        if any(m["kind"] == "video" for m in media) and (
+            self.mdc.mm_arch != "qwen2_vl"
+        ):
+            raise RequestError(
+                f"model {self.mdc.name!r} does not accept video input"
+            )
+        prompt = self.apply_template(messages, tools=request.get("tools"),
+                                     image_token=self.mdc.image_token)
         token_ids = self.tokenizer.encode(prompt)
         if self.tokenizer.bos_token_id is not None and (
             not token_ids or token_ids[0] != self.tokenizer.bos_token_id
         ):
             token_ids = [self.tokenizer.bos_token_id] + token_ids
-        return self._finish(request, token_ids, prompt)
+        mm = None
+        if media:
+            if self.mdc.mm_arch == "qwen2_vl":
+                token_ids, mm = self._process_media_qwen(token_ids, media)
+            else:
+                token_ids, mm = self._process_images(
+                    token_ids, [m["url"] for m in media])
+        out = self._finish(request, token_ids, prompt)
+        if mm:
+            out.update(mm)
+        return out
+
+    def _media_token_id(self) -> int:
+        tok_id = self.mdc.image_token_id
+        if tok_id is None:
+            ids = self.tokenizer.encode(self.mdc.image_token)
+            if len(ids) != 1:
+                raise RequestError(
+                    "model's image_token does not map to a single token")
+            tok_id = ids[0]
+        return tok_id
+
+    def _process_images(self, token_ids, image_urls):
+        """CLIP towers: load and resize each image to the tower's square
+        input, expand each placeholder to the image's patch run (the tower
+        runs on the worker)."""
+        import hashlib
+
+        import numpy as np
+
+        from .multimodal import (expand_image_tokens, load_image_bytes,
+                                 pack_pixels, process_image)
+
+        token_ids, offsets = expand_image_tokens(
+            token_ids, self._media_token_id(), len(image_urls),
+            self.mdc.image_patches)
+        pixels = np.stack([process_image(load_image_bytes(u), self.mdc.image_size)
+                           for u in image_urls])
+        return token_ids, {
+            "mm_pixels": pack_pixels(pixels),
+            "mm_offsets": offsets,
+            # per-image cache namespace: MUST equal the engine's
+            # seq.cache_salt (identical tokens, another image: no reuse)
+            "cache_salt": hashlib.blake2b(
+                np.ascontiguousarray(pixels, np.float32).tobytes(),
+                digest_size=8).hexdigest(),
+        }
+
+    def _process_media_qwen(self, token_ids, media):
+        """Qwen2-VL media: smart-resize each image or video to its own grid,
+        patchify on the host and expand each placeholder to that medium's
+        merged token count; ships per-medium patch blobs and grids."""
+        import hashlib
+
+        import numpy as np
+
+        from ..models.qwen_vl import (Qwen2VLVisionConfig, frames_to_patches,
+                                      merged_tokens, smart_resize)
+        from .multimodal import (MAX_VIDEO_FRAMES, expand_media_tokens,
+                                 image_size, load_image_bytes, pack_patches,
+                                 process_frames)
+
+        vcfg = Qwen2VLVisionConfig.from_hf_config(self.mdc.mm_config or {})
+        tok_id = self._media_token_id()
+        blobs, counts = [], []
+        salts = hashlib.blake2b(digest_size=8)
+        for m in media:
+            raw = load_image_bytes(m["url"])
+            w0, h0 = image_size(raw)
+            try:
+                h1, w1 = smart_resize(h0, w0, vcfg)
+            except ValueError as e:
+                raise RequestError(f"cannot resize media: {e}") from None
+            frames = process_frames(
+                raw, h1, w1,
+                max_frames=1 if m["kind"] == "image" else MAX_VIDEO_FRAMES)
+            patches, grid = frames_to_patches(frames, vcfg)
+            blobs.append(pack_patches(patches, grid))
+            counts.append(merged_tokens(grid, vcfg))
+            salts.update(np.ascontiguousarray(patches).tobytes())
+        token_ids, offsets = expand_media_tokens(token_ids, tok_id, counts)
+        return token_ids, {
+            "mm_patches": blobs,
+            "mm_offsets": offsets,
+            # content salt, as the CLIP path (must equal the engine's)
+            "cache_salt": salts.hexdigest(),
+        }
 
     # -- completions --------------------------------------------------------- #
 
@@ -226,16 +325,6 @@ def _normalize_messages(messages: List[Dict[str, Any]],
             content = "".join(texts)
         out.append({**m, "content": content or ""})
     return out
-
-
-def _has_media(messages: List[Dict[str, Any]]) -> bool:
-    """Any image or video content part (multimodal input is a later
-    slice of the port)."""
-    return any(
-        isinstance(part, dict) and part.get("type") in ("image_url", "video_url")
-        for m in messages if isinstance(m, dict)
-        for part in (m.get("content") if isinstance(m.get("content"), list) else [])
-    )
 
 
 def _jinja_raise(msg):

@@ -16,8 +16,12 @@ the JAX package's `models/llama.py`.
   the hand-written grouped GEMM, `ops/moe.py`), ``a2a`` (ragged outside a
   mesh), ``capacity`` (GShard one-hot dispatch) or ``dense`` (every expert
   on every token, the oracle).
-
-M-RoPE (Qwen2-VL) is a later slice; a config that needs it is refused.
+- Multimodal prompts (Qwen2-VL, LLaVA): `forward_prefill` takes
+  precomputed embeddings spliced in at masked positions
+  (``extra_embeds``, ``extra_mask``) and, for M-RoPE models, the three
+  rope streams of the chunk (``mm_positions``); decode and verify take a
+  per-row ``rope_offset`` (the sequence's M-RoPE delta) that shifts rope
+  only, never the KV slot.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from ..ops import (
 from ..ops import moe as _moe_ops
 from ..ops.moe import grouped_gemm, grouped_glu
 from ..ops.paged_attention import kv_slots, write_kv_slots
-from ..ops.rotary import rope_cos_sin, rotate
+from ..ops.rotary import mrope_cos_sin, mrope_sections, rope_cos_sin, rotate
 from .config import ModelConfig
 from .quantization import _swap, is_quantized, matmul_any
 
@@ -67,9 +71,9 @@ class KVCache:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mrope_section:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE not ported yet (the vision slice)")
+    if cfg.mrope_section and sum(cfg.mrope_section) != cfg.head_dim_ // 2:
+        raise ValueError(f"{cfg.name}: mrope_section {cfg.mrope_section} does "
+                         f"not split the {cfg.head_dim_ // 2} rotary frequencies")
     if cfg.is_moe and cfg.moe_impl not in _MOE_IMPLS:
         raise ValueError(
             f"moe_impl must be ragged|a2a|capacity|dense, got {cfg.moe_impl!r}")
@@ -400,6 +404,8 @@ class Llama(nn.Module):
         self.inv_freq = rope_frequencies(cfg.head_dim_, cfg.rope_theta,
                                          cfg.rope_scaling, device=device)
         self.rope_scale = rope_attention_scale(cfg.rope_scaling)
+        self.mrope_sec = (mrope_sections(cfg.mrope_section, device=device)
+                          if cfg.mrope_section else None)
 
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + LM head; f32 logits.  An int8 head (quantization
@@ -409,15 +415,28 @@ class Llama(nn.Module):
         return matmul_any(x, head)
 
     def _prefill_layers(self, kv: KVCache, tokens, page_table, prefix_lens,
-                        chunk_lens) -> torch.Tensor:
-        """Embed a chunk (tokens [B, S]) and run every layer's prefill
-        over it; returns the last hidden states [B, S, h]."""
+                        chunk_lens, extra_embeds=None, extra_mask=None,
+                        mm_positions=None, rope_offset=None) -> torch.Tensor:
+        """Embed a chunk (tokens [B, S]; rows of ``extra_embeds`` [B, S, h]
+        replace the embedding where ``extra_mask`` [B, S] is set) and run
+        every layer's prefill over it; returns the last hidden states
+        [B, S, h].  An M-RoPE model ropes by ``mm_positions`` [B, 3, S]
+        when given, else text-style; ``rope_offset`` [B] shifts the rope
+        positions (verify), never the KV slots."""
         S = tokens.shape[1]
         positions = prefix_lens.long()[:, None] + torch.arange(
             S, device=tokens.device)[None, :]
-        rope = (*rope_cos_sin(positions, self.inv_freq), self.rope_scale)
+        if rope_offset is not None:
+            positions = positions + rope_offset.long()[:, None]
+        if mm_positions is not None and self.mrope_sec is not None:
+            rope = (*mrope_cos_sin(mm_positions, self.inv_freq, self.mrope_sec),
+                    1.0)
+        else:
+            rope = (*rope_cos_sin(positions, self.inv_freq), self.rope_scale)
         slot = kv_slots(page_table, prefix_lens, chunk_lens, S, kv.page_size)
         x = self.embed[tokens]
+        if extra_embeds is not None:
+            x = torch.where(extra_mask[..., None], extra_embeds.to(x.dtype), x)
         for i, layer in enumerate(self.layers):
             x = layer.prefill(x, (kv.k[i], kv.v[i]), rope, page_table,
                               prefix_lens, chunk_lens, slot)
@@ -425,33 +444,43 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def forward_prefill(self, kv: KVCache, tokens, page_table, prefix_lens,
-                        chunk_lens) -> torch.Tensor:
+                        chunk_lens, extra_embeds=None, extra_mask=None,
+                        mm_positions=None) -> torch.Tensor:
         """Run a prefill chunk (tokens [B, S]); returns f32 logits at each
-        row's last valid position [B, V]."""
-        x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens)
+        row's last valid position [B, V].  ``extra_embeds`` / ``extra_mask``
+        splice in vision embeddings; ``mm_positions`` [B, 3, S] are an
+        M-RoPE model's rope streams (without them it ropes text-style,
+        exact for text-only prompts)."""
+        x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens,
+                                 extra_embeds, extra_mask, mm_positions)
         last = torch.clamp(chunk_lens.long() - 1, min=0)
         x_last = x[torch.arange(tokens.shape[0], device=x.device), last]
         return self.lm_logits(x_last)
 
     @torch.no_grad()
     def forward_verify(self, kv: KVCache, tokens, page_table, prefix_lens,
-                       chunk_lens) -> torch.Tensor:
+                       chunk_lens, rope_offset=None) -> torch.Tensor:
         """Score EVERY position of a short draft chunk (tokens [B, S]: the
         last accepted token, then S-1 drafts) in one forward: the verify
         step of self-speculative decoding.  `forward_prefill` with the
         logits of all S positions, f32 [B, S, V]; it rides the prefill
         layer body, so every model feature is the prefill's.  The whole
         chunk's KV is written; slots of rejected drafts are never attended
-        (positions mask them) and are overwritten as decode advances."""
-        x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens)
+        (positions mask them) and are overwritten as decode advances.
+        ``rope_offset`` [B] is each row's M-RoPE delta (rope only)."""
+        x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens,
+                                 rope_offset=rope_offset)
         return self.lm_logits(x)
 
     @torch.no_grad()
-    def forward_decode(self, kv: KVCache, tokens, positions,
-                       page_table) -> torch.Tensor:
+    def forward_decode(self, kv: KVCache, tokens, positions, page_table,
+                       rope_offset=None) -> torch.Tensor:
         """One decode step for the batch (tokens, positions [B]); returns
-        f32 logits [B, V]."""
-        rope = (*rope_cos_sin(positions[:, None], self.inv_freq), self.rope_scale)
+        f32 logits [B, V].  ``rope_offset`` [B] (an M-RoPE model's
+        per-row delta) shifts the rope position; the KV slot stays the
+        token's index."""
+        rp = positions if rope_offset is None else positions + rope_offset
+        rope = (*rope_cos_sin(rp[:, None], self.inv_freq), self.rope_scale)
         slot = kv_slots(page_table, positions, torch.ones_like(positions), 1,
                         kv.page_size)
         seq_lens = (positions + 1).to(torch.int32)

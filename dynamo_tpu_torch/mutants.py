@@ -1,8 +1,8 @@
 """Mutation check of the CUDA kernels against `chip_smoke.py` phase 3.
 
 Each mutant is a copy of the checkout, in a temporary directory, whose
-`csrc/paged_attention.cu`, `csrc/grouped_gemm.cu` or `csrc/kv_transfer.cu`
-carries one planted fault.  Every copy builds
+`csrc/paged_attention.cu`, `csrc/grouped_gemm.cu`, `csrc/kv_transfer.cu`
+or `csrc/vision_attention.cu` carries one planted fault.  Every copy builds
 its own kernels (in parallel), then runs phase 3 alone; phase 3 must fail
 with "kernel disagrees".  Needs a CUDA card:
 
@@ -27,6 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("dynamo_tpu_torch", "csrc")
 PA, GG, KT = "paged_attention.cu", "grouped_gemm.cu", "kv_transfer.cu"
+VA = "vision_attention.cu"
 
 # name -> (source file, a text of it, its faulty replacement); each text
 # occurs once
@@ -37,6 +38,12 @@ MUTANTS = {
     "merge drops the last split": (
         PA, "  for (int s = 0; s < n_split; ++s) {\n    const float ms",
         "  for (int s = 0; s < n_split - 1; ++s) {\n    const float ms"),
+    # Qwen2's groups (7, 6): with the group itself, not its power-of-two
+    # ceiling, 14 or 12 lanes share a key and the shuffle tree and the
+    # 16-byte slices no longer cover hd (the phase-3 G 7 and G 6 cases;
+    # groups 1, 2, 4 and 8 are unchanged)
+    "decode lane split sized from G, not its power-of-two ceiling": (
+        PA, "  constexpr int GP = pow2_ceil(G);\n", "  constexpr int GP = G;\n"),
     "prefill reads the wrong kv head": (
         PA, "  const size_t col = (size_t)kh * HD + lc * 8;",
         "  const size_t col = (size_t)((kh + 1) % n_kv) * HD + lc * 8;"),
@@ -77,6 +84,13 @@ MUTANTS = {
         ""),
     "re-page counts destination tokens in source pages": (
         KT, "const int t = j * ps_d + s;", "const int t = j * ps_s + s;"),
+    # the towers' segment attention (the windowed and CLIP cases have more
+    # than one segment; 4784 and 577 are not multiples of the 32-key tile)
+    "segment tile reads keys past its segment's end": (
+        VA, "k1 = min(tl.w, n_tok);", "k1 = min(tl.w + KT, n_tok);"),
+    "segment skips the last partial key tile": (
+        VA, "const int n_tiles = (k1 - k0 + KT - 1) / KT;",
+        "const int n_tiles = (k1 - k0) / KT;"),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"

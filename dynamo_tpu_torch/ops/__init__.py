@@ -1,5 +1,6 @@
-"""Tensor ops of the port: norm, rotary, paged attention and the MoE
-grouped GEMM (`moe.py`) (CUDA kernels on the card, plain PyTorch on the
+"""Tensor ops of the port: norm, rotary (with M-RoPE), paged attention,
+the MoE grouped GEMM (`moe.py`) and the vision towers' segment attention
+(`vision_attention.py`) (CUDA kernels on the card, plain PyTorch on the
 CPU) and sampling."""
 
 from .norm import rms_norm

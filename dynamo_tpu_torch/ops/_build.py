@@ -26,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("paged_attention.cu", "grouped_gemm.cu", "kv_transfer.cu")
+SOURCES = ("paged_attention.cu", "grouped_gemm.cu", "kv_transfer.cu",
+           "vision_attention.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

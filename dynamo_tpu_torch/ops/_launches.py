@@ -9,12 +9,12 @@ the merge launches.  "moe_grouped_gemm" counts calls of the grouped GEMM
 (with K in slices, a slice pass then a sum pass), "moe_split_reduce" the
 sum passes, "moe_grouped_glu" the fused gate||up launches, "kv_repage"
 the KV re-page launches of disaggregated serving (one a transfer, K and V
-together).
+together), "segment_attention" the vision towers' segment attention.
 """
 
 LAUNCHES = {"decode_attention": 0, "decode_merge": 0, "prefill_attention": 0,
             "moe_grouped_gemm": 0, "moe_split_reduce": 0, "moe_grouped_glu": 0,
-            "kv_repage": 0}
+            "kv_repage": 0, "segment_attention": 0}
 
 
 def reset_launches() -> None:

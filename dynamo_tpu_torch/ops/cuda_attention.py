@@ -31,7 +31,8 @@ DECODE_SPLIT_KEYS = 256
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_GROUPS = (1, 2, 4, 8)
+# q heads per kv head: any group from 1 to 8 (Qwen2's 7 and 6 included)
+_GROUPS = tuple(range(1, 9))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +68,16 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device,
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
+def check_heads(H: int, n_kv: int, hd: int) -> None:
+    """Raise unless the kernels take q heads `H` over `n_kv` kv heads of
+    `hd`: the shape check of every attention wrapper, which needs no
+    card."""
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    if n_kv <= 0 or H % n_kv or H // n_kv not in _GROUPS:
+        raise ValueError(f"q heads {H} / kv heads {n_kv} not in {_GROUPS}")
+
+
 def _common(q, k_pages, v_pages, page_table, sink, H):
     if q.device.type != "cuda":
         raise ValueError("the CUDA attention kernels take CUDA tensors only")
@@ -80,10 +91,7 @@ def _common(q, k_pages, v_pages, page_table, sink, H):
         raise ValueError("k_pages and v_pages differ in shape")
     _check("page_table", page_table, torch.int32, 2, dev)
     P, page, n_kv, hd = k_pages.shape
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
-    if H % n_kv or H // n_kv not in _GROUPS:
-        raise ValueError(f"q heads {H} / kv heads {n_kv} not in {_GROUPS}")
+    check_heads(H, n_kv, hd)
     if sink is not None:
         _check("sink", sink, torch.float32, 1, dev)
         if sink.shape[0] != H:

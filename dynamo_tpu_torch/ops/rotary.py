@@ -1,6 +1,6 @@
 """Rotary position embeddings (RoPE), including Llama-3 and YaRN frequency
-scaling.  Applied in float32 then cast back (precision matters for long
-context).  `apply_mrope` (Qwen2-VL) is not ported yet."""
+scaling, and the multimodal M-RoPE of Qwen2-VL (`apply_mrope`).  Applied
+in float32 then cast back (precision matters for long context)."""
 
 from __future__ import annotations
 
@@ -111,3 +111,38 @@ def apply_rope(
 ) -> torch.Tensor:
     """Rotate pairs (x[..., :d/2], x[..., d/2:]) — HF llama convention."""
     return rotate(x, *rope_cos_sin(positions, inv_freq), scale)
+
+
+def mrope_sections(section, device=None) -> torch.Tensor:
+    """[d/2] int64: which position stream (0 temporal, 1 height, 2 width)
+    each rotary frequency reads."""
+    t, h, w = section
+    return torch.cat([torch.full((n,), i, dtype=torch.int64, device=device)
+                      for i, n in enumerate((t, h, w))])
+
+
+def mrope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor,
+                  sec_of: torch.Tensor):
+    """(cos, sin) [B, S, 1, d/2] f32 for the three streams `positions`
+    [B, 3, S]: frequency i takes its angle from stream `sec_of[i]`."""
+    pos = positions.float()[:, sec_of, :]  # [B, d/2, S]
+    angles = pos.transpose(1, 2) * inv_freq  # [B, S, d/2]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_mrope(
+    x: torch.Tensor,  # [B, seq, heads, head_dim]
+    positions: torch.Tensor,  # [B, 3, seq] (temporal, height, width) ids
+    inv_freq: torch.Tensor,  # [head_dim//2]
+    section,  # 3 ints summing to head_dim//2 (HF mrope_section)
+) -> torch.Tensor:
+    """Multimodal rotary embedding (Qwen2-VL): the head_dim//2 rotary
+    frequencies split into three contiguous sections that read their angle
+    from the temporal / height / width position stream.  Text tokens carry
+    equal ids on all three streams, for which this is exactly
+    `apply_rope`; decode therefore needs only a scalar position shifted by
+    the sequence's delta.  HF Qwen2VL `apply_multimodal_rotary_pos_emb`."""
+    if sum(section) != inv_freq.shape[0]:
+        raise ValueError(f"mrope section {section} != {inv_freq.shape[0]} frequencies")
+    sec_of = mrope_sections(section, device=inv_freq.device)
+    return rotate(x, *mrope_cos_sin(positions, inv_freq, sec_of))

@@ -1,5 +1,6 @@
-"""Test data of the port: the tiny byte-level tokenizer and a seeded
-byte-level BPE tokenizer of any vocabulary size.
+"""Test data of the port: the tiny byte-level tokenizer, a seeded
+byte-level BPE tokenizer of any vocabulary size, and `sharpen` for random
+weights.
 
 Both are written as ``tokenizer.json`` documents, so the HF `tokenizers`
 runtime and the port's `llm.tokenizer` read the same bytes.
@@ -9,7 +10,9 @@ from __future__ import annotations
 
 import json
 import random
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+import torch
 
 from .llm.tokenizer import HuggingFaceTokenizer, bytes_to_unicode
 
@@ -65,14 +68,20 @@ def tiny_tokenizer() -> HuggingFaceTokenizer:
 
 def synthetic_tokenizer_json(vocab_size: int = 128256, seed: int = 0,
                              n_special: int = 256,
-                             max_token_chars: int = 8) -> str:
+                             max_token_chars: int = 8,
+                             specials: Optional[Dict[int, str]] = None) -> str:
     """A Llama-3-shaped byte-level BPE tokenizer of exactly `vocab_size`
     ids, drawn from `seed`: the 256 byte symbols, then seeded merges of
     two existing symbols (at most `max_token_chars` characters, each a
     new id), then `n_special` special tokens (``<|begin_of_text|>`` first,
-    which the post-processor puts before every encoded sequence).  Every
-    id decodes.  Test data for models with random weights, not a
+    which the post-processor puts before every encoded sequence, then
+    ``<|end_of_text|>``), of which `specials` names some by id (a media
+    model's placeholders at their published ids; the special range then
+    starts two below the lowest).
+    Every id decodes.  Test data for models with random weights, not a
     tokenizer of any published model."""
+    if specials:
+        n_special = max(n_special, vocab_size - min(specials) + 2)
     rng = random.Random(seed)
     table = bytes_to_unicode()
     symbols = [table[b] for b in range(256)]
@@ -95,6 +104,8 @@ def synthetic_tokenizer_json(vocab_size: int = 128256, seed: int = 0,
     base = len(vocab)
     names = ["<|begin_of_text|>", "<|end_of_text|>"] + [
         f"<|reserved_special_token_{k}|>" for k in range(n_special - 2)]
+    for tid, name in (specials or {}).items():
+        names[tid - base] = name
     added = [_added(t, base + k) for k, t in enumerate(names)]
     bos = names[0]
     return json.dumps({
@@ -121,10 +132,12 @@ def synthetic_tokenizer_json(vocab_size: int = 128256, seed: int = 0,
 
 
 def synthetic_tokenizer(vocab_size: int = 128256, seed: int = 0,
-                        path: Optional[str] = None) -> HuggingFaceTokenizer:
+                        path: Optional[str] = None,
+                        specials: Optional[Dict[int, str]] = None
+                        ) -> HuggingFaceTokenizer:
     """`synthetic_tokenizer_json` loaded (and written to `path` when
     given); EOS is ``<|end_of_text|>``, BOS ``<|begin_of_text|>``."""
-    data = synthetic_tokenizer_json(vocab_size, seed)
+    data = synthetic_tokenizer_json(vocab_size, seed, specials=specials)
     if path:
         with open(path, "w", encoding="utf-8") as f:
             f.write(data)
@@ -134,5 +147,44 @@ def synthetic_tokenizer(vocab_size: int = 128256, seed: int = 0,
     return tok
 
 
-__all__ = ["LLAMA3_PATTERN", "synthetic_tokenizer",
+__all__ = ["LLAMA3_PATTERN", "MEDIA_SPECIALS", "sharpen", "synthetic_tokenizer",
            "synthetic_tokenizer_json", "tiny_tokenizer", "tiny_tokenizer_json"]
+
+
+# the published special tokens of the canned media models, by id
+MEDIA_SPECIALS = {
+    "qwen2.5-vl-7b": {151652: "<|vision_start|>",
+                      151653: "<|vision_end|>", 151655: "<|image_pad|>",
+                      151656: "<|video_pad|>"},
+}
+
+
+@torch.no_grad()
+def sharpen(model, tower=None, probe_seed: int = 0) -> None:
+    """Random weights at the JAX package's scales give a deep model whose
+    greedy output ignores its input.  Raise the embedding to std ~1 (x50)
+    and the q and k projections by 1.5 over the rope's attention scale, so
+    a single key moves the output (chip_smoke.py's `sharpen` says why); with a Qwen
+    `tower`, also scale the merger's last projection so that image
+    embeddings have the RMS of the sharpened token embeddings, measured on
+    a seeded 56x56 probe image: otherwise an image would not move the
+    logits.  Deterministic for a seed, so a worker process sharpened with
+    ``--sharpen`` equals the same model sharpened in another process."""
+    import numpy as np
+
+    qk = 1.5 / model.rope_scale
+    model.embed.mul_(50.0)
+    for layer in model.layers:
+        layer.wq.mul_(qk)
+        layer.wk.mul_(qk)
+    if tower is None:
+        return
+    from .models.qwen_vl import encode_patches, frames_to_patches
+
+    frames = np.random.default_rng(probe_seed).random((1, 56, 56, 3), np.float32)
+    patches, grid = frames_to_patches(frames, tower.cfg)
+    emb = encode_patches(tower, torch.from_numpy(patches), grid)
+    rms = lambda t: t.float().pow(2).mean().sqrt()  # noqa: E731
+    scale = (rms(model.embed) / rms(emb)).item()
+    tower.p("merge_w2").mul_(scale)
+    tower.p("merge_b2").mul_(scale)

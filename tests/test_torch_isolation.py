@@ -1,7 +1,7 @@
 """The port stands alone: importing dynamo_tpu_torch (every module), its
 launchers and chip_smoke.py loads neither JAX nor the JAX package, nor any
 of the packages the GPU machine lacks (aiohttp, msgpack, tokenizers,
-safetensors, regex, prometheus_client); no module of the port imports
+safetensors, regex, prometheus_client, PIL); no module of the port imports
 them; and the entry points refuse to run when there is no CUDA device and
 the caller did not ask for the CPU."""
 
@@ -16,7 +16,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dynamo_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "msgpack", "tokenizers",
-             "safetensors", "regex", "prometheus_client")
+             "safetensors", "regex", "prometheus_client", "PIL")
 LAUNCHERS = ("run", "worker", "frontend", "runtime", "router")
 
 
@@ -168,3 +168,56 @@ def test_prefill_role_on_a_card_refuses_expandable_segments(monkeypatch):
         ["--control", "x:1", "--disagg-role", "prefill", "--device", "cpu"]))
     check_role(build_parser().parse_args(
         ["--control", "x:1", "--disagg-role", "decode"]))
+
+
+VISION = ("models/qwen_vl.py", "models/vision.py", "models/vlm.py",
+          "ops/vision_attention.py", "llm/multimodal.py", "llm/image_codec.py",
+          "engine/media.py", "disagg/encode.py")
+
+
+def test_vision_modules_are_covered():
+    """The vision slice's modules are among the sources the import checks
+    walk (no JAX, no PIL: the codec decodes media), and its kernel source
+    is in the build."""
+    from dynamo_tpu_torch.ops import _build
+
+    walked = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in VISION:
+        assert mod in walked, mod
+    assert "vision_attention.cu" in _build.SOURCES
+    assert os.path.exists(os.path.join(PKG, "csrc", "vision_attention.cu"))
+
+
+def test_vision_entry_points_refuse_without_cuda(monkeypatch):
+    """The towers, their loaders and an encode worker build on the card
+    unless asked for the CPU; the segment kernel's wrapper takes CUDA
+    tensors only."""
+    from dynamo_tpu_torch.models import qwen_vl, vision, vlm
+    from dynamo_tpu_torch.ops import vision_attention as va
+    from dynamo_tpu_torch.worker.__main__ import build_engine, build_parser, check_role
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    qcfg = qwen_vl.tiny_qwen_vl_vision_config()
+    ccfg = vision.tiny_vision_config()
+    golden = os.path.join(ROOT, "tests", "fixtures", "golden_llava")
+    for make in (lambda: qwen_vl.init_qwen_vl_vision_params(qcfg, torch.Generator()),
+                 lambda: vision.init_vision_params(ccfg, torch.Generator()),
+                 lambda: vlm.load_vlm(golden)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    q = torch.zeros((4, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        va.segment_attention_cuda(q, q, q, [0, 4])
+    args = build_parser().parse_args(["--control", "x:1", "--disagg-role", "encode",
+                                      "--vision", "tiny"])
+    check_role(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(args)
+    cpu = build_parser().parse_args(["--control", "x:1", "--disagg-role", "encode",
+                                     "--vision", "tiny", "--device", "cpu"])
+    engine, mdc = build_engine(cpu)
+    assert engine.device.type == "cpu" and engine.vision[0] is not None
+    assert mdc.image_token == "<image>" and mdc.image_patches == ccfg.num_patches
+    with pytest.raises(SystemExit, match="vision tower"):
+        check_role(build_parser().parse_args(["--control", "x:1",
+                                              "--disagg-role", "encode"]))

@@ -111,8 +111,9 @@ def test_two_shard_index_equals_jax(tmp_path):
 
 def test_refuses_what_the_model_does_not_take(tmp_path):
     """A config that asks for tensors the checkpoint lacks (attention
-    biases, sinks) is refused by both loaders, with the same error; M-RoPE
-    is refused by the port alone (the vision slice)."""
+    biases, sinks) is refused by both loaders, with the same error; an
+    M-RoPE config needs no tensors of its own, and both take it (the port
+    since the vision slice)."""
     path = GOLDEN["golden_llama"]
     with open(os.path.join(path, "config.json")) as f:
         d = json.load(f)
@@ -124,10 +125,12 @@ def test_refuses_what_the_model_does_not_take(tmp_path):
         with pytest.raises(ValueError, match=match):
             load_params(path, ModelConfig.from_hf_config({**d, **over}),
                         dtype=torch.float32, device="cpu")
-    mrope = {"rope_scaling": {"type": "mrope", "mrope_section": [2, 1, 1]}}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_params(path, ModelConfig.from_hf_config({**d, **mrope}),
-                    dtype=torch.float32, device="cpu")
+    mrope = {"rope_scaling": {"type": "mrope", "mrope_section": [2, 3, 3]}}
+    jax_load_params(path, JaxModelConfig.from_hf_config({**d, **mrope}),
+                    dtype=jnp.float32)
+    model = load_params(path, ModelConfig.from_hf_config({**d, **mrope}),
+                        dtype=torch.float32, device="cpu")
+    assert model.cfg.mrope_section == (2, 3, 3) and model.mrope_sec is not None
 
 
 def run_steps(model, cfg, prompt, feed, page_size=8):
