@@ -47,13 +47,15 @@ final line):
    Qwen2.5-7B and the Qwen2.5-VL-7B text stack; decode ragged and serving
    rows, prefill of a 512-token chunk after a 1536-token prefix, all
    timed), 12 / 2 (G 6, timed), 14 / 2 of 64 (G 7, Qwen2.5-0.5B) and f32.
-   The vision towers' segment attention (`csrc/vision_attention.cu`, f32)
-   against its plain per-segment softmax at a Qwen2.5-VL-7B full layer
-   over one 1288x728 image (4784 patches, 16 heads of 80), a windowed
-   layer over the same image (84 windows) and CLIP ViT-L/14-336 over 2
-   images of 577 tokens (16 heads of 64), each timed with
-   `scaled_dot_product_attention` and the boolean block mask as the
-   yardstick, and the golden LLaVA tower's 2 heads of 16.
+   The vision towers' segment attention (`csrc/vision_attention.cu`, f32
+   in three TF32 passes) against its plain per-segment softmax at a
+   Qwen2.5-VL-7B full layer over one 1288x728 image (4784 patches, 16
+   heads of 80), a windowed layer over the same image (84 windows) and
+   CLIP ViT-L/14-336 over 2 images of 577 tokens (16 heads of 64), each
+   timed with `scaled_dot_product_attention` and the boolean block mask as
+   the yardstick and bound by three TF32 passes (the f32 FMA bound of the
+   first version kept beside it), the golden LLaVA tower's 2 heads of 16,
+   and head dims 128 (32-key tiles) and 48 on short segments.
    Then the seeded sampler's threefry bits on the card against the CPU's,
    and the sampler's time per step;
 4. serving: `TorchEngine` at Llama-3.1-8B full width and depth (random bf16
@@ -210,7 +212,9 @@ final line):
    version on a 448x448 image (relative error), the first token's logits
    of the kernel path against the plain path within LOGIT_TOL std, and
    another image under the same text moving them beyond it; the tower's
-   host-clock ms on a 1288x728 image; (c) `TorchEngine` serving chats
+   host-clock ms on a 1288x728 image, and one run of it under
+   `torch.profiler`: device ms of the segment kernel, the GEMMs and the
+   rest; (c) `TorchEngine` serving chats
    built by the port's preprocessor from PNG / APNG data URIs (the port's
    codec): text only, a 448x448 image (256 tokens), a 1288x728 image (1196
    tokens, crossing two 512-token chunk boundaries), two images, a 4-frame
@@ -257,9 +261,11 @@ import torch
 SEED = 20261016
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-# H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
+# H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA cores,
+# TF32 tensor cores, HBM
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # Phase 3 inputs: K/V std 0.3 and q std 8 spread the scaled scores q.k/sqrt(hd)
 # by about 2.4, so each row's softmax is peaked and the online rescale between
@@ -620,6 +626,8 @@ QWEN_G6 = dict(hd=128, H=12, n_kv=2)
 # The vision towers' segment attention (f32, `csrc/vision_attention.cu`):
 # q std 2 over k, v std 1 spreads each head's scores by 2, so every softmax
 # is peaked and the online rescale between key tiles decides the result.
+# One TF32 pass a product would miss RTOL[float32] by ~20x here
+# (tests/test_torch_segment_tf32.py); the kernel's three must hold it.
 SEG_Q_STD = 2.0
 
 
@@ -652,7 +660,9 @@ def segment_case(name, gen, cu, nh, hd, timed=False):
         lens = [b - a for a, b in zip(cu[:-1], cu[1:])]
         flops = sum(4 * n * n * hd * nh for n in lens)
         nbytes = 4 * q.numel() * 4  # q, k, v read once, out written once
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+        # the kernel's products: three TF32 passes each on the tensor
+        # cores; the f32 FMA bound of the CUDA-core first version beside it
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 3 * flops / PEAK_TF32 * 1e3
         # library yardstick: one SDPA call over the stream with the
         # boolean block mask of the segments
         seg = torch.repeat_interleave(torch.arange(len(lens), device="cuda"),
@@ -672,7 +682,8 @@ def segment_case(name, gen, cu, nh, hd, timed=False):
                 lambda: va.segment_attention_plain(q, k, v, cu), iters=3),
             "library_ms": time_ms(lambda: sdpa(q_l, k_l, v_l, attn_mask=mask)),
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations (3xTF32)",
+            "f32_bound_ms": max(t_bytes, flops / PEAK_F32 * 1e3),
             "bytes": nbytes, "flops": flops,
         })
     return res
@@ -713,6 +724,11 @@ def group_and_segment_cases(gen):
                      gen, lay["clip"], 16, 64, timed=True),
         segment_case("segment golden llava: 2 x 5 tokens, 2 heads of 16", gen,
                      [0, 5, 10], 2, 16),
+        # the ring's other sizes: 32-key tiles at hd 128, 64 at hd 48
+        segment_case("segment hd 128: segments of 100 and 200, 4 heads", gen,
+                     [0, 100, 300], 4, 128),
+        segment_case("segment hd 48: segments of 70, 7 and 123, 4 heads", gen,
+                     [0, 70, 77, 200], 4, 48),
     ]
 
 
@@ -1199,7 +1215,8 @@ def sharpen(model) -> None:
     sharpen_weights(model)
 
 
-_GROUPS = (("attention_decode", ("pa_decode_",)),
+_GROUPS = (("segment_attention", ("segment_attention",)),
+           ("attention_decode", ("pa_decode_",)),
            ("attention_prefill", ("pa_prefill_",)),
            ("moe", ("moe_grouped_", "moe_split_reduce")),
            ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")))
@@ -4421,6 +4438,35 @@ def vl_paths(engine, req, other):
     return plain_logits
 
 
+def vl_tower_trace(engine, req):
+    """(b) One tower run on the 1288x728 image under `torch.profiler`:
+    its device ms in the segment kernel, the GEMMs and the rest.  The
+    wrappers' count must show one segment launch a layer; the profiler
+    must have seen the kernel (it may drop the window's first events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+
+    vl_embeds(engine, req)  # warm
+    torch.cuda.synchronize()
+    ca.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vl_embeds(engine, req)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ca.LAUNCHES["segment_attention"]
+    res = device_breakdown(prof, wall)
+    emit({"phase": "vision", "what": "tower_trace", "image": "1288x728",
+          "patches": 4784, "segment_launches": launches, **res})
+    if launches != engine.vision[1].depth:
+        fail(f"vision (b): the tower made {launches} segment launches, not one a "
+             f"layer")
+    if res["groups"].get("segment_attention", {"ms": 0.0})["ms"] <= 0:
+        fail(f"vision (b): the tower's trace holds no segment kernel: {res}")
+
+
 def vl_engine_args(extra=()):
     from dynamo_tpu_torch.worker.__main__ import build_parser
 
@@ -4658,6 +4704,7 @@ def phase_vision():
     tower_ms = time_ms_host(lambda: vl_embeds(engine, reqs["img1288x728"]))
     emit({"phase": "vision", "what": "tower_ms", "image": "1288x728",
           "patches": 4784, "host_clock_ms": tower_ms})
+    vl_tower_trace(engine, reqs["img1288x728"])
     launches, bodies, direct = vl_serving(engine, mdc, tok)
     del engine
     gc.collect()
@@ -4835,7 +4882,7 @@ def main() -> int:
     timed = [c for c in mine if "ms" in c]
     head = next(c for c in timed if "windowed" in c["case"])
     keys = ("case", "ms", "host_paced_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")
+            "bound_ms", "bound_by", "f32_bound_ms")
     kernels.append({
         "name": "segment_attention", "route": "cuda",
         "source": "dynamo_tpu_torch/csrc/vision_attention.cu",
@@ -4849,6 +4896,7 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in mine),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "f32_bound_ms": head["f32_bound_ms"],
         "library_ms": head["library_ms"], "timed_case": head["case"],
         "library": "scaled_dot_product_attention with the boolean block mask",
         "timed_cases": [{k: c[k] for k in keys} for c in timed],

@@ -85,12 +85,21 @@ MUTANTS = {
     "re-page counts destination tokens in source pages": (
         KT, "const int t = j * ps_d + s;", "const int t = j * ps_s + s;"),
     # the towers' segment attention (the windowed and CLIP cases have more
-    # than one segment; 4784 and 577 are not multiples of the 32-key tile)
+    # than one segment; 4784 and 577 are not multiples of the 64-key tile,
+    # and the windows hold at most 64 patches: every timed case ends in a
+    # partial key tile)
     "segment tile reads keys past its segment's end": (
-        VA, "k1 = min(tl.w, n_tok);", "k1 = min(tl.w + KT, n_tok);"),
+        VA, "k1 = min(tl.w, n_tok);", "k1 = min(tl.w + NK, n_tok);"),
     "segment skips the last partial key tile": (
-        VA, "const int n_tiles = (k1 - k0 + KT - 1) / KT;",
-        "const int n_tiles = (k1 - k0) / KT;"),
+        VA, "const int n_tiles = (k1 - k0 + NK - 1) / NK;",
+        "const int n_tiles = (k1 - k0) / NK;"),
+    "segment drops the hi.lo pass of Q.K^T": (
+        VA, "    issue_s_pass(sb + SM::QHI, klo, false);\n", ""),
+    "segment V^T transpose writes key j into column j + 1": (
+        VA, "const int key = col_key(4 * c + i);",
+        "const int key = (col_key(4 * c + i) + NK - 1) % NK;"),
+    "segment leaves the zero-filled keys of the last tile unmasked": (
+        VA, "        if (8 * j + 2 * t4 + (e & 1) >= n_valid) s[j][e] = NEG_INF;\n", ""),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"

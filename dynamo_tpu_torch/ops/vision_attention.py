@@ -9,10 +9,18 @@ it launches the hand-written kernel `segment_attention_kernel`
 ["segment_attention"]``; on a CPU tensor it runs the plain version.  It
 replaces the towers' XLA ops (the masked einsum and softmax of
 `dynamo_tpu/models/qwen_vl.py:280-309` and `models/vision.py:140-150`),
-not a TPU kernel.  The layout is a host fact: the towers know their
-segments from the image grid before they run, so the wrapper builds the
-kernel's tile table on the host, once per layout (an LRU of the tables on
-the card), and nothing waits on the device.
+not a TPU kernel.
+
+The products bound the kernel (a Qwen2.5-VL full layer is 117 GFLOP
+against 98 MB), so they run on the tensor cores as TF32 `wgmma`.  TF32
+keeps 10 mantissa bits, ~2e-3 of a row where the port holds f32 to 1e-4,
+so every f32 operand is split into a TF32 hi and lo and every product
+into three passes (lo.hi + hi.lo + hi.hi, f32 sums): the rows stay within
+a few 1e-6 of the f32 result, and the bound is three TF32 passes at 495
+TFLOP/s.  The layout is a host fact: the towers know their segments from
+the image grid before they run, so the wrapper builds the kernel's tile
+table on the host, once per layout (an LRU of the tables on the card),
+and nothing waits on the device.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from . import _build
 from ._launches import LAUNCHES
 
 SOURCE = "vision_attention.cu"
-TILE_ROWS = 64  # query rows of one kernel block (BQ in the source)
+TILE_ROWS = 64  # query rows of one kernel block, its consumer warpgroup's (BQ in the source)
 HEAD_DIMS = tuple(range(16, 129, 16))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
