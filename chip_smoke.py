@@ -20,7 +20,9 @@ final line):
    library yardstick, never used by the port), for the first slice's
    cases and for the serving shapes (decode: 8 padded rows of up to 2080
    tokens; prefill: a 512-token chunk after a 1536-token prefix, and the
-   speculative verify's 5-token chunks on 8 rows, one of them padding),
+   speculative verify's 5-token chunks on 8 rows, one of them padding;
+   the embeddings' cache-free call: prefix 0, 8 ragged rows of 16-2048
+   tokens padded to 2048, a one-slot pool, in bf16 and f32),
    and both kernels at gpt-oss-20b's heads (64 q / 8 kv of 64, window 128,
    sinks).  The MoE kernels (`csrc/grouped_gemm.cu`) against their
    plain per-expert loops at gpt-oss-20b's expert shapes (K = N = 2880, 32
@@ -227,21 +229,57 @@ final line):
    plane, an encode worker (``--disagg-role encode``, its LLM cut to one
    layer), a serving worker (``--encode-component encoder``, no tower)
    and the frontend as processes: a chat with a data: PNG over HTTP gives
-   (c)'s text for the same chat served alone.
+   (c)'s text for the same chat served alone;
+14. embeddings, data-parallel ranks and request migration (after 12, on
+   phase 4's 8B at full width and depth).  (a) `TorchEngine.embed` on
+   eight ragged inputs of 16-2048 tokens (one call of the prefill kernel
+   at phase 3's embeddings shape), on the kernels and on the plain
+   attention: every vector within EMBED_TOL of its plain-path vector,
+   three planted faults (the final norm dropped, the mean over padded
+   positions, a prefix page attended) beyond it; the prefill kernel
+   launched and no plain attention run; a 128-token input alone and
+   inside a 64-input batch within EMBED_TOL; the inputs apart by
+   EMBED_APART limits; ms per request at 1x512, 8x512, 64x128 and 1x4096
+   tokens and the peak memory of the last.  (b) The same engine behind the
+   in-process stack: /v1/embeddings gives (a)'s vectors exactly, its
+   usage, 404 for an unknown model, 400 for a card without
+   ``embedding`` and for 65 inputs.  (c) A `DpRankEngine` of two 512-page
+   engines sharing the weights (`serve_engine`: per-rank publishers, the
+   card scaled by the ranks) and the worker's status server, behind a
+   `python -m dynamo_tpu_torch.frontend --router-mode kv` process: phase
+   10's four 1024-token prefixes rank-less (the ranks alternate), then
+   each with a new suffix through the kv frontend (each on the rank that
+   holds it, its prefix-cache counter up by 1024), phase 4's greedy
+   prompts rank-less (alternating, phase 4's tokens up to a near-tie),
+   three of them sent to both ranks at once with top logprobs (graph keys
+   new to both ranks, captured while the other rank prefills, replays and
+   captures: phase 4's tokens up to a near-tie, each new decode graph's
+   recorded launches T x 32 layers, and the registry's launches equal to
+   the replays', the new graphs' warm-up runs and 32 per eager prefill
+   pass), /metrics equal to the
+   ranks' sums, an embed for ``dp_rank`` 1 served there.  (d) The control plane, two `python -m dynamo_tpu_torch.worker`
+   processes (the 8B from the same ``--seed``, full depth) and a
+   round-robin frontend: a greedy SSE request of 64 tokens on a 1024-token
+   prompt, undisturbed, then again with its worker SIGKILLed after the
+   8th token: all 64 tokens, the undisturbed text up to a near-tie,
+   ``dynamo_frontend_migrations_total`` 1, the longest inter-token gap at
+   the kill printed, and a later request served by the survivor.
 
 On the card every decode block is a replayed CUDA graph; the wrappers
 count launches in Python, so the graph runner adds each graph's recorded
 launches at every replay.  Every JSON line is also written to
 ``chip_smoke.jsonl`` in the output directory below, for the lines a
 terminal's scrollback loses.  Launch counts are read per path (phases 4, 6
-and 7, each arm of 8, 9, 10, 11, 12 and 13, each zeroed just before it): the
+and 7, each arm of 8, 9, 10, 11, 12 and 13, 14 (a) and (c), each zeroed
+just before it): the
 kernel summary line's ``launches`` are those of the HTTP traffic, the
 main path, for the attention kernels, of phase 11's one-step gpt-oss
 serving for the grouped GEMM and the fused gate||up, of phase 12
 (b)'s decode worker process (read from its /metrics.json before and
 after the measured round) for the KV re-page, and of phase 13 (c)'s
 one-step Qwen2.5-VL-7B engine, this slice's path, for the segment
-attention.  Then
+attention; the prefill entry adds its launches on phase 14 (a)'s
+embeddings path.  Then
 the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.
@@ -519,15 +557,22 @@ def decode_width_case(gen, page=16):
 
 
 def prefill_case(name, gen, dtype, hd, H, n_kv, S, prefix, chunk, window=None,
-                 with_sink=False, page=16, timed=False, trash_rows=()):
+                 with_sink=False, page=16, timed=False, trash_rows=(),
+                 cache_free=False):
     """`trash_rows`: padding rows whose whole table points at trash page 0,
-    as the engine pads a batch (the speculative verify's empty rows)."""
+    as the engine pads a batch (the speculative verify's empty rows).
+    `cache_free`: the embeddings' call (`Llama.forward_embed`): every
+    prefix 0, a pool of one one-slot page and a one-column zero table."""
     from dynamo_tpu_torch.ops import cuda_attention as ca
     from dynamo_tpu_torch.ops import paged_attention as pa
 
     B = len(prefix)
-    maxp = max(1, -(-max(p + S for p in prefix) // page))
-    table, P = _table([maxp] * B, maxp)
+    if cache_free:
+        page, maxp = 1, 1
+        table, P = torch.zeros((B, 1), dtype=torch.int32), 1
+    else:
+        maxp = max(1, -(-max(p + S for p in prefix) // page))
+        table, P = _table([maxp] * B, maxp)
     table[list(trash_rows)] = 0
     kp, vp = _pool(gen, P, page, n_kv, hd, dtype)
     table = table.cuda()
@@ -615,6 +660,11 @@ SERVING_PREFILL = dict(S=512, prefix=[1536], chunk=[512])
 # padded to max_num_seqs, the padding row's table all trash
 SERVING_VERIFY = dict(S=5, prefix=[96, 1256, 2080, 1556, 332, 300, 64, 0],
                       chunk=[5] * 8, trash_rows=(7,))
+
+
+# the embeddings' prefill (phase 14 (a)): eight ragged inputs of 16-2048
+# tokens in one call, prefix 0, padded to the longest
+EMBED_LENS = [2048, 1999, 1536, 1024, 777, 512, 128, 16]
 
 
 # Qwen2's head groups: Qwen2.5-7B and the Qwen2.5-VL-7B
@@ -1055,6 +1105,12 @@ def phase_kernels():
                      sp["prefix"], sp["chunk"], timed=True),
         prefill_case("prefill speculative verify shape", gen, bf, 128, 32, 8,
                      **SERVING_VERIFY, timed=True),
+        prefill_case("prefill embeddings: prefix 0, S 2048, 8 ragged rows", gen,
+                     bf, 128, 32, 8, EMBED_LENS[0], [0] * 8, EMBED_LENS,
+                     timed=True, cache_free=True),
+        prefill_case("prefill embeddings f32: prefix 0, S 2048, 8 ragged rows",
+                     gen, f32, 128, 32, 8, EMBED_LENS[0], [0] * 8, EMBED_LENS,
+                     timed=True, cache_free=True),
         # gpt-oss-20b (phase 11): 64 q / 8 kv heads of 64, a 128-token
         # window on even layers, sinks on every layer
         decode_case("decode gpt-oss-20b: hd 64, G 8, window 128, sinks", gen, bf,
@@ -1369,7 +1425,8 @@ def phase_serving(model, cfg, quantization="none", phase="serving"):
     direct = {"ttft_ms": {n: r["ttft_ms"] for n, r in res.items()},
               "itl_ms": {n: (r["t_last"] - r["t_first"]) / (len(r["tokens"]) - 1) * 1e3
                          for n, r in res.items()},
-              "decode_tokens_per_s": decoded / (last - first)}
+              "decode_tokens_per_s": decoded / (last - first),
+              "tokens": {n: r["tokens"] for n, r in res.items()}}
     return launches, direct
 
 
@@ -1565,6 +1622,30 @@ WAVE_ORDER = ("direct", "http_in_process", "http_frontend_process",
               "http_frontend_process", "http_in_process", "direct")
 
 
+def _spawn(procs, *args, env=None):
+    p = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                         stdout=subprocess.PIPE, text=True)
+    procs.append(p)
+    return p
+
+
+def _ready(p, prefix, what, timeout=600):
+    """The first line of `p` that starts with `prefix` (fails if `p`
+    exits first or `timeout` passes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def scan():
+        seen = []
+        for line in p.stdout:
+            if line.startswith(prefix):
+                return line.strip()
+            seen.append(line)
+        fail(f"{what} exited, printing {seen!r}")
+
+    with ThreadPoolExecutor(1) as ex:
+        return ex.submit(scan).result(timeout=timeout)
+
+
 def _http(port, method, path, body=None, timeout=600):
     """(status, body bytes) of one request on its own connection."""
     import http.client
@@ -1579,9 +1660,10 @@ def _http(port, method, path, body=None, timeout=600):
         conn.close()
 
 
-def _http_stream(port, path, body, timeout=600):
+def _http_stream(port, path, body, timeout=600, on_frame=None):
     """One SSE request read frame by frame at the client: (status, text,
-    finish_reason, send time, arrival time of each data frame)."""
+    finish_reason, send time, arrival time of each data frame).
+    `on_frame(n)` is called after the n-th data frame arrives."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
@@ -1605,6 +1687,8 @@ def _http_stream(port, path, body, timeout=600):
             text.append(ch["delta"].get("content", "") if "delta" in ch
                         else ch.get("text", ""))
             finish = ch.get("finish_reason") or finish
+            if on_frame is not None:
+                on_frame(len(stamps))
         r.read()
         return r.status, "".join(text), finish, t0, stamps
     finally:
@@ -3320,22 +3404,10 @@ def disagg_processes(cfg, layers=None, device="cuda"):
         "--device", device, "--log-level", "warning"]
 
     def spawn(*args, env=None):
-        p = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
-                             stdout=subprocess.PIPE, text=True)
-        procs.append(p)
-        return p
+        return _spawn(procs, *args, env=env)
 
     def ready(p, prefix, what, timeout=600):
-        def scan():
-            seen = []
-            for line in p.stdout:
-                if line.startswith(prefix):
-                    return line.strip()
-                seen.append(line)
-            fail(f"disagg (b): {what} exited, printing {seen!r}")
-
-        with ThreadPoolExecutor(1) as ex:
-            return ex.submit(scan).result(timeout=timeout)
+        return _ready(p, prefix, f"disagg (b): {what}", timeout)
 
     def status(port):
         st, raw = _http(port, "GET", "/metrics.json")
@@ -3954,29 +4026,14 @@ def breadth_worker(cfg):
     a seed, a seeded 201088-id tokenizer) and the frontend; a greedy chat,
     a seeded one, and the greedy one again (equal), each from a cleared
     prefix cache."""
-    from concurrent.futures import ThreadPoolExecutor
-
     procs = []
 
     def spawn(*args):
-        p = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
-                             stdout=subprocess.PIPE, text=True)
-        procs.append(p)
-        return p
+        return _spawn(procs, *args)
 
     def ready(p, prefix, what, timeout=600):
-        """The first line of `p` that starts with `prefix` (the worker
-        prints its STATUS line first)."""
-        def scan():
-            seen = []
-            for line in p.stdout:
-                if line.startswith(prefix):
-                    return line.strip()
-                seen.append(line)
-            fail(f"breadth worker: {what} exited, printing {seen!r}")
-
-        with ThreadPoolExecutor(1) as ex:
-            return ex.submit(scan).result(timeout=timeout)
+        # the worker prints its STATUS line first
+        return _ready(p, prefix, f"breadth worker: {what}", timeout)
 
     def chat(content, **so):
         return {"model": cfg.name, "max_tokens": 16, "nvext": {"ignore_eos": True},
@@ -4612,27 +4669,13 @@ def vl_processes(bodies, direct):
     its LLM cut to one layer: it runs only the tower), a serving worker
     with `--encode-component encoder` (no tower) and the frontend, as
     processes; a chat with a data: PNG over HTTP must give (c)'s text."""
-    from concurrent.futures import ThreadPoolExecutor
-
     procs = []
 
     def spawn(*args):
-        p = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
-                             stdout=subprocess.PIPE, text=True)
-        procs.append(p)
-        return p
+        return _spawn(procs, *args)
 
     def ready(p, prefix, what, timeout=600):
-        def scan():
-            seen = []
-            for line in p.stdout:
-                if line.startswith(prefix):
-                    return line.strip()
-                seen.append(line)
-            fail(f"vision (d): {what} exited, printing {seen!r}")
-
-        with ThreadPoolExecutor(1) as ex:
-            return ex.submit(scan).result(timeout=timeout)
+        return _ready(p, prefix, f"vision (d): {what}", timeout)
 
     t0 = time.perf_counter()
     try:
@@ -4714,6 +4757,710 @@ def phase_vision():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: embeddings, data-parallel ranks, request migration
+# --------------------------------------------------------------------------- #
+
+# (a): both paths' vectors are unit vectors, so |a - b| = sqrt(2 - 2 cos).
+# A kernel-path vector passes when it lies within EMBED_TOL of the plain
+# path's: four bf16 roundings (2^-8 each) of the pooled vector, the size
+# of the rounding differences between two bf16 orders of the same layers
+# (phase 5's "a few bf16 roundings"); the planted faults (the final norm
+# dropped, the mean taken over padded positions, a prefix page attended)
+# must move some vector beyond it.  A row alone and inside a 64-input
+# batch are held to the same limit, and two different inputs must lie at
+# least EMBED_APART limits apart.
+EMBED_TOL = 4 * 2.0 ** -8
+EMBED_APART = 10
+EMBED_FAULTS = ("final norm dropped", "mean over padded positions",
+                "a prefix page attended")
+# (a)'s timed requests: inputs x tokens
+EMBED_TIMED = {"1x512": (1, 512), "8x512": (8, 512), "64x128": (64, 128),
+               "1x4096": (1, 4096)}
+DP_TOKENS = 16
+# (c)'s concurrent round: these of phase 4's prompts, on both ranks at once
+DP_CONCURRENT, DP_CONCURRENT_TOKENS = ("A_64", "C_2048", "E_300"), 32
+MIGRATE_PROMPT, MIGRATE_TOKENS, MIGRATE_KILL_AT = 1024, 64, 8
+
+
+class _NoEmbedEngine:
+    """A worker's engine without `embed` (its card lacks ``embedding``)."""
+
+    async def generate(self, request, context=None):
+        yield {"token_ids": [], "finish_reason": "stop"}
+
+
+def llama_tokenizer(cfg):
+    """(tokenizer JSON, eos ids) of the seeded 128256-id tokenizer phase 7
+    writes to ``build/`` (made here when that phase did not run)."""
+    from dynamo_tpu_torch.llm import HuggingFaceTokenizer
+    from dynamo_tpu_torch.testing import synthetic_tokenizer
+
+    path = os.path.join(ROOT, "build", "llama3_synthetic_tokenizer.json")
+    if os.path.exists(path):
+        with open(path, encoding="utf-8") as f:
+            tok = HuggingFaceTokenizer(f.read())
+        tok.eos_token_ids = [tok.token_to_id("<|end_of_text|>")]
+    else:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tok = synthetic_tokenizer(cfg.vocab_size, SEED, path=path)
+    return tok
+
+
+def embed_inputs(cfg, lens, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in lens]
+
+
+def embed_variant(model, rows, fault):
+    """`Llama.forward_embed` of `rows` (one call, padded to the longest) on
+    the kernels with one planted fault of EMBED_FAULTS."""
+    from dynamo_tpu_torch.ops import rms_norm
+    from dynamo_tpu_torch.ops.rotary import rope_cos_sin
+
+    c = model.cfg
+    B, S = len(rows), max(len(r) for r in rows)
+    tokens = torch.zeros((B, S), dtype=torch.long)
+    for i, r in enumerate(rows):
+        tokens[i, :len(r)] = torch.tensor(r)
+    tokens = tokens.cuda()
+    lens = torch.tensor([len(r) for r in rows], dtype=torch.int32, device="cuda")
+    pre = 16 if fault == "a prefix page attended" else 0
+    pool = torch.zeros((1, max(pre, 1), c.num_key_value_heads, c.head_dim_),
+                       dtype=model.dtype, device="cuda")
+    prefix = torch.full((B,), pre, dtype=torch.int32, device="cuda")
+    table = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    positions = torch.arange(S, device="cuda")[None].expand(B, S)
+    rope = (*rope_cos_sin(positions, model.inv_freq), model.rope_scale)
+    with torch.no_grad():
+        x = model.embed[tokens]
+        for layer in model.layers:
+            x = layer.prefill(x, (pool, pool), rope, table, prefix, lens, None)
+        if fault != "final norm dropped":
+            x = rms_norm(x, model.final_norm, c.rms_norm_eps)
+        n = torch.full_like(lens, S) if fault == "mean over padded positions" else lens
+        mask = (torch.arange(S, device="cuda")[None] < n[:, None]).float()
+        pooled = (x.float() * mask[..., None]).sum(1) / n.float()[:, None]
+        return (pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-9)).cpu()
+
+
+def _dist(a, b):
+    """Distances of rows of unit vectors (|a - b| = sqrt(2 - 2 cos))."""
+    return (torch.as_tensor(a, dtype=torch.float32)
+            - torch.as_tensor(b, dtype=torch.float32)).norm(dim=-1)
+
+
+def embed_serving(model, cfg):
+    """Phase 14 (a) and (b): `TorchEngine.embed` at the 8B's full width and
+    depth, then /v1/embeddings through the in-process stack on the same
+    engine.  Returns (a)'s launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import dynamo_tpu_torch.models.llama as llama
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.frontend import HttpService, ModelManager, ModelWatcher
+    from dynamo_tpu_torch.llm import ModelDeploymentCard
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.testing import tiny_tokenizer
+    from dynamo_tpu_torch.worker import serve_engine
+
+    # a group budget of 32 x 512 = 16384 padded tokens: (a)'s eight inputs
+    # run in one call at phase 3's embeddings shape
+    ecfg = EngineConfig(page_size=16, num_pages=64, max_num_seqs=32,
+                        max_prefill_tokens=512, max_model_len=4096)
+    engine = TorchEngine(cfg, model, ecfg, device="cuda")
+    rows = embed_inputs(cfg, EMBED_LENS, SEED + 31)
+    batch64 = embed_inputs(cfg, [128] * 64, SEED + 32)
+    real_plain = pa.prefill_attention_plain
+    plain_calls = [0]
+
+    def counted(*a, **kw):
+        plain_calls[0] += 1
+        return real_plain(*a, **kw)
+
+    tok = llama_tokenizer(cfg)
+    name = cfg.name
+
+    async def run():
+        res = {"budget_tokens": engine.embed_token_budget}
+        req = {"embed_token_ids": rows}
+        await engine.embed(req)  # the shapes' first use
+        torch.cuda.synchronize()
+        pa.prefill_attention_plain = counted
+        ca.reset_launches()
+        try:
+            got = await engine.embed(req)
+            torch.cuda.synchronize()
+        finally:
+            pa.prefill_attention_plain = real_plain
+        res["launches"] = dict(ca.LAUNCHES)
+        res["plain_calls_on_kernel_path"] = plain_calls[0]
+        kern = torch.tensor(got["embeddings"])
+        saved, llama.prefill_attention = llama.prefill_attention, real_plain
+        try:
+            plain = torch.tensor((await engine.embed(req))["embeddings"])
+        finally:
+            llama.prefill_attention = saved
+        res["prompt_tokens"] = got["prompt_tokens"]
+        res["dist_to_plain"] = _dist(kern, plain).tolist()
+        res["fault_dist_to_plain"] = {
+            f: _dist(embed_variant(model, rows, f), plain).max().item()
+            for f in EMBED_FAULTS}
+        alone = (await engine.embed({"embed_token_ids": [batch64[17]]}))["embeddings"]
+        inside = (await engine.embed({"embed_token_ids": batch64}))["embeddings"]
+        res["alone_vs_64_batch"] = _dist(alone[0], inside[17]).item()
+        res["alone_equals_64_batch"] = alone[0] == inside[17]
+        pair = _dist(kern[:, None], kern[None]) + 2 * torch.eye(len(rows))
+        res["closest_pair_dist"] = pair.min().item()
+        res["finite"] = bool(torch.isfinite(kern).all())
+        res["norms"] = [kern.norm(dim=-1).min().item(), kern.norm(dim=-1).max().item()]
+        res["ms_per_request"] = {}
+        for what, (n, L) in EMBED_TIMED.items():
+            treq = {"embed_token_ids": embed_inputs(cfg, [L] * n, SEED + 33)}
+            await engine.embed(treq)
+            torch.cuda.synchronize()
+            if what == "1x4096":
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                await engine.embed(treq)
+            torch.cuda.synchronize()
+            res["ms_per_request"][what] = (time.perf_counter() - t0) * 1e3 / 3
+            if what == "1x4096":
+                res["peak_gb_1x4096"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        # (b) the same engine behind the in-process stack
+        rt = await DistributedRuntime.detached()
+        rt2 = await DistributedRuntime.connect(rt.control_address)
+        mdc = ModelDeploymentCard(name=name, tokenizer_json=tok.to_json_str(),
+                                  eos_token_ids=tok.eos_token_ids)
+        await serve_engine(rt, engine, mdc)
+        small = tiny_tokenizer()
+        await serve_engine(rt2, _NoEmbedEngine(), ModelDeploymentCard(
+            name=name + "-no-embed", tokenizer_json=small.to_json_str()))
+        watcher = await ModelWatcher(rt, ModelManager()).start()
+        for m in (name, name + "-no-embed"):
+            await asyncio.wait_for(watcher.wait_for_model(m), 120)
+        http = await HttpService(watcher.manager, host="127.0.0.1", port=0).start()
+        loop = asyncio.get_running_loop()
+        pool = ThreadPoolExecutor(max_workers=2)
+
+        async def post(body):
+            st, raw = await loop.run_in_executor(
+                pool, _http, http.port, "POST", "/v1/embeddings", body)
+            return st, json.loads(raw)
+
+        try:
+            st, body = await post({"model": name, "input": rows})
+            vecs = [d["embedding"] for d in body.get("data", [])]
+            res["http"] = {
+                "status": st, "card_types": mdc.types,
+                "equal_to_direct": vecs == got["embeddings"],
+                "indices": [d["index"] for d in body.get("data", [])],
+                "usage": body.get("usage"), "object": body.get("object"),
+                "unknown_model": (await post({"model": "nope", "input": "x"}))[0],
+                "model_without_embedding": (await post(
+                    {"model": name + "-no-embed", "input": "x"}))[0],
+                "too_many_inputs": (await post(
+                    {"model": name, "input": [[1]] * 65}))[0]}
+        finally:
+            await http.stop()
+            await watcher.stop()
+            await rt2.shutdown(graceful=False)
+            await rt.shutdown(graceful=False)
+            await engine.shutdown()
+        return res
+
+    res = asyncio.run(run())
+    emit({"phase": "embeddings", "model": cfg.name, "inputs": EMBED_LENS,
+          "tol": EMBED_TOL, **res, "card": card_line()})
+    if res["launches"]["prefill_attention"] <= 0:
+        fail(f"embeddings: the prefill kernel did not launch: {res['launches']}")
+    if res["plain_calls_on_kernel_path"]:
+        fail("embeddings: the plain attention ran on the card")
+    if not res["finite"] or res["prompt_tokens"] != sum(EMBED_LENS):
+        fail(f"embeddings: bad vectors or token count: {res['prompt_tokens']}")
+    if max(res["dist_to_plain"]) > EMBED_TOL:
+        fail(f"embeddings: kernel path vs plain path {res['dist_to_plain']}")
+    for f, d in res["fault_dist_to_plain"].items():
+        if d <= EMBED_TOL:
+            fail(f"embeddings: the check cannot see a planted fault: {f} ({d})")
+    if res["alone_vs_64_batch"] > EMBED_TOL:
+        fail(f"embeddings: a row alone and in a batch differ: {res['alone_vs_64_batch']}")
+    if res["closest_pair_dist"] < EMBED_APART * EMBED_TOL:
+        fail(f"embeddings: two inputs lie too close: {res['closest_pair_dist']}")
+    h = res["http"]
+    if not (h["status"] == 200 and h["equal_to_direct"]
+            and h["indices"] == list(range(len(EMBED_LENS)))
+            and h["usage"] == {"prompt_tokens": sum(EMBED_LENS),
+                               "total_tokens": sum(EMBED_LENS)}
+            and h["object"] == "list" and "embedding" in h["card_types"]
+            and (h["unknown_model"], h["model_without_embedding"],
+                 h["too_many_inputs"]) == (404, 400, 400)):
+        fail(f"embeddings over HTTP: {h}")
+    return res["launches"]
+
+
+def dp_ranks_serving(model, cfg, direct):
+    """Phase 14 (c): a `DpRankEngine` of two 512-page `TorchEngine`s on the
+    8B's weights, served by `serve_engine` (per-rank KV events and
+    metrics) with the worker's status server, behind a `python -m
+    dynamo_tpu_torch.frontend --router-mode kv` process; an observer
+    `KvRouter` here reads the same streams.  Phase 10's four 1024-token
+    prefixes sent rank-less straight to the worker (the worker alternates
+    ranks, so two prefixes land on each), then each with a new suffix
+    through the kv frontend (each must go to the rank holding it, whose
+    prefix-cache counter rises by the prefix); four rank-less requests of
+    phase 4's greedy prompts (they alternate ranks and give phase 4's
+    tokens up to a near-tie); the concurrent round (`dp_concurrent`); the
+    status server's /metrics against the ranks' sums; an embed with
+    ``dp_rank`` 1.  Returns the launches."""
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm import ModelDeploymentCard
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.router import KvRouter
+    from dynamo_tpu_torch.router.worker_key import pack_worker
+    from dynamo_tpu_torch.runtime import Context, DistributedRuntime
+    from dynamo_tpu_torch.tokens import compute_block_hash_for_seq
+    from dynamo_tpu_torch.worker import DpRankEngine, serve_engine
+    from dynamo_tpu_torch.worker.__main__ import start_status_server
+
+    tok = llama_tokenizer(cfg)
+    name = cfg.name
+    ecfg = EngineConfig(page_size=16, num_pages=512, max_num_seqs=8,
+                        max_prefill_tokens=512, max_model_len=4096)
+    ranks = [TorchEngine(cfg, model, ecfg, eos_token_ids=tok.eos_token_ids,
+                         device="cuda") for _ in range(2)]
+    dp = DpRankEngine(ranks)
+    embeds_on = []
+    for r, e in enumerate(ranks):
+        async def embed(request, context=None, _r=r, _inner=e.embed):
+            embeds_on.append(_r)
+            return await _inner(request, context)
+        e.embed = embed
+    _, first, again, _, warm = router_prompts(cfg)
+    _, prompts = serving_prompts(cfg)
+    rankless_prompts = ["A_64", "E_300", "A_64", "E_300"]
+
+    def served_by(before):
+        after = [e.metrics().num_requests_total for e in ranks]
+        moved = [r for r in range(2) if after[r] != before[r]]
+        return moved[0] if len(moved) == 1 else moved
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        pool = ThreadPoolExecutor(max_workers=2)
+        res = {}
+        rt = await DistributedRuntime.detached()
+        mdc = ModelDeploymentCard(name=name, tokenizer_json=tok.to_json_str(),
+                                  eos_token_ids=tok.eos_token_ids)
+        served = await serve_engine(rt, dp, mdc)
+        inst = served.instance.instance_id
+        keys = [pack_worker(inst, r) for r in range(2)]
+        res["publishers"] = {
+            "kv": [p.worker_id for p in served.kv_publisher],
+            "metrics": [p.worker_id for p in served.metrics_publisher]}
+        res["model_card"] = {"types": mdc.types,
+                       "total_kv_blocks": mdc.runtime_config.total_kv_blocks,
+                       "max_num_seqs": mdc.runtime_config.max_num_seqs}
+        status = await start_status_server(dp, SimpleNamespace(
+            status_port=0, namespace="dynamo", component="backend"))
+        front = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "dynamo_tpu_torch.frontend", "--control",
+            rt.control_address, "--host", "127.0.0.1", "--port", "0",
+            "--router-mode", "kv", "--log-level", "warning", cwd=ROOT,
+            stdout=asyncio.subprocess.PIPE)
+        front_rt = await DistributedRuntime.connect(rt.control_address)
+        client = await front_rt.namespace("dynamo").component("backend") \
+            .endpoint("generate").client().start()
+        observer = await KvRouter(front_rt, "dynamo", "backend", client,
+                                  block_size=16).start()
+
+        async def until(cond, what, limit=ROUTER_WAIT_S):
+            t0 = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t0 > limit:
+                    fail(f"dp ranks: timed out waiting for {what}")
+                await asyncio.sleep(0.02)
+
+        def idle():
+            st = observer.worker_states
+            return all(k in st and st[k].kv_usage == 0 for k in keys)
+
+        try:
+            for r, prompt in enumerate(warm):  # each rank's first graphs
+                await _collect(ranks[r], _req(prompt, max_tokens=4))
+            ready = (await asyncio.wait_for(front.stdout.readline(), 180)).decode()
+            if not ready.startswith("READY http://"):
+                fail(f"dp ranks: the frontend printed {ready!r}")
+            port = int(ready.strip().rsplit(":", 1)[1])
+            for _ in range(1800):
+                st, models = await loop.run_in_executor(
+                    pool, _http, port, "GET", "/v1/models")
+                if st == 200 and name.encode() in models:
+                    break
+                await asyncio.sleep(0.1)
+            else:
+                fail(f"dp ranks: the frontend never listed {name}")
+
+            async def rankless(toks, max_tokens=DP_TOKENS):
+                """Straight to the worker with no dp_rank: (rank, tokens)."""
+                before = [e.metrics().num_requests_total for e in ranks]
+                got = []
+                async for out in client.round_robin(
+                        _req(toks, max_tokens=max_tokens), Context()):
+                    got += out.get("token_ids", [])
+                return served_by(before), got
+
+            async def send(toks):
+                await until(idle, "idle load publications of both ranks")
+                await asyncio.sleep(0.3)  # the frontend's router reads them too
+                before = [e.metrics().num_requests_total for e in ranks]
+                cached = [e.metrics().prefix_cached_tokens_total for e in ranks]
+                st, _, finish, t0, stamps = await loop.run_in_executor(
+                    pool, _http_stream, port, "/v1/completions",
+                    {"model": name, "prompt": toks, "max_tokens": DP_TOKENS,
+                     "temperature": 0.0, "nvext": {"ignore_eos": True}})
+                if st != 200 or finish != "length" or len(stamps) != DP_TOKENS:
+                    fail(f"dp ranks: the kv frontend answered {st}, {finish}")
+                await until(lambda: served_by(before) in (0, 1), "the rank's count")
+                r = served_by(before)
+                return r, ranks[r].metrics().prefix_cached_tokens_total - cached[r]
+
+            ca.reset_launches()
+            cold = [await rankless(p) for p in first]
+            for (r, _), p in zip(cold, first):
+                hashes = compute_block_hash_for_seq(p[:ROUTER_PREFIX], 16)
+                await until(lambda: observer.index.find_matches(hashes).get(
+                    keys[r], 0) >= len(hashes), "the prefix's blocks indexed")
+            back = [await send(p) for p in again]
+            res["kv_routed"] = {"cold_ranks": [r for r, _ in cold],
+                                "return_ranks": [r for r, _ in back],
+                                "return_cached_tokens": [c for _, c in back]}
+            # rank-less requests straight to the worker: the ranks alternate
+            res["rankless"] = []
+            for n in rankless_prompts:
+                r, got = await rankless(prompts[n][0], max_tokens=32)
+                flip = first_flip(model, cfg, prompts[n][0],
+                                  direct["tokens"][n], got)
+                res["rankless"].append({"request": n, "rank": r, "flip": flip})
+            res["concurrent"] = await dp_concurrent(
+                model, cfg, ranks, client, inst, prompts, direct, until)
+            launches = dict(ca.LAUNCHES)
+            # the worker's /metrics: the aggregate of the ranks
+            per = [vars(e.metrics()) for e in ranks]
+            st, raw = await loop.run_in_executor(pool, _http, status.port,
+                                                 "GET", "/metrics")
+            text = raw.decode()
+            res["metrics"] = {
+                k: {"worker": _metric_sum(text, f"dynamo_tpu_worker_{k}"),
+                    "sum_of_ranks": float(sum(m[k] for m in per))}
+                for k in ("num_requests_total", "kv_total_pages",
+                          "ttft_attributed_total", "kv_watermark_headroom_pages",
+                          "decode_rung1_dispatches_total")}
+            # an embed for rank 1 through the worker's endpoint
+            out = [o async for o in client.direct(
+                {"embed_token_ids": [first[0][:256]], "dp_rank": 1}, inst, Context())]
+            res["embed_dp_rank_1"] = {"ranks": list(embeds_on),
+                                      "vectors": len(out[0].get("embeddings", []))}
+        finally:
+            front.terminate()
+            await front.wait()
+            await observer.stop()
+            await client.stop()
+            await status.stop()
+            await front_rt.shutdown(graceful=False)
+            await rt.shutdown(graceful=False)
+            await dp.shutdown()
+        return res, launches
+
+    res, launches = asyncio.run(run())
+    emit({"phase": "dp_ranks", "model": cfg.name, "ranks": 2, **res,
+          "launches": launches, "card": card_line()})
+    kr = res["kv_routed"]
+    if kr["return_ranks"] != kr["cold_ranks"]:
+        fail(f"dp ranks: a returning prompt left its prefix's rank: {kr}")
+    if min(kr["return_cached_tokens"]) < ROUTER_PREFIX:
+        fail(f"dp ranks: a returning prompt missed its prefix: {kr}")
+    if kr["cold_ranks"] not in ([0, 1, 0, 1], [1, 0, 1, 0]):
+        fail(f"dp ranks: rank-less prefixes did not alternate: {kr}")
+    ranks_seen = [r["rank"] for r in res["rankless"]]
+    if ranks_seen not in ([0, 1, 0, 1], [1, 0, 1, 0]):
+        fail(f"dp ranks: rank-less requests did not alternate: {ranks_seen}")
+    for r in res["rankless"]:
+        f = r["flip"]
+        if f is not None and (f["margin_std"] is None or f["margin_std"] > LOGIT_TOL):
+            fail(f"dp ranks: {r['request']} differs from phase 4 beyond a near-tie: {f}")
+    for k, v in res["metrics"].items():
+        if v["worker"] != v["sum_of_ranks"]:
+            fail(f"dp ranks: the worker's {k} is not the sum of the ranks: {v}")
+    inst_keys = res["publishers"]
+    if len(set(inst_keys["kv"])) != 2 or inst_keys["kv"] != inst_keys["metrics"]:
+        fail(f"dp ranks: per-rank publishers {inst_keys}")
+    mc = res["model_card"]
+    if mc["total_kv_blocks"] != 2 * 511 or "embedding" not in mc["types"]:
+        fail(f"dp ranks: the model card {mc}")
+    if res["embed_dp_rank_1"] != {"ranks": [1], "vectors": 1}:
+        fail(f"dp ranks: the embed for rank 1: {res['embed_dp_rank_1']}")
+    if min(launches[k] for k in ATTENTION_KERNELS) <= 0:
+        fail(f"dp ranks: not every attention kernel launched: {launches}")
+    c = res["concurrent"]
+    for r in c["requests"]:
+        f = r["flip"]
+        if r["tokens"] != DP_CONCURRENT_TOKENS or (f is not None and (
+                f["margin_std"] is None or f["margin_std"] > LOGIT_TOL)):
+            fail(f"dp ranks: concurrent {r} differs from phase 4 beyond a near-tie")
+    if min(len(k) for k in c["new_graphs"]) == 0:
+        fail(f"dp ranks: a rank captured no new graph in the concurrent round: {c}")
+    for rank in c["new_graphs"]:
+        for key, got in rank.items():
+            want = c["expected_per_replay"].get(key)
+            if want is not None and got != want:
+                fail(f"dp ranks: graph {key} records {got} launches a replay, "
+                     f"its block launches {want}")
+    shared = set(c["new_graphs"][0]) & set(c["new_graphs"][1])
+    if any(c["new_graphs"][0][k] != c["new_graphs"][1][k] for k in shared):
+        fail(f"dp ranks: one key's graphs record different launches: {c}")
+    if c["launches"] != c["expected_launches"]:
+        fail(f"dp ranks: the concurrent round counted {c['launches']} launches, "
+             f"its replays, warm-ups and eager passes make {c['expected_launches']}")
+    return launches
+
+
+async def dp_concurrent(model, cfg, ranks, client, inst, prompts, direct, until):
+    """Phase 14 (c)'s concurrent round: phase 4's greedy prompts of
+    DP_CONCURRENT sent to both ranks at once (``dp_rank`` explicit), with
+    top logprobs (a decode variant no earlier request of the phase took)
+    and a 2048-token row (a table width the ranks have not seen), so each
+    rank captures new graphs while the other prefills, replays and
+    captures.  Returns the tokens with their first flip from phase 4's, the
+    new graphs' launches per replay with what their blocks launch, and the
+    registry's launches over the round with what the ranks' replays, the
+    new graphs' warm-up runs (one eager run of the block each) and eager
+    prefill passes make."""
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.runtime import Context
+
+    L = cfg.num_hidden_layers
+    before_keys = [set(e.graphs.keys) for e in ranks]
+    for e in ranks:
+        e.dispatch_trace = []
+        for k in e.graphs.replayed_launches:
+            e.graphs.replayed_launches[k] = 0
+    start = dict(ca.LAUNCHES)
+
+    async def one(rank, name):
+        req = _req(prompts[name][0], max_tokens=DP_CONCURRENT_TOKENS)
+        req["sampling_options"]["top_logprobs"] = 2
+        req["dp_rank"] = rank
+        got = []
+        async for out in client.direct(req, inst, Context()):
+            got += out.get("token_ids", [])
+        return got
+
+    sent = [(r, n) for n in DP_CONCURRENT for r in range(2)]
+    outs = await asyncio.gather(*(one(r, n) for r, n in sent))
+    await until(lambda: all(e.metrics().active_seqs == 0 for e in ranks),
+                "both ranks idle")
+    end = dict(ca.LAUNCHES)
+    passes = [sum(d["kind"] in ("prefill", "mixed") for d in e.dispatch_trace)
+              for e in ranks]
+    for e in ranks:
+        e.dispatch_trace = None
+    new_graphs, expected_per_replay = [], {}
+    for e, old in zip(ranks, before_keys):
+        per = {s["key"]: s["launches_per_replay"] for s in e.graphs.graph_stats()}
+        new = [k for k in e.graphs.keys if k not in old]
+        new_graphs.append({repr(k): per[repr(k)] for k in new})
+        for k in new:
+            if k[0] == "decode":  # T steps, one decode attention a layer
+                expected_per_replay[repr(k)] = {
+                    n: (k[1] * L if n in ("decode_attention", "decode_merge")
+                        else 0) for n in ca.LAUNCHES}
+    expected = {n: sum(e.graphs.replayed_launches[n] for e in ranks)
+                + sum(g[n] for rank in new_graphs for g in rank.values())
+                + (L * sum(passes) if n == "prefill_attention" else 0)
+                for n in ca.LAUNCHES}
+    return {"requests": [
+                {"request": n, "rank": r, "tokens": len(got),
+                 "flip": first_flip(model, cfg, prompts[n][0],
+                                    direct["tokens"][n], got)}
+                for (r, n), got in zip(sent, outs)],
+            "new_graphs": new_graphs, "expected_per_replay": expected_per_replay,
+            "eager_prefill_passes": passes,
+            "launches": {n: end[n] - start[n] for n in ca.LAUNCHES},
+            "expected_launches": expected}
+
+
+def text_flip(model, cfg, prompt, ref_text, got_text, n):
+    """Where a greedy text `got_text` parts from `ref_text` (both `n`
+    tokens after `prompt`): the reference tokens are regenerated on the
+    eager prefill path from this process's copy of the weights and
+    detokenized; returns the index of the first token whose text leaves
+    the common prefix and the top-2 gap of the reference logits there in
+    logit std (a near-tie when within LOGIT_TOL)."""
+    tok = llama_tokenizer(cfg)
+    common = 0
+    while (common < min(len(ref_text), len(got_text))
+           and ref_text[common] == got_text[common]):
+        common += 1
+    toks = []
+    for j in range(n):
+        lg = reference_logits(model, cfg, prompt + toks)
+        nxt = int(lg.argmax())
+        if len(tok.decode(toks + [nxt])) > common:  # token j leaves it
+            top = lg.topk(2).values
+            text = tok.decode(toks)
+            return {"index": j, "common_chars": common,
+                    "reproduces_reference": text == ref_text[:len(text)],
+                    "top2_gap_std": ((top[0] - top[1]) / lg.std()).item()}
+        toks.append(nxt)
+    return {"index": None, "common_chars": common, "top2_gap_std": None}
+
+
+def migration_processes(model, cfg):
+    """Phase 14 (d): the control plane, two `python -m
+    dynamo_tpu_torch.worker` processes (the 8B from the same `--seed`,
+    sharpened, full depth) and a round-robin frontend as processes on the
+    one card.  A greedy SSE request of MIGRATE_TOKENS on a 1024-token
+    prompt, undisturbed; then again, with the worker serving it killed
+    (SIGKILL) after its MIGRATE_KILL_AT-th token: the client must get every
+    token, the undisturbed text (up to a near-tie), and the frontend's
+    `dynamo_frontend_migrations_total` must read 1; a later request goes
+    to the survivor."""
+    procs = []
+    g = torch.Generator().manual_seed(SEED + 41)
+    prompt = torch.randint(0, cfg.vocab_size, (MIGRATE_PROMPT,), generator=g).tolist()
+    after = torch.randint(0, cfg.vocab_size, (64,), generator=g).tolist()
+    body = {"model": cfg.name, "prompt": prompt, "max_tokens": MIGRATE_TOKENS,
+            "temperature": 0.0, "nvext": {"ignore_eos": True}}
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        cp = _spawn(procs, "dynamo_tpu_torch.runtime", "--host", "127.0.0.1",
+                    "--port", "0", "--log-level", "warning")
+        addr = _ready(cp, "READY ", "migration: the control plane").split()[1]
+        common = ["--control", addr, "--model", cfg.name, "--seed", str(SEED),
+                  "--sharpen", "--num-pages", "256", "--status-port", "0",
+                  "--log-level", "warning"]
+        workers = [_spawn(procs, "dynamo_tpu_torch.worker", *common)
+                   for _ in range(2)]
+        front = _spawn(procs, "dynamo_tpu_torch.frontend", "--control", addr,
+                       "--host", "127.0.0.1", "--port", "0", "--log-level",
+                       "warning")
+        port = int(_ready(front, "READY http://", "migration: the frontend")
+                   .rsplit(":", 1)[1])
+        status = [int(_ready(w, "STATUS ", "migration: a worker").rsplit(":", 1)[1])
+                  for w in workers]
+        for w in workers:
+            _ready(w, "READY worker", "migration: a worker")
+        out["ready_s"] = time.perf_counter() - t0
+
+        def stats(i):
+            st, raw = _http(status[i], "GET", "/metrics.json")
+            if st != 200:
+                fail(f"migration: a worker's /metrics.json answered {st}")
+            return json.loads(raw)
+
+        for _ in range(1200):  # both cards discovered
+            st, models = _http(port, "GET", "/v1/models")
+            if st == 200 and cfg.name.encode() in models:
+                break
+            time.sleep(0.1)
+        else:
+            fail(f"migration: the frontend never listed {cfg.name}")
+        time.sleep(1.0)
+        # one short request each (round robin): each worker's first graphs
+        for _ in range(2):
+            st, _, finish, _, _ = _http_stream(port, "/v1/completions",
+                                               {**body, "prompt": after,
+                                                "max_tokens": 4})
+            if st != 200 or finish != "length":
+                fail(f"migration: the warm-up answered {st}, {finish}")
+        st, want, finish, _, stamps = _http_stream(port, "/v1/completions", body)
+        if st != 200 or finish != "length" or len(stamps) != MIGRATE_TOKENS:
+            fail(f"migration: the undisturbed run answered {st}, {finish}")
+        killed = {}
+
+        def on_frame(n):
+            if n == MIGRATE_KILL_AT and not killed:
+                serving = [i for i in range(2) if stats(i)["active_seqs"] > 0]
+                if len(serving) != 1:
+                    fail(f"migration: serving workers {serving}")
+                killed["worker"] = serving[0]
+                killed["t"] = time.perf_counter()
+                workers[serving[0]].kill()
+                workers[serving[0]].wait()
+
+        st, got, finish, t_send, stamps = _http_stream(
+            port, "/v1/completions", body, on_frame=on_frame)
+        survivor = 1 - killed["worker"]
+        gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+        out["migrated"] = {
+            "status": st, "finish": finish, "tokens": len(stamps),
+            "killed_worker": killed["worker"],
+            "equal_to_undisturbed": got == want,
+            "longest_gap_ms_at_kill": max(gaps[MIGRATE_KILL_AT - 1:]) * 1e3,
+            "median_gap_ms": sorted(gaps)[len(gaps) // 2] * 1e3}
+        if got != want:
+            out["migrated"]["flip"] = text_flip(model, cfg, prompt, want, got,
+                                                MIGRATE_TOKENS)
+        n_before = stats(survivor)["num_requests_total"]
+        st2, _, finish2, _, _ = _http_stream(port, "/v1/completions",
+                                             {**body, "prompt": after,
+                                              "max_tokens": 8})
+        out["after_kill"] = {"status": st2, "finish": finish2,
+                             "survivor_requests": stats(survivor)["num_requests_total"]
+                             - n_before}
+        st, raw = _http(port, "GET", "/metrics")
+        text = raw.decode()
+        out["migrations_total"] = _metric_sum(text, "dynamo_frontend_migrations_total")
+        out["migration_exhausted_total"] = _metric_sum(
+            text, "dynamo_frontend_migration_exhausted_total")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "migration", "model": cfg.name, "layers": cfg.num_hidden_layers,
+          "prompt_tokens": MIGRATE_PROMPT, **out, "card": card_line()})
+    m = out["migrated"]
+    if m["status"] != 200 or m["finish"] != "length" or m["tokens"] != MIGRATE_TOKENS:
+        fail(f"migration: the migrated stream {m}")
+    if not m["equal_to_undisturbed"]:
+        f = m["flip"]
+        if f["top2_gap_std"] is None or f["top2_gap_std"] > LOGIT_TOL:
+            fail(f"migration: the migrated text differs beyond a near-tie: {f}")
+    if out["migrations_total"] != 1 or out["migration_exhausted_total"]:
+        fail(f"migration: the frontend counted {out['migrations_total']} migrations")
+    a = out["after_kill"]
+    if a["status"] != 200 or a["finish"] != "length" or a["survivor_requests"] != 1:
+        fail(f"migration: the request after the kill {a}")
+
+
+def phase_embed_dp_migration(model, cfg, direct):
+    """Phase 14 (a)-(d); returns {path: launches} of (a) and (c)."""
+    embed_launches = embed_serving(model, cfg)
+    dp_launches = dp_ranks_serving(model, cfg, direct)
+    torch.cuda.empty_cache()  # (d)'s workers need the room
+    migration_processes(model, cfg)
+    return {"embeddings direct (phase 14 a, this slice's path)": embed_launches,
+            "dp ranks kv-routed (phase 14 c)": dp_launches}
+
+
 def time_ms_host(fn, iters: int = 3) -> float:
     """Host-clock ms of fn() to a synchronize, after one warm-up."""
     fn()
@@ -4774,6 +5521,7 @@ def main() -> int:
     tier_launches = phase_kv_tiers(model, cfg)
     router_launches = phase_kv_router(model, cfg)
     disagg_launches = phase_disagg(model, cfg)
+    phase14_launches = phase_embed_dp_migration(model, cfg, direct)
     # phase 11 needs the card to itself: gpt-oss-20b's 42 GB of weights
     del model
     gc.collect()
@@ -4794,6 +5542,7 @@ def main() -> int:
                   for arm, n in breadth_launches.items()},
                "breadth int8 8B serving (phase 11)": int8_launches,
                **disagg_launches,
+               **phase14_launches,
                "vision qwen2.5-vl-7b serving a_steps1 (phase 13, this slice's path)":
                    vision_launches}
 
@@ -4819,6 +5568,9 @@ def main() -> int:
         if name == "decode_attention":
             entry["merge_launches"] = http_launches["decode_merge"]
             entry["serving_grid_blocks"] = serving["grid_blocks"]
+        else:  # the embeddings' call: prefix 0, a whole input in one chunk
+            entry["embed_launches"] = phase14_launches[
+                "embeddings direct (phase 14 a, this slice's path)"][name]
         kernels.append(entry)
     # the MoE kernels: their path is phase 11's gpt-oss serving; the
     # default engine (one-step blocks) is the main path's

@@ -45,6 +45,9 @@ With ``quantization="int8"`` the model's dense projections and LM head
 are quantized at construction, in place (`models.quantization.
 quantize_params`, layer by layer), as `JaxEngine` quantizes its params.
 
+Embedding requests (`embed`) run the model's cache-free `forward_embed`
+as a device op between steps.
+
 Multimodal requests (``vision=(tower, vision_cfg)``; `media.py`): media
 are validated and attached on arrival, the tower runs on the step thread
 before the sequence's first prefill chunk, each chunk splices in the
@@ -1542,6 +1545,65 @@ class TorchEngine:
                 kd[i].copy_(k, non_blocking=True)
                 vd[i].copy_(v, non_blocking=True)
             self._import_dev(pages, kd.transpose(0, 1), vd.transpose(0, 1))
+
+    # -- embeddings --------------------------------------------------------- #
+
+    async def embed(self, request: Dict[str, Any],
+                    context: Optional[Context] = None) -> Dict[str, Any]:
+        """Embedding request: {"embed_token_ids": [[...], ...]} ->
+        {"embeddings": [[...], ...], "prompt_tokens": N}, as `JaxEngine.embed`
+        answers it.  Each input is truncated where JAX truncates it (to
+        ``bucket_for(longest, chunk_buckets + [max_model_len])`` tokens,
+        the longest clipped to max_model_len).  The forward
+        (`Llama.forward_embed`) runs as one device op between steps, never
+        beside one, eagerly (no graph).  Padding differs from JAX's, which
+        pads every row to that bucket: rows are sorted by length and cut
+        into groups whose padded size (rows x the group's longest row)
+        stays within `embed_token_budget` tokens, each group padded only
+        to its longest row.  Padded positions are masked out of the
+        attention and the mean, so a row's vector does not depend on its
+        group (up to the last bits of a GEMM tiled by shape on the card)."""
+        del context
+        batches = request.get("embed_token_ids") or []
+        if not batches:
+            return {"error": "no inputs"}
+        longest = min(max(len(t) for t in batches), self.cfg.max_model_len)
+        S = bucket_for(longest, list(self.cfg.chunk_buckets)
+                       + [self.cfg.max_model_len])
+        rows = [list(t[:S]) for t in batches]
+        vecs = await self._device_op(lambda: self._embed_rows(rows))
+        return {"embeddings": [vecs[i].tolist() for i in range(len(rows))],
+                "prompt_tokens": sum(len(r) for r in rows)}
+
+    @property
+    def embed_token_budget(self) -> int:
+        """Padded tokens of one embed group: the larger of max_model_len
+        (one whole input) and a full decode batch of prefill chunks
+        (max_num_seqs x max_prefill_tokens), the activations a serving
+        step of this engine is sized for."""
+        return max(self.cfg.max_model_len,
+                   self.cfg.max_num_seqs * self.cfg.max_prefill_tokens)
+
+    def _embed_rows(self, rows: List[List[int]]) -> np.ndarray:
+        """The device half of `embed` (on the step thread): f32 [B, h]."""
+        order = sorted(range(len(rows)), key=lambda i: -len(rows[i]))
+        out = np.zeros((len(rows), self.model_cfg.hidden_size), np.float32)
+        budget = self.embed_token_budget
+        i = 0
+        while i < len(order):
+            S = len(rows[order[i]])  # the group's longest row
+            n = max(1, min(len(order) - i, budget // max(S, 1)))
+            group = order[i:i + n]
+            tokens = np.zeros((n, S), np.int64)
+            lens = np.zeros((n,), np.int32)
+            for r, j in enumerate(group):
+                tokens[r, :len(rows[j])] = rows[j]
+                lens[r] = len(rows[j])
+            d = self._to_device({"tokens": tokens, "lens": lens})
+            vec = self.model.forward_embed(d["tokens"], d["lens"])
+            out[group] = vec.cpu().numpy()
+            i += n
+        return out
 
     # -- disaggregated serving: page ops, remote prefill, adoption ---------- #
 

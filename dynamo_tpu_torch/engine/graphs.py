@@ -25,9 +25,15 @@ per key -- (kind, rung, greedy, penalized, with_top, table-width bucket,
 - A capture or a replay that fails raises: there is no eager fallback on
   CUDA and no switch to turn capture off.
 - Kernel launches inside a graph happen at replay, where the Python
-  wrappers do not run, so the runner counts them: the launches a capture
-  recorded (taken back out of the launch registry, `ops/_launches.py`)
-  are added to it at every replay.
+  wrappers do not run, so the runner counts them: the capturing thread's
+  launches go to the capture's own record (`ops/_launches.recording`),
+  which is added to the registry at every replay.
+- The data-parallel ranks of one worker are engines in one process, each
+  with its own runner on its own step thread.  A capture synchronizes the
+  device and empties the allocator's cache, which the allocator refuses
+  while another thread captures, so captures are serialised by one
+  process-wide lock; the other ranks go on launching and replaying
+  meanwhile, and their launches stay in the registry.
 
 On the CPU the same block functions run eagerly on the same inputs (the
 plain kernel versions), so the CPU tests exercise the code the graphs
@@ -37,6 +43,7 @@ fixed the way the JAX tests hold compiles fixed.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Hashable, List, Optional
@@ -44,7 +51,10 @@ from typing import Callable, Dict, Hashable, List, Optional
 import numpy as np
 import torch
 
-from ..ops._launches import LAUNCHES
+from ..ops._launches import LAUNCHES, count_launch, recording
+
+# one capture at a time in the process, whichever runner makes it
+_CAPTURE_LOCK = threading.Lock()
 
 BlockFn = Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
 
@@ -64,7 +74,7 @@ class _Graph:
 class GraphRunner:
     """Captures and replays the engine's block functions (CUDA), or runs
     them eagerly (CPU).  One runner per engine; used from the engine's
-    step thread only."""
+    step thread only (runners of other engines may run beside it)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -134,7 +144,7 @@ class GraphRunner:
         g.replays += 1
         self.replays += 1
         for name, n in g.launches.items():
-            LAUNCHES[name] += n
+            count_launch(name, n)
             self.replayed_launches[name] += n
         return g.outputs
 
@@ -148,27 +158,26 @@ class GraphRunner:
         with torch.cuda.stream(side):
             g.fn(g.inputs)  # warm-up: a real run, discarded
         stream.wait_stream(side)
-        # what the capture adds to the shared pool (entering the capture
-        # empties the allocator's cache, so empty it first here too)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved0 = torch.cuda.memory_reserved(self.device)
-        before = dict(LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            # thread-local capture: the drain thread may wait on events
-            # while the step thread captures
-            with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                  capture_error_mode="thread_local"):
+        with _CAPTURE_LOCK:
+            # what the capture adds to the shared pool (entering the
+            # capture empties the allocator's cache, so empty it first
+            # here too); other ranks' allocations meanwhile count in it
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            # thread-local capture: the drain thread may wait on events,
+            # and other ranks' step threads launch, while this one captures
+            with recording() as launches, torch.cuda.graph(
+                    graph, pool=self._pool, stream=side,
+                    capture_error_mode="thread_local"):
                 g.outputs = g.fn(g.inputs)
-        finally:
-            g.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-            LAUNCHES.update(before)
-        stream.wait_stream(side)
-        g.graph = graph
-        torch.cuda.synchronize(self.device)
+            g.launches = dict(launches)
+            stream.wait_stream(side)
+            g.graph = graph
+            torch.cuda.synchronize(self.device)
+            g.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved0
         g.capture_s = time.perf_counter() - t0
-        g.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved0
         self.captures += 1
         self.capture_seconds += g.capture_s
         self.pool_bytes += g.pool_bytes

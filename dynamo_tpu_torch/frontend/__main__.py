@@ -4,7 +4,8 @@
 The port's copy of `python -m dynamo_tpu.frontend`: the OpenAI HTTP
 server, model discovery and routed pipelines, round-robin, random or
 KV-aware (``--router-mode kv``, with ``--busy-threshold`` shedding load
-as 503 when every worker is above it).  TLS, gRPC, shards, the status
+as 503 when every worker is above it), with request migration on worker
+loss and ``/v1/embeddings``.  TLS, gRPC, shards, the status
 server and the fleet telemetry plane are later slices.  Prints ``READY
 http://host:port``.
 """
@@ -63,14 +64,17 @@ async def _run(args) -> None:
 
     runtime = await DistributedRuntime.connect(args.control)
     manager = ModelManager()
+    # one metrics surface shared by the HTTP service and the discovery /
+    # migration layer, so migrations_total lands on the same /metrics
+    metrics = FrontendMetrics()
     watcher = await ModelWatcher(
         runtime, manager, router_mode=args.router_mode,
-        kv_chooser_factory=kv_factory(runtime, args)).start()
+        kv_chooser_factory=kv_factory(runtime, args), metrics=metrics).start()
     # the serving CLI turns coalescing on unless the flag/env says otherwise
     sse_coalesce = (args.sse_coalesce if args.sse_coalesce is not None
                     else _env_bool("DYN_TPU_SSE_COALESCE", True))
     http = await HttpService(manager, host=args.host, port=args.port,
-                             metrics=FrontendMetrics(),
+                             metrics=metrics,
                              sse_coalesce=sse_coalesce).start()
     print(f"READY http://{args.host}:{http.port}", flush=True)
     stop = asyncio.Event()

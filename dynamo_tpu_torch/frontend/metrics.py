@@ -4,10 +4,11 @@ text by a small exposition of the port's own (the GPU machine has no
 `prometheus_client`).
 
 Kept: request, in-flight, TTFT, ITL, TTFT attribution, duration and
-output-token families, and the egress counters (frames, writes,
-coalesced deltas, backpressure, CPU seconds, bytes, queue depth).  The
-speculative-decoding, migration, shed, endpoint-health, SLO-window and
-process collectors belong to features the port has not taken yet.
+output-token families, the egress counters (frames, writes, coalesced
+deltas, backpressure, CPU seconds, bytes, queue depth) and the migration
+counters (`observe_migration`).  The speculative-decoding, shed,
+endpoint-health, SLO-window and process collectors belong to features the
+port has not taken yet.
 """
 
 from __future__ import annotations
@@ -253,6 +254,16 @@ class FrontendMetrics:
             "dynamo_frontend_egress_queue_depth",
             "Write-queue backlog observed at each backpressure drain",
             ["model"], buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512), registry=r)
+        # fault tolerance: migration counters incremented straight from
+        # migrating_stream (frontend/service.py wires the callback)
+        self.migrations = Counter(
+            "dynamo_frontend_migrations_total",
+            "Streams transparently re-issued to another worker",
+            ["model"], registry=r)
+        self.migration_exhausted = Counter(
+            "dynamo_frontend_migration_exhausted_total",
+            "Streams that hit the migration limit (client saw an error)",
+            ["model"], registry=r)
 
     def observe_egress(self, model: str, eg) -> None:
         """Flush one stream's egress counters (a StreamEgress) — called
@@ -270,6 +281,13 @@ class FrontendMetrics:
             observe = self.egress_queue_depth.labels(model).observe
             for depth in eg.depth_samples:
                 observe(depth)
+
+    def observe_migration(self, model: str, event: str) -> None:
+        """Account one migrating_stream event ('migrated'/'exhausted')."""
+        if event == "exhausted":
+            self.migration_exhausted.labels(model).inc()
+        else:
+            self.migrations.labels(model).inc()
 
     def observe_ttft_attr(self, model: str, ttft: dict) -> None:
         """Account one request's engine-side TTFT attribution ({

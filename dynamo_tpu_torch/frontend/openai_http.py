@@ -3,13 +3,15 @@
 The port's copy of the JAX package's `frontend/openai_http.py`:
 
 - POST /v1/chat/completions, /v1/completions — SSE streaming and unary,
-  n>1 choices, OpenAI logprobs/top_logprobs shapes;
+  n>1 choices, OpenAI logprobs/top_logprobs shapes, each stream migrated
+  to another worker when its worker dies (`ModelEntry.generate`);
+- POST /v1/embeddings — mean-pooled, unit-normalised vectors;
 - GET  /v1/models, /health, /live, /metrics (Prometheus text);
 - POST /clear_kv_blocks — broadcast cache clear to workers.
 
 Request validation and error bodies are the JAX frontend's, so the same
-bad request gets the same status and ``error.type``.  /v1/embeddings and
-/v1/responses answer 501 (not ported yet), as do output parsers,
+bad request gets the same status and ``error.type``.  /v1/responses
+answers 501 (not ported yet), as do output parsers,
 overload shedding's batch probe, SLO windows, waterfalls, tracing spans,
 audit and the step-event ring (`ROADMAP.md` lists them).  Like the JAX
 frontend, `stream_options` is not read: a stream carries no usage chunk.
@@ -74,7 +76,7 @@ class HttpService:
         routes = {
             ("POST", "/v1/chat/completions"): self.chat_completions,
             ("POST", "/v1/completions"): self.completions,
-            ("POST", "/v1/embeddings"): self.not_ported,
+            ("POST", "/v1/embeddings"): self.embeddings,
             ("POST", "/v1/responses"): self.not_ported,
             ("GET", "/v1/models"): self.list_models,
             ("GET", "/health"): self.health,
@@ -141,6 +143,61 @@ class HttpService:
 
     async def completions(self, request: Request):
         return await self._serve(request, kind="completion")
+
+    async def embeddings(self, request: Request) -> Response:
+        """OpenAI /v1/embeddings (reference openai.rs).  Routed like a
+        generate request, without migration: in ``kv`` mode by load alone,
+        as the request carries no ``token_ids``."""
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            return _error_response(400, "invalid JSON body")
+        model_name = body.get("model", "")
+        entry = self.manager.get(model_name)
+        if entry is None:
+            self.metrics.requests.labels(model_name or "?", "embedding", "404").inc()
+            return _error_response(
+                404, f"model '{model_name}' not found", code="model_not_found"
+            )
+        if not entry.mdc.supports("embedding"):
+            return _error_response(
+                400, f"model '{model_name}' does not support embeddings"
+            )
+        try:
+            preq = await asyncio.get_running_loop().run_in_executor(
+                None, entry.preprocessor.preprocess_embedding, body
+            )
+        except RequestError as e:
+            self.metrics.requests.labels(model_name, "embedding", "400").inc()
+            return _error_response(400, str(e))
+        try:
+            result = None
+            async for out in entry.route(preq, Context()):
+                result = out
+                break
+        except ServiceUnavailable as e:
+            self.metrics.requests.labels(model_name, "embedding", "503").inc()
+            return _error_response(503, str(e))
+        except RemoteStreamError as e:
+            self.metrics.requests.labels(model_name, "embedding", "502").inc()
+            return _error_response(502, str(e))
+        if not result or result.get("error"):
+            self.metrics.requests.labels(model_name, "embedding", "500").inc()
+            return _error_response(
+                500, (result or {}).get("error", "embedding failed")
+            )
+        self.metrics.requests.labels(model_name, "embedding", "200").inc()
+        data = [
+            {"object": "embedding", "index": i, "embedding": vec}
+            for i, vec in enumerate(result.get("embeddings", []))
+        ]
+        ptoks = int(result.get("prompt_tokens", 0))
+        return json_response({
+            "object": "list",
+            "data": data,
+            "model": model_name,
+            "usage": {"prompt_tokens": ptoks, "total_tokens": ptoks},
+        })
 
     # -- core serving path --------------------------------------------------- #
 

@@ -2,9 +2,13 @@
 
 The port's copy of the JAX package's `frontend/service.py`: round-robin,
 random and KV-aware routing (``kv``: a `router.KvRouter` per model picks
-the worker, the request goes to it directly).  Request migration, the
-health watcher and SLO targets are later slices; a card that needs output
-parsers is skipped with an error (not ported).  Vision cards (an
+the worker, the request goes to it directly).  Every streamed request
+goes through request migration (`llm/migration.py`): when its worker dies
+mid-stream, the stream is re-issued to another worker with ``prompt +
+generated`` as the prompt, within the card's migration limit and backoff,
+and counted on the shared `FrontendMetrics`.  The health watcher and SLO
+targets are later slices; a card that needs output parsers is skipped
+with an error (not ported).  Vision cards (an
 ``image_token``) are served: their preprocessor expands media.
 ModelWatcher watches the control-plane `/models` prefix; each PUT is a
 ModelDeploymentCard published by a worker instance under its lease.  The
@@ -28,6 +32,7 @@ from ..llm import (
     OpenAIPreprocessor,
     postprocess_stream,
 )
+from ..llm.migration import migrating_stream
 from ..router.worker_key import unpack_worker
 from ..runtime import Client, Context, DistributedRuntime
 from ..runtime.transport.wire import pack, unpack
@@ -39,12 +44,14 @@ class ModelEntry:
     """One served model: card, tokenizer, preprocessor, routed client."""
 
     def __init__(self, mdc: ModelDeploymentCard, tokenizer: HuggingFaceTokenizer,
-                 client: Client, router_mode: str = "round_robin"):
+                 client: Client, router_mode: str = "round_robin",
+                 metrics=None):
         self.mdc = mdc
         self.tokenizer = tokenizer
         self.preprocessor = OpenAIPreprocessor(mdc, tokenizer)
         self.client = client
         self.router_mode = router_mode
+        self.metrics = metrics  # FrontendMetrics (migration counters)
         self.instances: set[int] = set()
         self.kv_chooser = None  # a router.KvRouter in router mode "kv"
 
@@ -60,7 +67,7 @@ class ModelEntry:
         if self.kv_chooser is not None:
             request = {**request, "request_id": context.id}
             # AllWorkersBusy (an Overloaded ServiceUnavailable) propagates:
-            # the frontend answers 503
+            # migration re-raises it and the frontend answers 503
             worker_key = await self.kv_chooser.choose(
                 request, allowed=self.instances
             )
@@ -82,11 +89,21 @@ class ModelEntry:
         async for item in stream:
             yield item
 
+    def _on_migration(self, event: str) -> None:
+        if self.metrics is not None:
+            self.metrics.observe_migration(self.mdc.name, event)
+
     def generate(self, request: Dict[str, Any], context: Context
                  ) -> AsyncIterator[Dict[str, Any]]:
-        """Preprocessed-request in, postprocessed text deltas out."""
+        """Preprocessed-request in, postprocessed text deltas out (with
+        transparent migration on worker loss)."""
         return postprocess_stream(
-            self.route(request, context),
+            migrating_stream(
+                request, context, self.route, self.mdc.migration_limit,
+                backoff_ms=self.mdc.migration_backoff_ms,
+                backoff_max_ms=self.mdc.migration_backoff_max_ms,
+                on_migration=self._on_migration,
+            ),
             self.tokenizer,
             prompt_ids=request.get("token_ids"),
             stop_sequences=request.get("stop_conditions", {}).get(
@@ -124,7 +141,8 @@ class ModelWatcher:
     frontend never falls back from KV routing quietly."""
 
     def __init__(self, runtime: DistributedRuntime, manager: ModelManager,
-                 router_mode: str = "round_robin", kv_chooser_factory=None):
+                 router_mode: str = "round_robin", kv_chooser_factory=None,
+                 metrics=None):
         if router_mode not in ("round_robin", "random", "kv"):
             raise ValueError(f"unknown router mode {router_mode!r} "
                              "(round_robin, random or kv)")
@@ -135,6 +153,7 @@ class ModelWatcher:
         self.manager = manager
         self.router_mode = router_mode
         self.kv_chooser_factory = kv_chooser_factory
+        self.metrics = metrics  # shared FrontendMetrics, or None
         self._task: Optional[asyncio.Task] = None
         self._ready = asyncio.Event()
         self._choosers: list = []  # every KvRouter built, stopped with us
@@ -222,7 +241,8 @@ class ModelWatcher:
                 .endpoint(mdc.endpoint)
             )
             client = await endpoint.client().start()
-            entry = ModelEntry(mdc, tokenizer, client, self.router_mode)
+            entry = ModelEntry(mdc, tokenizer, client, self.router_mode,
+                               metrics=self.metrics)
             if self.kv_chooser_factory is not None:
                 entry.kv_chooser = await self.kv_chooser_factory(mdc, client)
                 self._choosers.append(entry.kv_chooser)

@@ -5,7 +5,7 @@ The port's copy of the JAX package's `llm/preprocessor.py`: chat template
 multimodal content: image and video parts become the model's placeholder
 runs and the request carries the processed media (`_process_images` for
 CLIP towers, `_process_media_qwen` for dynamic-resolution Qwen towers).
-Embeddings raise `RequestError` (a later slice).
+Embeddings (`preprocess_embedding`) become ``{"embed_token_ids": ...}``.
 Mirrors the reference preprocessor contract
 (lib/llm/src/preprocessor.rs:102 `OpenAIPreprocessor`:
 chat-template render → tokenize → sampling-option mapping) producing the
@@ -204,7 +204,38 @@ class OpenAIPreprocessor:
     # -- embeddings ----------------------------------------------------------- #
 
     def preprocess_embedding(self, request: Dict[str, Any]) -> Dict[str, Any]:
-        raise RequestError("embeddings are not ported to dynamo_tpu_torch yet")
+        """OpenAI embeddings request -> engine embed request (the analog of
+        the reference's preprocessor.rs `preprocess_embedding_request`)."""
+        inputs = request.get("input")
+        if inputs is None:
+            raise RequestError("'input' is required")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if not isinstance(inputs, list) or not inputs:
+            raise RequestError("'input' must be a non-empty string or list")
+        if isinstance(inputs[0], int):  # single token array
+            inputs = [inputs]
+        if len(inputs) > 64:  # cap before tokenizing anything
+            raise RequestError("at most 64 inputs per embeddings request")
+        batches: List[List[int]] = []
+        for item in inputs:
+            if isinstance(item, str):
+                ids = self.tokenizer.encode(item)
+            elif isinstance(item, list) and all(isinstance(t, int) for t in item):
+                ids = list(item)
+            else:
+                raise RequestError(
+                    "'input' items must be strings or token arrays"
+                )
+            if not ids:
+                raise RequestError("'input' items must not be empty")
+            if len(ids) > self.mdc.context_length:
+                raise RequestError(
+                    f"input is {len(ids)} tokens; model context is "
+                    f"{self.mdc.context_length}"
+                )
+            batches.append(ids)
+        return {"embed_token_ids": batches}
 
     # -- shared -------------------------------------------------------------- #
 

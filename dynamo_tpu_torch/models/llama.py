@@ -22,6 +22,8 @@ the JAX package's `models/llama.py`.
   rope streams of the chunk (``mm_positions``); decode and verify take a
   per-row ``rope_offset`` (the sequence's M-RoPE delta) that shifts rope
   only, never the KV slot.
+- Embeddings (`forward_embed`): the prefill layer body at prefix 0 over
+  whole inputs, mean-pooled and unit-normalised; no KV is kept.
 """
 
 from __future__ import annotations
@@ -343,8 +345,9 @@ class DecoderLayer(nn.Module):
     def prefill(self, x, kv_layer, rope, page_table, prefix_lens, chunk_lens,
                 slot):
         """x [B, S, h]; attends to the cached prefix + the chunk, then
-        writes the chunk's KV into the pool at `slot`.  `rope` is the
-        step's (cos, sin, scale), shared by every layer."""
+        writes the chunk's KV into the pool at `slot` (None: no write, the
+        cache-free embed).  `rope` is the step's (cos, sin, scale), shared
+        by every layer."""
         B, S, _ = x.shape
         k_pages, v_pages = kv_layer
         attn_in = rms_norm(x, self.attn_norm, self.cfg.rms_norm_eps)
@@ -355,7 +358,8 @@ class DecoderLayer(nn.Module):
         attn = prefill_attention(q, k, v, k_pages, v_pages, page_table,
                                  prefix_lens, chunk_lens, window=window,
                                  sink=sink)
-        write_kv_slots(k_pages, v_pages, slot, k, v)
+        if slot is not None:
+            write_kv_slots(k_pages, v_pages, slot, k, v)
         x = x + self._attn_out(attn.reshape(B, S, -1))
         return x + self._mlp(rms_norm(x, self.mlp_norm, self.cfg.rms_norm_eps))
 
@@ -471,6 +475,37 @@ class Llama(nn.Module):
         x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens,
                                  rope_offset=rope_offset)
         return self.lm_logits(x)
+
+    @torch.no_grad()
+    def forward_embed(self, tokens: torch.Tensor,
+                      lens: torch.Tensor) -> torch.Tensor:
+        """Sequence embeddings (tokens [B, S], valid lengths ``lens`` [B]):
+        every layer's prefill body at prefix 0 with chunk_lens = lens, the
+        final norm, the f32 mean over valid positions (divisor floored at
+        1), unit-normalised (norm floored at 1e-9); f32 [B, h].  Positions
+        are 0..S-1 with 1-D rope, an M-RoPE model's too.  Cache-free: with
+        no prefix the attention reads no page, so a one-slot page in the
+        model's dtype and a zero table stand in for the pool, and no KV is
+        written."""
+        B, S = tokens.shape
+        dev = tokens.device
+        c = self.cfg
+        positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+        rope = (*rope_cos_sin(positions, self.inv_freq), self.rope_scale)
+        lens = lens.to(device=dev, dtype=torch.int32)
+        prefix = torch.zeros(B, dtype=torch.int32, device=dev)
+        table = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        page = torch.zeros((1, 1, c.num_key_value_heads, c.head_dim_),
+                           dtype=self.dtype, device=dev)
+        x = self.embed[tokens]
+        for layer in self.layers:
+            x = layer.prefill(x, (page, page), rope, table, prefix, lens, None)
+        x = rms_norm(x, self.final_norm, c.rms_norm_eps)
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).float()
+        pooled = (x.float() * mask[..., None]).sum(1)
+        pooled = pooled / lens.float().clamp_min(1.0)[:, None]
+        return pooled / torch.linalg.vector_norm(
+            pooled, dim=-1, keepdim=True).clamp_min(1e-9)
 
     @torch.no_grad()
     def forward_decode(self, kv: KVCache, tokens, positions, page_table,

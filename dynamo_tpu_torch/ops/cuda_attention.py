@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._launches import LAUNCHES, reset_launches  # noqa: F401
+from ._launches import LAUNCHES, count_launch, reset_launches  # noqa: F401
 
 # The split-KV decode grid is (n_kv, B, n_split).  A split is a fixed run
 # of DECODE_SPLIT_KEYS keys (whole pages), never sized from the table
@@ -160,8 +160,8 @@ def decode_attention_cuda(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "decode attention")
-    LAUNCHES["decode_attention"] += 1
-    LAUNCHES["decode_merge"] += 1
+    count_launch("decode_attention")
+    count_launch("decode_merge")
     return out
 
 
@@ -207,5 +207,5 @@ def prefill_attention_cuda(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "prefill attention")
-    LAUNCHES["prefill_attention"] += 1
+    count_launch("prefill_attention")
     return out

@@ -28,7 +28,7 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from ._launches import LAUNCHES
+from ._launches import count_launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = 8  # elements a kernel thread moves per step
@@ -156,7 +156,7 @@ def kv_repage_cuda(src_k: torch.Tensor, src_v: torch.Tensor,
                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kv_repage launch failed: CUDA error {err}")
-    LAUNCHES["kv_repage"] += 1
+    count_launch("kv_repage")
 
 
 def kv_repage(src_k: torch.Tensor, src_v: torch.Tensor, dst_k: torch.Tensor,

@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._launches import LAUNCHES, reset_launches  # noqa: F401
+from ._launches import LAUNCHES, count_launch, reset_launches  # noqa: F401
 from .cuda_attention import _check
 
 _P = ctypes.c_void_p
@@ -149,9 +149,9 @@ def grouped_gemm_cuda(xs: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
         part.data_ptr() if part is not None else 0, A, E, K, N,
         tile_rows(A, E), n_split, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "grouped GEMM")
-    LAUNCHES["moe_grouped_gemm"] += 1
+    count_launch("moe_grouped_gemm")
     if part is not None:
-        LAUNCHES["moe_split_reduce"] += 1
+        count_launch("moe_split_reduce")
     return out
 
 
@@ -178,7 +178,7 @@ def grouped_glu_cuda(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         offs.data_ptr(), out.data_ptr(), A, E, K, N, tile_rows(A, E),
         ACTS[act], torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "grouped GLU")
-    LAUNCHES["moe_grouped_glu"] += 1
+    count_launch("moe_grouped_glu")
     return out
 
 

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from . import _build
-from ._launches import LAUNCHES
+from ._launches import count_launch
 
 SOURCE = "vision_attention.cu"
 TILE_ROWS = 64  # query rows of one kernel block, its consumer warpgroup's (BQ in the source)
@@ -115,7 +115,7 @@ def segment_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment attention launch failed: CUDA error {err}")
-    LAUNCHES["segment_attention"] += 1
+    count_launch("segment_attention")
     return out
 
 

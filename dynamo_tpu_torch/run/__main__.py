@@ -93,7 +93,7 @@ async def run_batch(engine, requests: List[dict]) -> List[dict]:
 async def start_stack(args, engine, mdc):
     """Runtime (embedded control plane unless --control), the engine's
     worker endpoint, the model watcher and the HTTP service."""
-    from ..frontend import HttpService, ModelManager, ModelWatcher
+    from ..frontend import FrontendMetrics, HttpService, ModelManager, ModelWatcher
     from ..frontend.__main__ import kv_factory
     from ..runtime import DistributedRuntime
     from ..worker import serve_engine
@@ -104,11 +104,13 @@ async def start_stack(args, engine, mdc):
         runtime = await DistributedRuntime.detached()
     await serve_engine(runtime, engine, mdc, namespace=args.namespace)
     manager = ModelManager()
+    metrics = FrontendMetrics()
     watcher = await ModelWatcher(
         runtime, manager, router_mode=args.router_mode,
-        kv_chooser_factory=kv_factory(runtime, args)).start()
+        kv_chooser_factory=kv_factory(runtime, args), metrics=metrics).start()
     await watcher.wait_for_model(mdc.name)
-    http = await HttpService(manager, host=args.host, port=args.port).start()
+    http = await HttpService(manager, host=args.host, port=args.port,
+                             metrics=metrics).start()
     return runtime, watcher, http
 
 

@@ -148,12 +148,18 @@ class ServedEndpoint:
         self.instance = instance
         self.graceful_shutdown = graceful_shutdown
         self.health_check_payload = health_check_payload
+        # services a worker attaches, stopped on deregister: KV event and
+        # metrics publishers (one per engine rank), the KVBM tier summary,
+        # the disagg transfer source
+        self.kv_publisher: list = []
+        self.metrics_publisher: list = []
+        self.tier_summary_publisher = None
+        self.transfer_source = None
 
     async def deregister(self) -> None:
         """Remove from discovery (stop receiving new requests)."""
-        for attr in ("kv_publisher", "metrics_publisher",
-                     "tier_summary_publisher", "transfer_source"):
-            svc = getattr(self, attr, None)
+        for svc in (*self.kv_publisher, *self.metrics_publisher,
+                    self.tier_summary_publisher, self.transfer_source):
             if svc is not None:
                 await svc.stop()
         await self.endpoint.runtime.delete_leased(self.instance.path)

@@ -1,19 +1,21 @@
 """Worker glue: serve a TorchEngine (or any AsyncEngine) as a discovered,
 routable model endpoint.
 
-The port's copy of the JAX package's `worker/__init__.py` (`EngineWorker`,
-`serve_engine`), with the publishers that feed the KV router: KV events,
-load metrics and, for an engine with KVBM tiers, the tier summary.  The
-served engine may wrap a `TorchEngine` (the disagg roles' prefill facade
-and decode handler hold theirs as ``.engine``).
-Data-parallel ranks (`DpRankEngine`) are a later slice.
+The port's copy of the JAX package's `worker/__init__.py` (`DpRankEngine`,
+`EngineWorker`, `serve_engine`), with the publishers that feed the KV
+router: KV events, load metrics and, for an engine with KVBM tiers, the
+tier summary.  The served engine may wrap a `TorchEngine` (the disagg
+roles' prefill facade and decode handler hold theirs as ``.engine``) or
+be a `DpRankEngine` of several, each rank publishing under its own packed
+(instance, dp_rank) key.  Embedding requests (``embed_token_ids``) go to
+the engine's `embed`.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
-from typing import Any, AsyncIterator
+from typing import Any, AsyncIterator, Optional
 
 from ..engine import ForwardPassMetrics, TorchEngine
 from ..frontend.service import register_llm
@@ -21,6 +23,122 @@ from ..llm import ModelDeploymentCard, RuntimeConfig
 from ..runtime import Context, DistributedRuntime, ServedEndpoint
 
 logger = logging.getLogger(__name__)
+
+
+class DpRankEngine:
+    """N independent engine replicas behind one endpoint — the engine
+    data-parallel ranks of the reference (vLLM `data_parallel_size` with
+    per-dp-rank KV events and `WorkerWithDpRank` routing,
+    components/src/dynamo/vllm/main.py).
+
+    Each rank has its own KV pool and scheduler; the KV router addresses
+    (instance, dp_rank) via packed worker keys, and rank-less requests
+    round-robin locally.  On one card the ranks share one set of weights
+    (`worker.__main__` builds them so)."""
+
+    def __init__(self, engines):
+        if not engines:
+            raise ValueError("DpRankEngine needs at least one engine")
+        self.engines = list(engines)
+        self._rr = 0
+
+    @property
+    def dp_ranks(self) -> int:
+        return len(self.engines)
+
+    def _pick(self, request) -> Any:
+        rank = request.get("dp_rank") if isinstance(request, dict) else None
+        if rank is None:
+            rank = self._rr % len(self.engines)
+            self._rr += 1
+        if not isinstance(rank, int) or not 0 <= rank < len(self.engines):
+            raise ValueError(
+                f"dp_rank {rank!r} outside [0, {len(self.engines)})"
+            )
+        return self.engines[rank]
+
+    async def generate(self, request: Any, context: Optional[Context] = None
+                       ) -> AsyncIterator[Any]:
+        try:
+            engine = self._pick(request)
+        except ValueError as e:
+            yield {"token_ids": [], "finish_reason": "error", "error": str(e)}
+            return
+        async for out in engine.generate(request, context):
+            yield out
+
+    async def embed(self, request: Any, context: Optional[Context] = None):
+        try:
+            engine = self._pick(request)
+        except ValueError as e:  # structured error, like generate
+            return {"error": str(e)}
+        return await engine.embed(request, context)
+
+    def metrics(self) -> ForwardPassMetrics:
+        """Aggregate snapshot (per-rank states publish separately)."""
+        per = [e.metrics() for e in self.engines]
+        drafted = sum(m.spec_draft_tokens_total for m in per)
+        agg = ForwardPassMetrics(
+            active_seqs=sum(m.active_seqs for m in per),
+            waiting_seqs=sum(m.waiting_seqs for m in per),
+            kv_usage=sum(m.kv_usage for m in per) / len(per),
+            kv_total_pages=sum(m.kv_total_pages for m in per),
+            num_requests_total=sum(m.num_requests_total for m in per),
+            spec_draft_tokens_total=drafted,
+            spec_accepted_tokens_total=sum(
+                m.spec_accepted_tokens_total for m in per
+            ),
+            spec_dispatches_total=sum(m.spec_dispatches_total for m in per),
+            # lifetime ratio across ranks (the per-rank rolling windows
+            # don't aggregate meaningfully)
+            spec_acceptance_rate=(
+                sum(m.spec_accepted_tokens_total for m in per) / drafted
+                if drafted else 0.0
+            ),
+            ttft_block_wait_ms_total=sum(
+                m.ttft_block_wait_ms_total for m in per
+            ),
+            ttft_queue_wait_ms_total=sum(
+                m.ttft_queue_wait_ms_total for m in per
+            ),
+            ttft_prefill_ms_total=sum(m.ttft_prefill_ms_total for m in per),
+            ttft_attributed_total=sum(m.ttft_attributed_total for m in per),
+            decode_cc_blocks_total=sum(
+                m.decode_cc_blocks_total for m in per
+            ),
+            decode_cc_chains_total=sum(
+                m.decode_cc_chains_total for m in per
+            ),
+            # per-reason fall-out dict merges key-wise across ranks
+            decode_cc_fallout_total={
+                r: sum(m.decode_cc_fallout_total.get(r, 0) for m in per)
+                for r in sorted({k for m in per
+                                 for k in m.decode_cc_fallout_total})
+            },
+            # capacity gauges: occupancy of the FULLEST rank (admission
+            # pins sequences to a rank, so the max is the binding signal,
+            # same reasoning as kv_usage) and aggregate watermark headroom
+            # (pages are capacity — they sum)
+            batch_occupancy=max(m.batch_occupancy for m in per),
+            kv_watermark_headroom_pages=sum(
+                m.kv_watermark_headroom_pages for m in per
+            ),
+        )
+        # per-rung dispatch counters are dynamic attrs — sum the union
+        # across ranks so the block-ladder histogram survives dp>1
+        for key in {k for m in per for k in vars(m)
+                    if k.startswith("decode_rung")}:
+            setattr(agg, key, sum(getattr(m, key, 0) for m in per))
+        return agg
+
+    def clear_kv_blocks(self) -> int:
+        return sum(e.clear_kv_blocks() for e in self.engines)
+
+    def cached_prefix_len(self, prompt) -> int:
+        return max(e.cached_prefix_len(prompt) for e in self.engines)
+
+    async def shutdown(self) -> None:
+        await asyncio.gather(*(e.shutdown() for e in self.engines))
 
 
 class EngineWorker:
@@ -36,7 +154,10 @@ class EngineWorker:
                 yield out
             return
         if isinstance(request, dict) and "embed_token_ids" in request:
-            yield {"error": "engine does not support embeddings"}
+            if not hasattr(self.engine, "embed"):
+                yield {"error": "engine does not support embeddings"}
+                return
+            yield await self.engine.embed(request, context)
             return
         async for out in self.engine.generate(request, context):
             yield out
@@ -76,25 +197,44 @@ async def serve_engine(
 
     With `publish_kv_events`, an engine with an event sink publishes its
     KV events to the component's durable stream and its load metrics on
-    the component's subject, and an engine with KVBM tiers attached its
-    lease-scoped tier summary — what a KV router scores."""
+    the component's subject (a `DpRankEngine`: one publisher of each per
+    rank, keyed by the packed (instance, rank) id), and an engine with
+    KVBM tiers attached its lease-scoped tier summary — what a KV router
+    scores.  A `TorchEngine`'s card advertises ``embedding`` and its
+    capacity, scaled by the number of ranks."""
     worker = EngineWorker(engine)
-    inner = getattr(engine, "engine", engine)
     ep = runtime.namespace(namespace).component(component).endpoint(endpoint)
     served = await ep.serve_endpoint(
         worker.handle,
         health_check_payload={"control": "metrics"},
     )
     wid = served.instance.instance_id
-    if publish_kv_events and hasattr(engine, "add_event_sink"):
+    ranks = engine.engines if isinstance(engine, DpRankEngine) else [engine]
+    if publish_kv_events:
+        # one event stream + one metrics publisher per rank, keyed by the
+        # packed (instance, dp_rank) worker id (reference: per-dp-rank ZMQ
+        # event ports, vllm/main.py); a lone engine is rank 0.  Every rank
+        # of a worker is a TorchEngine, so every rank publishes: the router
+        # discovers an instance's ranks from their metrics
         from ..router import KvEventPublisher, WorkerMetricsPublisher
 
-        kv_pub = KvEventPublisher(runtime, namespace, component, wid).start()
-        engine.add_event_sink(kv_pub.sink)
-        served.kv_publisher = kv_pub
-        served.metrics_publisher = WorkerMetricsPublisher(
-            runtime, engine, namespace, component, wid
-        ).start()
+        for rank, eng in enumerate(ranks):
+            if not hasattr(eng, "add_event_sink"):
+                continue
+            kv_pub = KvEventPublisher(
+                runtime, namespace, component, wid, dp_rank=rank
+            ).start()
+            eng.add_event_sink(kv_pub.sink)
+            served.kv_publisher.append(kv_pub)
+            served.metrics_publisher.append(WorkerMetricsPublisher(
+                runtime, eng, namespace, component, wid, dp_rank=rank
+            ).start())
+    # unwrap handler/offload wrappers (DisaggDecodeHandler, EncodeOffload,
+    # the prefill facade — each delegates to `.engine`) to the real engine:
+    # its tiers, page size, context and runtime config
+    inner = ranks[0]
+    while not isinstance(inner, TorchEngine) and hasattr(inner, "engine"):
+        inner = inner.engine
     # KVBM fleet-wide prefix reuse: a worker with KV tiers attached also
     # publishes its host/disk tier summary (lease-scoped) so routers can
     # score overlap against blocks that left this worker's device cache
@@ -107,11 +247,13 @@ async def serve_engine(
             worker_id=pack_worker(wid, 0),
         ).start()
     if isinstance(inner, TorchEngine):
+        if "embedding" not in mdc.types:
+            mdc.model_type = mdc.model_type + ",embedding"
         mdc.kv_cache_block_size = inner.cfg.page_size
         mdc.context_length = inner.cfg.max_model_len
         mdc.runtime_config = RuntimeConfig(
-            total_kv_blocks=inner.cfg.usable_pages,
-            max_num_seqs=inner.cfg.max_num_seqs,
+            total_kv_blocks=inner.cfg.usable_pages * len(ranks),
+            max_num_seqs=inner.cfg.max_num_seqs * len(ranks),
             max_num_batched_tokens=inner.cfg.max_prefill_tokens,
         )
     await register_llm(runtime, served, mdc)

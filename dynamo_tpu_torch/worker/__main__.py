@@ -23,8 +23,14 @@ leader's ``--kvbm-g4-bucket`` names the shared object-store bucket).  The
 worker publishes its KV events, load metrics and (with KVBM) its tier
 summary for a frontend in ``--router-mode kv``.  ``--quantization
 int8`` serves int8 projections (quantized at engine construction); KV
-partitioning is accepted and refused by `TorchEngine`; meshes, multihost
-and mock engines are later slices.  Multimodal models serve image and
+partitioning is accepted and refused by `TorchEngine`.  ``--dp-ranks N``
+serves N `TorchEngine` replicas behind the one endpoint (`DpRankEngine`),
+sharing one set of weights on the card, each with its own pool of
+``--num-pages`` and its own KV events and metrics under the packed
+(instance, rank) key; it does not compose with ``--disagg-role``,
+``--kvbm`` or ``--encode-component``.  Every worker answers embedding
+requests (``/v1/embeddings`` at the frontend).  Meshes (tp, pp, sp),
+multihost and mock engines are later slices.  Multimodal models serve image and
 video chats: a qwen-vl checkpoint directory or ``qwen2.5-vl-7b`` brings
 its tower, ``--vision tiny`` pairs a tiny CLIP tower with ``--model
 tiny``; ``--disagg-role encode`` serves only the tower (component
@@ -277,8 +283,26 @@ def build_engine(args):
     if offload:
         tower = None  # media go to the encode worker; keep the geometry
     eos = list(tok.eos_token_ids)
-    engine = TorchEngine(cfg, model, ecfg, eos_token_ids=eos, device=device,
-                         vision=(tower, vcfg) if vcfg is not None else None)
+    ranks = getattr(args, "dp_ranks", 1)
+    if ranks > 1 and ecfg.quantization == "int8":
+        # quantize ONCE before building the replicas: each TorchEngine
+        # would otherwise quantize the shared model again
+        from ..models.quantization import quantize_params
+
+        quantize_params(model)
+        ecfg = dataclasses.replace(ecfg, quantization="none")
+
+    def make_engine():
+        return TorchEngine(cfg, model, ecfg, eos_token_ids=eos, device=device,
+                           vision=(tower, vcfg) if vcfg is not None else None)
+
+    if ranks > 1:
+        from . import DpRankEngine
+
+        # the replicas share the weights; each gets its own KV pool
+        engine = DpRankEngine([make_engine() for _ in range(ranks)])
+    else:
+        engine = make_engine()
     mdc = ModelDeploymentCard(
         name=args.model_name or ("tiny-chat" if args.model == "tiny" else cfg.name),
         tokenizer_json=tok.to_json_str(),
@@ -328,6 +352,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="route remote prefills through a standalone router "
                          "service registered at this component (decode role "
                          "only)")
+    ap.add_argument("--dp-ranks", type=int, default=1,
+                    help="independent engine replicas behind this endpoint "
+                         "(per-rank KV pools + events; the router targets "
+                         "(instance, dp_rank))")
     add_model_args(ap)
     return ap
 
@@ -382,6 +410,17 @@ def check_role(args) -> None:
     if args.disagg_role == "prefill" and args.kvbm:
         raise SystemExit("a prefill worker hands its pages to decode workers; "
                          "--kvbm tiers are served by --disagg-role both|decode")
+    if args.dp_ranks > 1:
+        # DpRankEngine serves the plain generate/embed surface only; the
+        # disagg handlers and the KVBM worker require the single-engine
+        # API (the port has no multihost or mock engines to refuse)
+        for bad, flag in [
+            (args.disagg_role != "both", "--disagg-role"),
+            (args.kvbm, "--kvbm"),
+            (bool(args.encode_component), "--encode-component"),
+        ]:
+            if bad:
+                raise SystemExit(f"--dp-ranks > 1 is incompatible with {flag}")
     if args.disagg_role == "prefill" and args.device != "cpu":
         from ..disagg.device_transfer import expandable_segments
 

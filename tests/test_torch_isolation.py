@@ -221,3 +221,35 @@ def test_vision_entry_points_refuse_without_cuda(monkeypatch):
     with pytest.raises(SystemExit, match="vision tower"):
         check_role(build_parser().parse_args(["--control", "x:1",
                                               "--disagg-role", "encode"]))
+
+
+SERVING = ("llm/migration.py", "worker/__init__.py", "worker/__main__.py",
+           "frontend/openai_http.py", "frontend/service.py",
+           "frontend/metrics.py", "llm/preprocessor.py", "models/llama.py",
+           "engine/engine.py")
+
+
+def test_embed_dp_and_migration_modules_are_covered():
+    """The modules of embeddings, data-parallel ranks and migration are
+    among the sources the import checks walk, so none of them loads JAX
+    or the JAX package, even lazily."""
+    walked = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in SERVING:
+        assert mod in walked, mod
+
+
+def test_dp_ranks_refuse_without_cuda(monkeypatch):
+    """`--dp-ranks` builds every rank on the card unless asked for the
+    CPU."""
+    from dynamo_tpu_torch.worker import DpRankEngine
+    from dynamo_tpu_torch.worker.__main__ import build_engine, build_parser
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(build_parser().parse_args(["--control", "x:1",
+                                                "--dp-ranks", "2"]))
+    engine, _ = build_engine(build_parser().parse_args(
+        ["--control", "x:1", "--dp-ranks", "2", "--device", "cpu",
+         "--num-pages", "16"]))
+    assert isinstance(engine, DpRankEngine)
+    assert all(e.device.type == "cpu" for e in engine.engines)
