@@ -57,7 +57,14 @@ final line):
    timed with `scaled_dot_product_attention` and the boolean block mask as
    the yardstick and bound by three TF32 passes (the f32 FMA bound of the
    first version kept beside it), the golden LLaVA tower's 2 heads of 16,
-   and head dims 128 (32-key tiles) and 48 on short segments.
+   and head dims 128 (32-key tiles) and 48 on short segments.  Phase 15's
+   per-rank shapes, all timed: both attention kernels at Llama-3.1-8B tp 2
+   (16 q / 4 kv heads of 128), Llama-3-70B tp 4 (16 / 2, G 8) and
+   gpt-oss-20b tp 2 (32 / 4 of 64, window 128, the rank's sinks) on the
+   serving decode rows and a 512-token chunk after a 1536-token prefix;
+   the grouped GEMM (with b_down) and the fused gate||up at gpt-oss-20b's
+   16 experts a rank, the other rank's rows riding its last group, on a
+   decode step's and a chunk's rows.
    Then the seeded sampler's threefry bits on the card against the CPU's,
    and the sampler's time per step;
 4. serving: `TorchEngine` at Llama-3.1-8B full width and depth (random bf16
@@ -95,8 +102,8 @@ final line):
    kernels must appear in the trace.  Mean TTFT, ITL and decode tokens/s
    of each arm at the client and the frontend's SSE CPU per token are
    printed on a line of their own beside phase 4's numbers and the card;
-8. device_loop: the engine's device loop at phase 4's width, depth and
-   weights, in four engines: (a) one-step blocks, (b) 8-step blocks with
+8. device_loop: the engine's device loop at phase 4's width and weights
+   (its first CUT_LAYERS layers since PR 13), in four engines: (a) one-step blocks, (b) 8-step blocks with
    the ladder 1/2/4 and chains of 2, (c) as (b) with the continuous loop
    and chunk rows of up to 512 prompt tokens a block, (d) speculative
    decoding with 4 n-gram drafts.  Each serves phase 4's five prompts, a
@@ -264,8 +271,30 @@ final line):
    8th token: all 64 tokens, the undisturbed text up to a near-tie,
    ``dynamo_frontend_migrations_total`` 1, the longest inter-token gap at
    the kill printed, and a later request served by the survivor.
+15. tensor parallelism (`TorchEngine(parallel=ParallelConfig(tp=N))`,
+   its ranks sharing the one card over gloo, eager).  (a) After 14, phase
+   4's 8B at full width and depth: phase 4's engine through
+   ``ParallelConfig(tp=1)`` repeats phase 4's tokens bit for bit; a tp
+   group of 2 (the weights drawn from phase 4's seed on each rank) serves
+   phase 4's five requests: greedy rows equal to phase 4's up to
+   near-ties, tokens/s and TTFT printed, and every rank launched the
+   decode and prefill kernels; one greedy request through the control
+   plane, ``python -m dynamo_tpu_torch.worker --tp 2`` and the frontend
+   gives the same text up to a near-tie; three planted faults, each in a
+   copy of the port run as its own process on the 8B cut to
+   TP_FAULT_LAYERS layers, fail (a)'s check: no all-reduce after
+   ``w_down``, kv heads sharded in the wrong order, a follower that skips
+   one dispatch.  (b) After 13, Llama-3-70B at its published widths cut
+   to TP_70B_LAYERS layers: a flat engine, then a tp group of 4, on
+   phase 4's traffic (rows equal up to near-ties), and one request over
+   HTTP through ``worker --tp 4``.  (c) gpt-oss-20b at full depth on a
+   tp group of 2 (16 experts a rank) on phase 11's requests, against
+   phase 11's one-step tokens up to near-ties (the flat model rebuilt
+   from its seed only to measure a flip); every rank launched the
+   attention and grouped kernels.
 
-On the card every decode block is a replayed CUDA graph; the wrappers
+On the card every decode block is a replayed CUDA graph (a tp group's
+blocks run eagerly: gloo's collectives cannot be captured); the wrappers
 count launches in Python, so the graph runner adds each graph's recorded
 launches at every replay.  Every JSON line is also written to
 ``chip_smoke.jsonl`` in the output directory below, for the lines a
@@ -279,7 +308,9 @@ serving for the grouped GEMM and the fused gate||up, of phase 12
 after the measured round) for the KV re-page, and of phase 13 (c)'s
 one-step Qwen2.5-VL-7B engine, this slice's path, for the segment
 attention; the prefill entry adds its launches on phase 14 (a)'s
-embeddings path.  Then
+embeddings path, and ``launches_by_path`` each tp rank's of phase 15
+(the followers' read from their own registries at the group's stats
+plan).  Then
 the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
 ``chiprun_out/``.
@@ -328,7 +359,12 @@ ATTENTION_KERNELS = ("decode_attention", "decode_merge", "prefill_attention")
 MOE_KERNELS = ("moe_grouped_gemm", "moe_split_reduce", "moe_grouped_glu")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:  # seconds since the script started
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     line = json.dumps(obj)
     print(line, flush=True)
     if _JSONL is not None:
@@ -1073,6 +1109,75 @@ def kv_repage_case(name, gen, prompt_len, ps_s, ps_d, src_dtype=torch.bfloat16,
     return res
 
 
+# phase 8 runs phase 4's 8B cut to this depth (full width; the same
+# tensors), so the whole script fits its time limit beside phase 15
+CUT_LAYERS = 8
+
+
+def depth_view(model, cfg, layers=CUT_LAYERS):
+    """(model, cfg) of `model` cut to its first `layers` layers: a shallow
+    copy sharing every tensor."""
+    import copy
+    import dataclasses
+
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    view.layers = torch.nn.ModuleList(list(model.layers)[:layers])
+    view.cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    return view, view.cfg
+
+
+def tp_rank_sizes(sizes, rank=0, tp=2):
+    """A tp rank's expert groups for a dispatch routed as `sizes` over
+    every expert (`_moe_ragged` under tp): its own experts' rows, the
+    other ranks' rows riding its last group."""
+    n = len(sizes) // tp
+    mine = list(sizes[rank * n:(rank + 1) * n])
+    mine[-1] += sum(sizes) - sum(mine)
+    return mine
+
+
+def tp_rank_cases(gen):
+    """The kernels at phase 15's per-rank shapes: both attention kernels
+    at Llama-3.1-8B tp 2 (16 q / 4 kv heads of 128), Llama-3-70B tp 4 (16
+    / 2 of 128, G 8) and gpt-oss-20b tp 2 (32 / 4 of 64, window 128, the
+    rank's half of the sinks), on the serving decode rows and a 512-token
+    chunk after a 1536-token prefix; the grouped GEMM (with b_down) and
+    the fused gate||up at gpt-oss-20b's 16 experts a rank on a decode
+    step's and a chunk's rows.  All timed."""
+    bf, sp = torch.bfloat16, SERVING_PREFILL
+    out = []
+    for model, H, n_kv, hd, extra in (
+            ("Llama-3.1-8B tp 2 rank", 16, 4, 128, {}),
+            ("Llama-3-70B tp 4 rank", 16, 2, 128, {}),
+            ("gpt-oss-20b tp 2 rank", 32, 4, 64,
+             {"window": 128, "with_sink": True})):
+        out.append(decode_case(
+            f"decode {model}: {H} q / {n_kv} kv heads of {hd}, serving rows",
+            gen, bf, hd, H, n_kv, SERVING_DECODE, timed=True, **extra))
+        out.append(prefill_case(
+            f"prefill {model}: {H} q / {n_kv} kv heads of {hd}, chunk 512 "
+            f"after a 1536 prefix", gen, bf, hd, H, n_kv, sp["S"], sp["prefix"],
+            sp["chunk"], timed=True, **extra))
+    dec = tp_rank_sizes(routing_sizes(gen, 8))
+    chunk = tp_rank_sizes(routing_sizes(gen, 512))
+    out += [
+        grouped_gemm_case("moe tp 2 rank: 8 rows x top-4, 16 of 32 experts + "
+                          "the other rank's rows, b_down", gen, dec, timed=True,
+                          bias=True),
+        grouped_gemm_case("moe tp 2 rank: 512 tokens x top-4, 16 of 32 experts "
+                          "+ the other rank's rows, b_down", gen, chunk,
+                          timed=True, bias=True),
+        grouped_glu_case("moe glu tp 2 rank: 8 rows x top-4, 16 experts, "
+                         "clamped GLU + biases", gen, dec, "gpt_oss_glu", True,
+                         timed=True),
+        grouped_glu_case("moe glu tp 2 rank: 512 tokens x top-4, 16 experts, "
+                         "clamped GLU + biases", gen, chunk, "gpt_oss_glu", True,
+                         timed=True),
+    ]
+    return out
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1168,6 +1273,7 @@ def phase_kernels():
         kv_repage_case("kv_repage f32 -> bf16, 333 tokens, pages 16 -> 32", gen,
                        333, 16, 32, src_dtype=torch.float32),
     ]
+    results += tp_rank_cases(gen)
     for r in results:
         emit({"phase": "kernel_check", **r})
         ok = (r["max_rel_err"] <= r["rtol"] and r["finite"]
@@ -3659,7 +3765,8 @@ def path_run(model, cfg, tokens, steps, fed=None, page=16):
     S = tokens.shape[1]
     maxp = -(-(S + steps) // page)
     table = torch.arange(1, maxp + 1, dtype=torch.int32, device="cuda")[None]
-    kv = KVCache.create(cfg, maxp + 1, page, torch.bfloat16, "cuda")
+    kv = KVCache.create(cfg, maxp + 1, page, torch.bfloat16, "cuda",
+                        tp=model.tp)
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     chunk = torch.full((1,), S, dtype=torch.int32, device="cuda")
     logits = [model.forward_prefill(kv, tokens, table, zero, chunk)]
@@ -4017,7 +4124,7 @@ def breadth_serving(model, cfg):
     for n, flip in flips.items():
         if flip and (flip["margin_std"] is None or abs(flip["margin_std"]) > LOGIT_TOL):
             fail(f"breadth: {n} of 8-step blocks flips beyond a near-tie: {flip}")
-    return launches_by_arm
+    return launches_by_arm, tokens["a_steps1"]
 
 
 def breadth_worker(cfg):
@@ -4245,12 +4352,13 @@ def breadth_int8(direct):
 
 def phase_breadth(direct):
     """Phase 11 (see the module docstring).  Runs with no other model on
-    the card; returns the launches of each serving path."""
+    the card; returns the launches of each serving path and the one-step
+    engine's tokens (phase 15 (c) compares with them)."""
     import gc
 
     model, cfg = breadth_model()
     breadth_paths(model, cfg)
-    serving = breadth_serving(model, cfg)
+    serving, tokens = breadth_serving(model, cfg)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4258,7 +4366,7 @@ def phase_breadth(direct):
     int8 = breadth_int8(direct)
     gc.collect()
     torch.cuda.empty_cache()
-    return serving, int8
+    return serving, int8, tokens
 
 
 # --------------------------------------------------------------------------- #
@@ -5461,6 +5569,663 @@ def phase_embed_dp_migration(model, cfg, direct):
             "dp ranks kv-routed (phase 14 c)": dp_launches}
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: tensor parallelism over torch.distributed
+# --------------------------------------------------------------------------- #
+
+# the engine of phases 4 and 11, on every tp group of this phase
+TP_ECFG = dict(page_size=16, num_pages=1024, max_num_seqs=8,
+               max_prefill_tokens=512, max_model_len=4096)
+# (b): Llama-3-70B's published widths, cut to this many layers
+TP_70B_LAYERS = 4
+# the planted faults of (a), each in a copy of the port: (file, a text of
+# it, its faulty replacement); each text occurs once
+TP_FAULTS = {
+    "no all-reduce after w_down": (
+        "dynamo_tpu_torch/models/llama.py",
+        "        return self._row_out(act.to(x.dtype), self.w_down)\n",
+        "        return self._proj(act.to(x.dtype), self.w_down)\n"),
+    "kv heads sharded in the wrong order": (
+        "dynamo_tpu_torch/models/llama.py",
+        "        t.copy_((shard(w, axis, rank, tp) * scale).to(dtype))\n",
+        "        kv = (axis == 1 and t.shape[-1]\n"
+        "              == cfg.num_key_value_heads // tp * cfg.head_dim_)\n"
+        "        t.copy_((shard(w, axis, tp - 1 - rank if kv else rank, tp)\n"
+        "                 * scale).to(dtype))\n"),
+    "a follower skips one dispatch": (
+        "dynamo_tpu_torch/engine/lockstep.py",
+        "            engine.replay(desc, inputs)\n",
+        "            engine.__dict__['_n'] = engine.__dict__.get('_n', 0) + (\n"
+        "                kind == 'decode')\n"
+        "            if engine._n != 3:\n"
+        "                engine.replay(desc, inputs)\n"),
+}
+# the faults run on (a)'s model cut to this depth (full width), their
+# model collectives timing out after this many seconds
+TP_FAULT_LAYERS = 4
+TP_FAULT_TIMEOUT_S = 15
+# gloo all-reduces of CUDA tensors between two ranks on the card, at the
+# shapes phase 15 (a) sums: a decode step's row-parallel output, a
+# 512-token chunk's, and a decode step's logits
+TP_COLLECTIVES = {"decode [8, 4096] f32": (8, 4096),
+                  "prefill chunk [512, 4096] f32": (512, 4096),
+                  "decode logits [8, 128256] f32": (8, 128256)}
+TP_GREEDY = ("A_64", "B_shared+200", "C_2048", "E_300")
+
+
+def tp_serve(cfg, source, tp, reqs, warm, trace=()):
+    """`TorchEngine(parallel=ParallelConfig(tp))` over `source`, its ranks
+    sharing the card (gloo): a warm-up request, then every request at
+    once; returns (results, wall s, build s, launches per rank over the
+    wave, metrics).  With `trace`, the named requests are repeated alone
+    from a cleared cache under `torch.profiler` on the leader: its device
+    breakdown and its host time inside the all-reduces go into the
+    metrics as ``trace``."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.ops import cuda_attention as ca
+    from dynamo_tpu_torch.parallel import ParallelConfig
+
+    ca.reset_launches()
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, source, EngineConfig(**TP_ECFG),
+                         parallel=ParallelConfig(tp=tp),
+                         devices=["cuda:0"] * tp)
+    build_s = time.perf_counter() - t0
+
+    async def run():
+        try:
+            await _collect(engine, warm)
+            before = await engine.group_stats()
+            t1 = time.perf_counter()
+            outs = await asyncio.gather(*[_collect(engine, r)
+                                          for r in reqs.values()])
+            wall = time.perf_counter() - t1
+            after = await engine.group_stats()
+            m = vars(engine.metrics())
+            if trace:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t2 = time.perf_counter()
+                    for n in trace:
+                        engine.clear_kv_blocks()
+                        await _collect(engine, reqs[n])
+                    torch.cuda.synchronize()
+                    solo_wall = time.perf_counter() - t2
+                m["trace"] = {**device_breakdown(prof, solo_wall),
+                              "requests": list(trace), **allreduce_host(prof)}
+        finally:
+            await engine.shutdown()
+        return outs, wall, before, after, m
+
+    outs, wall, before, after, m = asyncio.run(run())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {r: {k: n - before[r].get(k, 0) for k, n in after[r].items()}
+                for r in sorted(after)}
+    return dict(zip(reqs, outs)), wall, build_s, launches, m
+
+
+def allreduce_host(prof) -> dict:
+    """The leader's host events of the collectives (calls and seconds
+    inside, by the profiler's name: a gloo all-reduce of a CUDA tensor
+    returns once the sum is back on the device)."""
+    return {"collectives_host": {
+        evt.key: {"calls": evt.count, "s": evt.cpu_time_total / 1e6}
+        for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CPU
+        and any(k in evt.key.lower() for k in ("allreduce", "all_reduce",
+                                                "broadcast", "gloo"))}}
+
+
+def _tp_bench_rank(rank, init, q):
+    """One rank of `tp_collective_costs`."""
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.parallel import ParallelConfig, make_mesh
+
+    group = make_mesh(ParallelConfig(tp=2), ["cuda:0"] * 2, rank=rank,
+                      init_method=init)
+    out = {}
+    try:
+        for name, shape in TP_COLLECTIVES.items():
+            t = torch.randn(shape, device="cuda")
+            for _ in range(3):
+                dist.all_reduce(t, group=group.dev_group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                dist.all_reduce(t, group=group.dev_group)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / 20
+            out[name] = {"ms": ms, "bytes": t.numel() * 4,
+                         "gb_per_s": t.numel() * 4 / ms / 1e6}
+    finally:
+        group.close()
+    if rank == 0:
+        q.put(out)
+
+
+def tp_collective_costs():
+    """Host-clock ms of one gloo all-reduce of a CUDA tensor between two
+    ranks sharing the card (spawned processes), at TP_COLLECTIVES' shapes:
+    what a tp step pays on one card for each collective."""
+    import multiprocessing as mp
+
+    from dynamo_tpu_torch.parallel.mesh import free_port
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_tp_bench_rank, args=(r, init, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        out = q.get(timeout=300)
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+    emit({"phase": "tp", "case": "collectives", "backend": "gloo",
+          "ranks": 2, "devices": ["cuda:0"] * 2, "all_reduce": out,
+          "card": card_line()})
+    return out
+
+
+def tp_rows(res):
+    first = min((r["t_first"] for r in res.values() if r["t_first"]), default=0)
+    last = max((r["t_last"] for r in res.values() if r["t_last"]), default=0)
+    decoded = sum(max(0, len(r["tokens"]) - 1) for r in res.values())
+    return {"ttft_ms": {n: r["ttft_ms"] for n, r in res.items()},
+            "decode_tokens_per_s": decoded / (last - first) if last > first else 0.0,
+            "finish": {n: r["finish_reason"] for n, r in res.items()}}
+
+
+def tp_check(get_model, cfg, reqs, ref, res, greedy, n_tokens):
+    """(problems, flips): every request ended with its `n_tokens`, and the
+    greedy rows equal `ref` up to near-ties (phase 8's rule, the margin
+    measured on the flat model `get_model()` returns)."""
+    problems = [f"{n} ended {r['finish_reason']} with {len(r['tokens'])} tokens"
+                for n, r in res.items()
+                if r["finish_reason"] != "length" or len(r["tokens"]) != n_tokens]
+    flips = {}
+    for n in greedy if not problems else ():
+        if res[n]["tokens"] != ref[n]:
+            flips[n] = f = first_flip(get_model(), cfg, reqs[n]["token_ids"],
+                                      ref[n], res[n]["tokens"])
+            if f["margin_std"] is None or abs(f["margin_std"]) > LOGIT_TOL:
+                problems.append(f"{n} flips beyond a near-tie: {f}")
+    return problems, flips
+
+
+def tp_launch_gate(what, launches, kernels):
+    for rank, got in launches.items():
+        if min(got.get(k, 0) for k in kernels) <= 0:
+            fail(f"tp {what}: rank {rank} did not launch every kernel: {got}")
+
+
+def tp_llama8b(model, cfg, direct):
+    """(a) Llama-3.1-8B at full width and depth on a tp group of 2 sharing
+    the card, against phase 4's flat engine; and phase 4's engine through
+    `ParallelConfig(tp=1)`, which must repeat phase 4's tokens bit for
+    bit."""
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards
+
+    shared, prompts = serving_prompts(cfg)
+    reqs = {n: _req(t, temperature=temp, seed=sd)
+            for n, (t, temp, sd) in prompts.items()}
+    warm = _req(shared + warm_suffix(cfg), max_tokens=4)
+    flat1 = TorchEngine(cfg, model, EngineConfig(**TP_ECFG), device="cuda",
+                        parallel=ParallelConfig(tp=1))
+
+    async def one():
+        try:
+            await _collect(flat1, warm)
+            return await asyncio.gather(*[_collect(flat1, r) for r in reqs.values()])
+        finally:
+            await flat1.shutdown()
+
+    tp1 = {n: r["tokens"] for n, r in zip(reqs, asyncio.run(one()))}
+    del flat1
+    torch.cuda.empty_cache()
+    src = SeededShards(cfg, SEED, "bfloat16", sharpen=True)
+    res, wall, build_s, launches, m = tp_serve(cfg, src, 2, reqs, warm,
+                                               trace=("A_64",))
+    ref = direct["tokens"]
+    problems, flips = tp_check(lambda: model, cfg, reqs, ref, res, TP_GREEDY, 32)
+    out = {"phase": "tp", "case": "a", "model": cfg.name,
+           "layers": cfg.num_hidden_layers, "tp": 2, "backend": m["tp_backend"],
+           "devices": ["cuda:0"] * 2, "tp1_equal_bitwise": tp1 == ref,
+           "greedy_equal": {n: res[n]["tokens"] == ref[n] for n in TP_GREEDY},
+           "seeded_equal": res["D_shared+500_seeded"]["tokens"]
+           == ref["D_shared+500_seeded"], "flips": flips, "tol_in_std": LOGIT_TOL,
+           **tp_rows(res), "wall_s": wall, "build_s": build_s,
+           "plans": m["tp_plans_total"], "launches_by_rank": launches,
+           "flat_decode_tokens_per_s": direct["decode_tokens_per_s"],
+           "solo_trace": m["trace"], "card": card_line()}
+    emit(out)
+    if tp1 != ref:
+        fail(f"tp (a): ParallelConfig(tp=1) differs from phase 4: {tp1} vs {ref}")
+    if problems:
+        fail(f"tp (a): {problems}")
+    tp_launch_gate("(a)", launches, ATTENTION_KERNELS)
+    return launches
+
+
+def tp_llama70b():
+    """(b) Llama-3-70B at its published widths, TP_70B_LAYERS layers
+    (random weights from a seed, sharpened): a flat engine, then a tp group
+    of 4 sharing the card, on phase 4's traffic.  Returns the flat model
+    (the HTTP check's reference) and the launches per rank."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models import init_params
+    from dynamo_tpu_torch.models.config import LLAMA_3_70B
+    from dynamo_tpu_torch.parallel import SeededShards
+
+    cfg = dataclasses.replace(LLAMA_3_70B, num_hidden_layers=TP_70B_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    shared, prompts = serving_prompts(cfg)
+    reqs = {n: _req(t, temperature=temp, seed=sd)
+            for n, (t, temp, sd) in prompts.items()}
+    warm = _req(shared + warm_suffix(cfg), max_tokens=4)
+    flat = TorchEngine(cfg, model, EngineConfig(**TP_ECFG), device="cuda")
+
+    async def one():
+        try:
+            await _collect(flat, warm)
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(*[_collect(flat, r) for r in reqs.values()])
+            return outs, time.perf_counter() - t0
+        finally:
+            await flat.shutdown()
+
+    outs, flat_wall = asyncio.run(one())
+    flat_res = dict(zip(reqs, outs))
+    ref = {n: r["tokens"] for n, r in flat_res.items()}
+    del flat
+    torch.cuda.empty_cache()
+    src = SeededShards(cfg, SEED, "bfloat16", sharpen=True)
+    res, wall, build_s, launches, m = tp_serve(cfg, src, 4, reqs, warm)
+    problems, flips = tp_check(lambda: model, cfg, reqs, ref, res, TP_GREEDY, 32)
+    emit({"phase": "tp", "case": "b", "model": cfg.name, "layers": cfg.num_hidden_layers,
+          "hidden": cfg.hidden_size, "heads": [cfg.num_attention_heads,
+                                               cfg.num_key_value_heads],
+          "ffn": cfg.intermediate_size, "vocab": cfg.vocab_size,
+          "weights_gb": weights_gb(model), "tp": 4, "backend": m["tp_backend"],
+          "greedy_equal": {n: res[n]["tokens"] == ref[n] for n in TP_GREEDY},
+          "seeded_equal": res["D_shared+500_seeded"]["tokens"]
+          == ref["D_shared+500_seeded"], "flips": flips, "tol_in_std": LOGIT_TOL,
+          **tp_rows(res), "wall_s": wall, "build_s": build_s,
+          "flat": {**tp_rows(flat_res), "wall_s": flat_wall},
+          "plans": m["tp_plans_total"], "launches_by_rank": launches,
+          "card": card_line()})
+    if problems:
+        fail(f"tp (b): {problems}")
+    tp_launch_gate("(b)", launches, ATTENTION_KERNELS)
+    return model, cfg, ref, launches
+
+
+def tp_gpt_oss(ref):
+    """(c) gpt-oss-20b at its catalog config, full depth, on a tp group of
+    2 sharing the card (16 experts a rank): phase 11's requests served
+    (tokens/s, every rank's launches), their tokens beside phase 11's
+    one-step tokens `ref`; then the check: phase 11 (b)'s 512-token prompt
+    and 8 decode steps on the flat model (rebuilt from its seed) with its
+    router's choices recorded, and on the tp group with those choices
+    forced, logits within LOGIT_TOL std.
+
+    The served tokens are reported, not held to `ref`: the random router
+    puts top-k near-ties everywhere (phase 11 (b): margins of 1e-3
+    router-logit std), so the last-bit differences of the ranks' f32 sums
+    flip experts and move the logits by more than a near-tie, as another
+    f32 order of the expert sums does on one card (phase 11's
+    ``chaos_witness``).  Forcing the flat run's routing, as phase 11 (b)
+    does for its kernel-vs-plain check, leaves the tp arithmetic to be
+    checked."""
+    import gc
+
+    from dynamo_tpu_torch.models import GPT_OSS_20B
+    from dynamo_tpu_torch.parallel import SeededShards
+
+    cfg = GPT_OSS_20B
+    _, reqs, warm = breadth_requests(cfg)
+    src = SeededShards(cfg, SEED + 11, "bfloat16", sharpen=True)
+    res, wall, build_s, launches, m = tp_serve(cfg, src, 2, reqs, warm)
+    ended = [f"{n} ended {r['finish_reason']} with {len(r['tokens'])} tokens"
+             for n, r in res.items() if r["finish_reason"] != "length"
+             or len(r["tokens"]) != BREADTH_TOKENS]
+    model, _ = breadth_model()
+    flips = {n: first_flip(model, cfg, reqs[n]["token_ids"], ref[n],
+                           res[n]["tokens"])
+             for n in BREADTH_GREEDY if not ended and res[n]["tokens"] != ref[n]}
+    record = forced_record(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks need the card's room
+    forced = tp_forced_routing(*record)
+    emit({"phase": "tp", "case": "c", "model": cfg.name,
+          "layers": cfg.num_hidden_layers, "tp": 2, "experts_per_rank":
+          cfg.num_experts // 2, "backend": m["tp_backend"],
+          "greedy_equal": {n: res[n]["tokens"] == ref[n] for n in BREADTH_GREEDY},
+          "flips": flips, **tp_rows(res), "wall_s": wall, "build_s": build_s,
+          "plans": m["tp_plans_total"], "launches_by_rank": launches,
+          "forced_routing": forced, "tol_in_std": LOGIT_TOL,
+          "card": card_line()})
+    if ended:
+        fail(f"tp (c): {ended}")
+    if forced["logit_err_in_std"] > LOGIT_TOL:
+        fail(f"tp (c): with the flat run's routing the tp logits lie "
+             f"{forced['logit_err_in_std']:.3f} std from the flat logits")
+    tp_launch_gate("(c)", launches, ("decode_attention", "prefill_attention",
+                                     *MOE_KERNELS))
+    return launches
+
+
+TP_FORCED_STEPS = 8
+
+
+def _tp_forced_rank(rank, init, q, path, tokens, fed):
+    """A rank of `tp_forced_routing`: its gpt-oss-20b shard, every router
+    choice taken from the flat run's record at its own router logits."""
+    from dynamo_tpu_torch.models import GPT_OSS_20B, llama
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards, make_mesh
+
+    group = make_mesh(ParallelConfig(tp=2), ["cuda:0"] * 2, rank=rank,
+                      init_method=init)
+    try:
+        cfg = GPT_OSS_20B
+        model = SeededShards(cfg, SEED + 11, "bfloat16", sharpen=True)(
+            rank, 2, group.device)
+        model.attach_group(group)
+        calls = iter(torch.load(path))
+
+        def top_k(logits, k):
+            idx = next(calls).to(logits.device)
+            return logits.gather(-1, idx), idx
+
+        llama._top_k = top_k
+        with torch.no_grad():
+            logits, _ = path_run(model, cfg, tokens.cuda(), TP_FORCED_STEPS, fed)
+        if rank == 0:
+            q.put(logits.cpu())
+    finally:
+        group.close()
+
+
+def forced_record(model, cfg):
+    """Phase 11 (b)'s prompt and TP_FORCED_STEPS greedy decode steps on the
+    flat `model`, its router's choices saved to ``build/``: (prompt, flat
+    logits, the tokens fed, the record's path, the router calls)."""
+    from dynamo_tpu_torch.models import llama
+
+    g = torch.Generator().manual_seed(SEED + 12)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=g)
+    calls, orig = [], llama._top_k
+
+    def record(logits, k):
+        vals, idx = orig(logits, k)
+        calls.append(idx.cpu())
+        return vals, idx
+
+    llama._top_k = record
+    try:
+        with torch.no_grad():
+            ref, toks = path_run(model, cfg, tokens.cuda(), TP_FORCED_STEPS)
+    finally:
+        llama._top_k = orig
+    path = os.path.join(ROOT, "build", "tp_routing.pt")
+    torch.save(calls, path)
+    return tokens, ref.cpu(), toks[:TP_FORCED_STEPS], path, len(calls)
+
+
+def tp_forced_routing(tokens, ref, fed, path, n_calls):
+    """`forced_record`'s run on a tp group of 2 sharing the card, every
+    router choice forced to the record's and fed the same tokens: the
+    largest logit difference in the flat logits' std."""
+    import multiprocessing as mp
+
+    from dynamo_tpu_torch.parallel.mesh import free_port
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_tp_forced_rank,
+                         args=(r, init, q, path, tokens, fed))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = q.get(timeout=600)
+    finally:
+        for p in procs:
+            p.join(120)
+            if p.is_alive():
+                p.terminate()
+    err = ((got - ref).abs().amax(-1) / ref.std(-1)).tolist()
+    return {"prompt_tokens": 512, "decode_steps": TP_FORCED_STEPS,
+            "router_calls": n_calls, "logit_err_in_std": max(err),
+            "logit_err_in_std_by_step": err}
+
+
+def tp_http(arms):
+    """Phase 4's A_64, greedy, through the control plane, one `python -m
+    dynamo_tpu_torch.worker --tp N` process per arm (its ranks sharing the
+    card; the model from the same ``--seed``, ``--sharpen``) and one
+    frontend routing by model name.  `arms`: (flat model, cfg, tp, the
+    flat engine's tokens of A_64, ``--num-layers`` or None); each answer's
+    tokens (their strings, from its logprobs) must be the flat tokens up
+    to a near-tie measured on the flat model."""
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        cp = _spawn(procs, "dynamo_tpu_torch.runtime", "--host", "127.0.0.1",
+                    "--port", "0", "--log-level", "warning")
+        addr = _ready(cp, "READY ", "tp http: the control plane").split()[1]
+        workers = []
+        for _, cfg, tp, _, layers in arms:
+            args = ["--control", addr, "--model", cfg.name, "--seed", str(SEED),
+                    "--sharpen", "--tp", str(tp), "--tp-devices",
+                    ",".join(["cuda:0"] * tp), "--num-pages", "256",
+                    "--status-port", "0", "--log-level", "warning"]
+            if layers:
+                args += ["--num-layers", str(layers)]
+            workers.append(_spawn(procs, "dynamo_tpu_torch.worker", *args))
+        front = _spawn(procs, "dynamo_tpu_torch.frontend", "--control", addr,
+                       "--host", "127.0.0.1", "--port", "0", "--log-level",
+                       "warning")
+        port = int(_ready(front, "READY http://", "tp http: the frontend")
+                   .rsplit(":", 1)[1])
+        status = [int(_ready(w, "STATUS ", "tp http: a worker").rsplit(":", 1)[1])
+                  for w in workers]
+        for w in workers:
+            _ready(w, "READY worker", "tp http: a worker")
+        ready_s = time.perf_counter() - t0
+        for _ in range(1200):
+            st, models = _http(port, "GET", "/v1/models")
+            if st == 200 and all(a[1].name.encode() in models for a in arms):
+                break
+            time.sleep(0.1)
+        else:
+            fail("tp http: the frontend never listed every model")
+        for (_, cfg, tp, _, _), stat in zip(arms, status):
+            _, prompts = serving_prompts(cfg)
+            # logprobs 0: each token's string comes back beside the text
+            body = {"model": cfg.name, "prompt": prompts["A_64"][0],
+                    "max_tokens": 32, "temperature": 0.0, "logprobs": 0,
+                    "nvext": {"ignore_eos": True}}
+            t_send = time.perf_counter()
+            st, raw = _http(port, "POST", "/v1/completions", body)
+            choice = json.loads(raw)["choices"][0] if st == 200 else {}
+            got = (choice.get("logprobs") or {}).get("tokens") or []
+            ms = (time.perf_counter() - t_send) * 1e3
+            st2, raw = _http(stat, "GET", "/metrics.json")
+            stats = json.loads(raw) if st2 == 200 else {}
+            outs.append({"status": st, "finish": choice.get("finish_reason"),
+                         "got": got, "ms": ms,
+                         "worker": {k: stats.get(k) for k in (
+                             "tp", "tp_backend", "tp_plans_total")}})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    for (model, cfg, tp, want, _), out in zip(arms, outs):
+        _, prompts = serving_prompts(cfg)
+        tok = llama_tokenizer(cfg)
+        got = out.pop("got")
+        out["equal"] = got == [tok.decode([t]) for t in want]
+        if not out["equal"] and len(got) == len(want):
+            out["flip"] = token_flip(model, cfg, prompts["A_64"][0], want, got)
+        emit({"phase": "tp", "case": f"http tp {tp}", "model": cfg.name,
+              "layers": cfg.num_hidden_layers, "tokens": len(got),
+              "ready_s": ready_s, **out, "card": card_line()})
+        if out["status"] != 200 or out["finish"] != "length" or len(got) != 32:
+            fail(f"tp http ({cfg.name}, tp {tp}): {out}")
+        if out["worker"]["tp"] != tp:
+            fail(f"tp http: the worker reports tp {out['worker']}")
+        if not out["equal"]:
+            f = out["flip"]
+            if f["margin_std"] is None or abs(f["margin_std"]) > LOGIT_TOL:
+                fail(f"tp http ({cfg.name}): the tokens differ beyond a "
+                     f"near-tie: {f}")
+
+
+def token_flip(model, cfg, prompt, want, got_strs):
+    """Where the tokens of an HTTP answer (each token's string, as its
+    logprobs carry them) part from `want`: the margin of want's token over
+    the best-scored token with the answer's string there, in logit std on
+    `model`'s reference logits (None when no token of the top 64 has it)."""
+    tok = llama_tokenizer(cfg)
+    j = next(i for i, (a, b) in enumerate(zip(want, got_strs))
+             if tok.decode([a]) != b)
+    lg = reference_logits(model, cfg, prompt + want[:j])
+    alt = next((t for t in lg.topk(64).indices.tolist()
+                if tok.decode([t]) == got_strs[j]), None)
+    return {"index": j, "ref_token": want[j], "arm_token": alt,
+            "margin_std": None if alt is None
+            else ((lg[want[j]] - lg[alt]) / lg.std()).item()}
+
+
+def tp_fault_child(name: str) -> int:
+    """One planted fault of (a), run in a copy of the port that carries it
+    (see `tp_faults`): the flat engine and a tp group of 2 on (a)'s model
+    cut to TP_FAULT_LAYERS layers, (a)'s check on their tokens; prints
+    whether the check caught the fault."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models import LLAMA_3_1_8B, init_params
+    from dynamo_tpu_torch.parallel import SeededShards
+
+    cfg = dataclasses.replace(LLAMA_3_1_8B, num_hidden_layers=TP_FAULT_LAYERS)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    shared, prompts = serving_prompts(cfg)
+    reqs = {n: _req(t) for n, (t, _, _) in prompts.items()}
+    warm = _req(shared + warm_suffix(cfg), max_tokens=4)
+    flat = TorchEngine(cfg, model, EngineConfig(**TP_ECFG), device="cuda")
+
+    async def one():
+        try:
+            await _collect(flat, warm)
+            return await asyncio.gather(*[_collect(flat, r) for r in reqs.values()])
+        finally:
+            await flat.shutdown()
+
+    ref = {n: r["tokens"] for n, r in zip(reqs, asyncio.run(one()))}
+    flips = {}
+    try:
+        res = tp_serve(cfg, SeededShards(cfg, SEED, "bfloat16", sharpen=True), 2,
+                       reqs, warm)[0]
+        problems, flips = tp_check(lambda: model, cfg, reqs, ref, res,
+                                   list(reqs), 32)
+    except Exception as e:  # noqa: BLE001 — a run the fault breaks is caught
+        problems = [f"{type(e).__name__}: {e}"]
+    margins = [abs(f["margin_std"]) for f in flips.values()
+               if f["margin_std"] is not None]
+    print(json.dumps({"fault": name, "caught": bool(problems),
+                      "rows_flipped": len(flips),
+                      "largest_margin_std": max(margins, default=None),
+                      "problems": problems[:2]}), flush=True)
+    return 0
+
+
+def tp_faults():
+    """Each planted fault of TP_FAULTS in a copy of the port under
+    ``build/tp_faults/`` (its kernels copied from this checkout's build),
+    run as its own process (`tp_fault_child`), all at once; every fault
+    must fail (a)'s check."""
+    import gc
+    import shutil
+
+    from dynamo_tpu_torch.ops import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the children need the room
+    base = os.path.join(ROOT, "build", "tp_faults")
+    shutil.rmtree(base, ignore_errors=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for i, (name, (rel, text, bad)) in enumerate(TP_FAULTS.items()):
+        root = os.path.join(base, str(i))
+        shutil.copytree(os.path.join(ROOT, "dynamo_tpu_torch"),
+                        os.path.join(root, "dynamo_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copytree(_build.BUILD_DIR, os.path.join(root, "build", "kernels"))
+        path = os.path.join(root, rel)
+        with open(path) as f:
+            src = f.read()
+        if src.count(text) != 1:
+            fail(f"tp fault {name!r}: its text occurs {src.count(text)} times")
+        with open(path, "w") as f:
+            f.write(src.replace(text, bad))
+        code = (f"import sys; sys.path.append({ROOT!r}); import chip_smoke; "
+                f"sys.exit(chip_smoke.tp_fault_child({name!r}))")
+        log = open(os.path.join(OUT_DIR, f"tp_fault_{i}.log"), "w")
+        # the copy is the working directory, first on the child's path
+        env = {**os.environ, "DYN_TORCH_TP_TIMEOUT_S": str(TP_FAULT_TIMEOUT_S)}
+        procs[name] = (subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                                        env=env, stdout=subprocess.PIPE,
+                                        stderr=log, text=True,
+                                        start_new_session=True), log)
+    results = {}
+    for name, (p, log) in procs.items():
+        try:
+            stdout, _ = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            stdout, _ = p.communicate()
+            results[name] = {"caught": True, "problems": ["hung past 600 s"]}
+            continue
+        finally:
+            log.close()
+        lines = [ln for ln in stdout.splitlines() if ln.startswith('{"fault"')]
+        results[name] = (json.loads(lines[-1]) if lines and p.returncode == 0
+                         else {"caught": None, "rc": p.returncode})
+    emit({"phase": "tp", "case": "planted faults", "layers": TP_FAULT_LAYERS,
+          "results": results, "seconds": time.perf_counter() - t0,
+          "logs": "chiprun_out/tp_fault_*.log", "card": card_line()})
+    for name, r in results.items():
+        if r.get("caught") is not True:
+            fail(f"tp: the planted fault {name!r} was not caught: {r}")
+
+
 def time_ms_host(fn, iters: int = 3) -> float:
     """Host-clock ms of fn() to a synchronize, after one warm-up."""
     fn()
@@ -5517,19 +6282,35 @@ def main() -> int:
     phase_paths(model, cfg)
     golden_launches = phase_golden()
     http_launches = phase_http(model, cfg, direct)
-    loop_launches = phase_device_loop(model, cfg)
+    loop_launches = phase_device_loop(*depth_view(model, cfg))
     tier_launches = phase_kv_tiers(model, cfg)
     router_launches = phase_kv_router(model, cfg)
     disagg_launches = phase_disagg(model, cfg)
     phase14_launches = phase_embed_dp_migration(model, cfg, direct)
+    # phase 15 (a): the 8B on a tp group of 2, over HTTP, and its
+    # planted faults
+    tp_a = tp_llama8b(model, cfg, direct)
+    tp_collective_costs()
+    tp_http([(model, cfg, 2, direct["tokens"]["A_64"], None)])
+    tp_faults()
     # phase 11 needs the card to itself: gpt-oss-20b's 42 GB of weights
     del model
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "breadth", "what": "card_freed",
           "allocated_gb": torch.cuda.memory_allocated() / 1e9})
-    breadth_launches, int8_launches = phase_breadth(direct)
+    breadth_launches, int8_launches, breadth_tokens = phase_breadth(direct)
     vision_launches = phase_vision()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 15 (b) and (c): Llama-3-70B's widths on 4 ranks (and over
+    # HTTP), gpt-oss-20b on 2
+    m70, cfg70, ref70, tp_b = tp_llama70b()
+    tp_http([(m70, cfg70, 4, ref70["A_64"], TP_70B_LAYERS)])
+    del m70
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_c = tp_gpt_oss(breadth_tokens)
     by_path = {"serving (phase 4, generate)": serving_launches,
                "golden (phase 6)": golden_launches,
                "http (phase 7, the main path)": http_launches,
@@ -5544,7 +6325,13 @@ def main() -> int:
                **disagg_launches,
                **phase14_launches,
                "vision qwen2.5-vl-7b serving a_steps1 (phase 13, this slice's path)":
-                   vision_launches}
+                   vision_launches,
+               **{f"tp llama-3.1-8b tp 2 rank {r} (phase 15 a, this slice's path)": n
+                  for r, n in tp_a.items()},
+               **{f"tp llama-3-70b 4 layers tp 4 rank {r} (phase 15 b, this slice's path)": n
+                  for r, n in tp_b.items()},
+               **{f"tp gpt-oss-20b tp 2 rank {r} (phase 15 c, this slice's path)": n
+                  for r, n in tp_c.items()}}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),

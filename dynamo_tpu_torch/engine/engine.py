@@ -57,8 +57,22 @@ sequence's delta: the per-row ``rope_off`` input of every decode, block,
 chain and verify graph, refreshed at each dispatch and splice.  Media
 prompts take the pure prefill path (not mixed plans, not chunk rows).
 
-Not ported yet (later slices): meshes (dp/tp/pp/sp, kv_partition) and
-multihost, so vision under them too.
+Tensor parallelism (``parallel=ParallelConfig(tp=N)``, ``devices``): the
+engine leads a group of N processes (`lockstep.py`): it spawns N - 1
+followers, each building its own shard of the model (``model`` is then a
+picklable source, `parallel.SeededShards` / `TreeShards` /
+`CheckpointShards`: ``source(rank, tp, device) -> Llama``) and a pool of
+nkv/tp heads, and sends them every device operation before running it
+itself: prefill passes, decode blocks and chains, speculative verifies,
+embeddings.  Under tp the blocks run eagerly (`graphs.py`), a decode
+dispatch takes the chained paths (not the continuous loop, as JAX's
+`_cc_ok` under a mesh) and no prefill fuses into a decode chain (the
+followers replay from host arrays only, as JAX's multihost plans).
+Parking, KVBM tiers, disaggregated serving, vision and kv_partition are
+refused under tp, each naming its roadmap item.
+
+Not ported yet (later slices): meshed dp, pp, sp, kv_partition and
+multihost.
 """
 
 from __future__ import annotations
@@ -87,6 +101,7 @@ from ..tokens import compute_block_hash_for_seq
 from . import blocks, media
 from .blocks import TOPLP, Variant
 from .config import EngineConfig, bucket_for
+from . import lockstep
 from .graphs import GraphRunner, HostFetch
 from .page_pool import KvEvent, NoPagesError, PagePool
 from .scheduler import PrefillItem, SamplingOptions, Scheduler, Sequence, StepPlan
@@ -140,6 +155,34 @@ def _unported(cfg: EngineConfig) -> List[str]:
     return ["kv_partition"] if cfg.kv_partition else []
 
 
+# the host arrays each plan kind must carry (`TorchEngine.replay_inputs`)
+_PLAN_ARRAYS = {
+    "prefill": ("tokens", "table", "prefix", "chunk"),
+    "decode": ("tok", "pos", "ctr", "table", "seeds") + blocks.SAMP_COLUMNS,
+    "spec": ("tokens", "pos", "ctr", "table", "seeds") + blocks.SAMP_COLUMNS,
+    "embed": ("tokens", "lens"),
+}
+
+# what a tp engine refuses, and the roadmap item that brings it
+_TP_LATER = "under tp yet (ROADMAP 2.2b)"
+
+
+def _tp_refusals(cfg: EngineConfig, tiered, vision) -> List[str]:
+    bad = []
+    if cfg.park_max_pages > 0:
+        bad.append("parking (park_max_pages > 0: a per-rank page export)")
+    if tiered is not None:
+        bad.append("KVBM tiers (a per-rank page export)")
+    if vision is not None:
+        bad.append("vision (the tower on the leader, embeds on the plan)")
+    if cfg.kv_partition:
+        bad.append("kv_partition (ROADMAP 2.6)")
+    if cfg.fuse_projections:
+        bad.append("fuse_projections (the fused output axis does not carry "
+                   "the megatron tp splits, as in JAX)")
+    return bad
+
+
 class TorchEngine:
     """Continuous-batching engine over a paged KV cache on one device."""
 
@@ -153,7 +196,56 @@ class TorchEngine:
         device=None,
         tiered=None,  # kvbm.TieredKvCache — host/disk KV tiers
         vision=None,  # (tower or None, VisionConfig | Qwen2VLVisionConfig)
+        parallel=None,  # parallel.ParallelConfig — the tp group
+        devices=None,  # each rank's device (default: one card a rank)
+        group=None,  # a follower's TpGroup (set by lockstep.follower_main)
     ):
+        self.cfg = engine_cfg or EngineConfig()
+        self.tp = parallel.tp if parallel is not None else 1
+        self.group = group
+        self._lockstep: Optional[lockstep.Leader] = None
+        if parallel is not None:
+            from ..models.llama import _check_supported
+            from ..parallel import check_ported
+
+            check_ported(parallel)
+            _check_supported(model_cfg, self.tp)
+        if self.tp > 1:
+            bad = _tp_refusals(self.cfg, tiered, vision)
+            if bad:
+                raise ValueError(f"not served {_TP_LATER}: {'; '.join(bad)}")
+            if group is None:
+                # the leader: spawn the followers, join, build rank 0
+                self.group, procs, devs = lockstep.start_group(
+                    parallel, devices, {
+                        "model": model, "model_cfg": model_cfg,
+                        "engine_cfg": self.cfg,
+                        "eos": list(eos_token_ids or [])})
+                self._lockstep = lockstep.Leader(self.group, procs)
+                try:
+                    shard = lockstep.build_in_turn(0, devs, lambda: model(
+                        0, self.tp, self.group.device))
+                    self._setup(model_cfg, shard, eos_token_ids, event_sink,
+                                self.group.device, tiered, vision)
+                except BaseException:
+                    self._lockstep.abort()
+                    raise
+                # every rank has built its shard, engine and pool
+                try:
+                    lockstep.handshake(True, "build its engine")
+                except RuntimeError as e:
+                    self._lockstep.lost = str(e)
+                    self._lockstep.shutdown()
+                    raise
+                return
+            device = self.group.device
+        self._setup(model_cfg, model, eos_token_ids, event_sink, device,
+                    tiered, vision)
+
+    def _setup(self, model_cfg, model, eos_token_ids, event_sink, device,
+               tiered, vision) -> None:
+        if self.tp > 1:
+            model.attach_group(self.group)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(
@@ -163,13 +255,13 @@ class TorchEngine:
         # the vision tower and its config; a tower of None keeps only the
         # geometry (a worker whose media an encode worker encodes)
         self.vision = vision
-        self.cfg = engine_cfg or EngineConfig()
         bad = _unported(self.cfg)
         if bad:
             raise ValueError(f"not ported to TorchEngine yet: {', '.join(bad)}")
         if self.cfg.quantization == "int8":
             # in place: the caller's model becomes the int8 one, so an 8B
-            # model never holds both copies
+            # model never holds both copies (a tp shard's row-parallel
+            # scales come from the whole weight: a collective)
             quantize_params(model)
         self.eos_token_ids = eos_token_ids or []
         # every device op of the engine goes to ONE stream, whichever
@@ -186,15 +278,17 @@ class TorchEngine:
         self.scheduler = Scheduler(self.cfg, self.pool)
         # preemption parking lot (overload control): batch-class victims
         # preempted mid-decode park byte-exact KV here and resume through
-        # ordinary admission
+        # ordinary admission; a tp group preempts by recomputing
         self.parking = ParkingLot(self.cfg.park_max_pages)
-        self.scheduler.park_fn = self._park_seq
-        self.scheduler.resume_fn = self._resume_parked
-        self.scheduler.unpark_fn = self._unpark_seq
+        if self.tp == 1:
+            self.scheduler.park_fn = self._park_seq
+            self.scheduler.resume_fn = self._resume_parked
+            self.scheduler.unpark_fn = self._unpark_seq
         self.tiered = None
         # the device loop: captured block graphs, block functions per
-        # (kind, rung, variant)
-        self.graphs = GraphRunner(self.device)
+        # (kind, rung, variant); a tp group's blocks run eagerly (their
+        # gloo collectives cannot be captured)
+        self.graphs = GraphRunner(self.device, capture=self.tp == 1)
         self._block_fns: Dict[tuple, Callable] = {}
         self._py_rng = random.Random(0xD1A)
         self._queues: Dict[str, asyncio.Queue] = {}
@@ -242,7 +336,7 @@ class TorchEngine:
     def _make_kv(self) -> KVCache:
         return KVCache.create(self.model_cfg, self.cfg.num_pages,
                               self.cfg.page_size, dtype=self.model.dtype,
-                              device=self.device)
+                              device=self.device, tp=self.tp)
 
     # -- events / metrics ------------------------------------------------- #
 
@@ -296,6 +390,19 @@ class TorchEngine:
         )
         for rung, n in sorted(self._rung_dispatches.items()):
             setattr(m, f"decode_rung{rung}_dispatches_total", n)
+        if self._lockstep is not None:
+            # the group: its size, backend, plans sent, and each rank's
+            # kernel launches (the followers' as of their last report:
+            # `group_stats` or shutdown)
+            from ..ops._launches import LAUNCHES
+
+            m.tp = self.tp
+            m.tp_backend = self.group.backend
+            m.tp_plans_total = self._lockstep.plans
+            m.tp_rank_launches = {
+                **{str(r): dict(v)
+                   for r, v in self._lockstep.rank_launches.items()},
+                "0": dict(LAUNCHES)}
         if self.tiered is not None:
             # KVBM tier stats ride the same snapshot as dynamic attrs
             t = self.tiered
@@ -448,6 +555,9 @@ class TorchEngine:
             # join the kvbm-offload drain thread: no tier write outlives
             # shutdown(); a tier shared with a later engine reopens it
             await loop.run_in_executor(None, self.tiered.close)
+        if self._lockstep is not None and not self.group.closed:
+            # stop and join the followers (their launches come back)
+            await loop.run_in_executor(None, self._lockstep.shutdown)
 
     def _plan_step(self) -> StepPlan:
         """Apply queued adds (before aborts, so an abort always finds its
@@ -483,6 +593,10 @@ class TorchEngine:
                 except Exception as e:  # noqa: BLE001 — the caller's error
                     if not fut.done():
                         fut.set_exception(e)
+                    if self._lockstep is not None and self._lockstep.open:
+                        # a plan of the failed op went out: recover the
+                        # group, as after a failed step
+                        self._recover_after_error()
             # launch one batch of queued offloads (KVBM): the gather runs
             # on the step thread between steps, the copy on the drain
             if self.tiered is not None and self.tiered.pending_offloads:
@@ -532,7 +646,98 @@ class TorchEngine:
 
     def _step(self, run, arg):
         with self._step_lock, torch.no_grad(), torch.cuda.stream(self._stream):
-            return run(arg)
+            out = run(arg)
+        if self._lockstep is not None:
+            self._lockstep.open = None  # every plan of this op completed
+        return out
+
+    # -- the tp group's plan channel (lockstep.py) ------------------------- #
+
+    def _plan(self, kind: str, **fields) -> None:
+        """A leader sends every device operation to its followers before
+        running it (no-op without a group, and on a follower)."""
+        if self._lockstep is not None:
+            self._lockstep.send({"kind": kind, **fields})
+
+    async def group_stats(self) -> Dict[int, Dict[str, int]]:
+        """Each rank's kernel launches, asked of the followers now
+        (between steps, on the step thread)."""
+        from ..ops._launches import LAUNCHES
+
+        stats = ({} if self._lockstep is None
+                 else await self._device_op(self._lockstep.stats))
+        return {**stats, 0: dict(LAUNCHES)}
+
+    def _flat_only(self, what: str) -> None:
+        """Refuse a KV move of one rank's pool under tp."""
+        if self.tp > 1:
+            raise ValueError(f"{what} is not served {_TP_LATER}: it moves "
+                             f"pages of every rank's pool")
+
+    def reset_kv(self) -> None:
+        """Zero the pool in place (captured graphs hold its addresses)."""
+        self.kv.k.zero_()
+        self.kv.v.zero_()
+
+    def replay_inputs(self, desc: Dict[str, Any]):
+        """A follower's host half of a plan: the dispatch's inputs, built
+        before the group's ready check (`lockstep.follow`)."""
+        kind = desc["kind"]
+        need = _PLAN_ARRAYS.get(kind)
+        if need is None:
+            raise ValueError(f"unknown plan kind {kind!r}")
+        missing = [k for k in need if k not in desc["arrays"]]
+        if missing:
+            raise KeyError(f"a {kind!r} plan lacks {missing}")
+        if kind in ("prefill", "embed"):
+            return self._to_device(desc["arrays"])
+        if kind in ("decode", "spec"):
+            d = self._host(desc["arrays"])
+            if desc.get("counts") is not None:
+                d["counts"] = self._counts_from_sparse(desc["counts"],
+                                                       desc["arrays"]["tok"])
+            return d
+
+    def replay(self, desc: Dict[str, Any], d: Dict[str, torch.Tensor]) -> None:
+        """A follower's device half of a plan: the leader's dispatch on
+        this rank's shard and pool (its results stay on the device)."""
+        self._step(self._replay, (desc, d))
+
+    def _replay(self, arg) -> None:
+        desc, d = arg
+        kind = desc["kind"]
+        if kind == "prefill":
+            self.model.forward_prefill(self.kv, d["tokens"], d["table"],
+                                       d["prefix"], d["chunk"])
+        elif kind == "decode":
+            self._dispatch_decode(d, Variant(*desc["variant"]),
+                                  desc["chain_len"], desc["n_steps"])
+        elif kind == "spec":
+            k, greedy = desc["k"], desc["greedy"]
+            key = ("spec", k, greedy, d["table"].shape[1])
+            self.graphs.run(key, self._block_fn("spec", k,
+                                                Variant(greedy=greedy)), d)
+        elif kind == "embed":
+            self.model.forward_embed(d["tokens"], d["lens"])
+
+    @staticmethod
+    def _sparse_counts(counts: Optional[torch.Tensor]):
+        """A decode plan's penalty histograms as (row, token, count)
+        triples: the dense [B, vocab] rows would put ~4 MB a dispatch on
+        the plan channel at a 128k vocabulary (JAX's sparse plans)."""
+        if counts is None:
+            return None
+        idx = counts.nonzero()
+        return {"idx": idx.cpu().numpy(), "n": counts[idx[:, 0], idx[:, 1]]
+                .cpu().numpy()}
+
+    def _counts_from_sparse(self, sparse, tok: np.ndarray) -> torch.Tensor:
+        counts = torch.zeros((len(tok), self.model_cfg.vocab_size),
+                             dtype=torch.float32, device=self.device)
+        idx = torch.from_numpy(sparse["idx"]).to(self.device)
+        counts[idx[:, 0], idx[:, 1]] = torch.from_numpy(sparse["n"]).to(
+            self.device)
+        return counts
 
     # -- host arrays of a dispatch (row layouts) ---------------------------- #
 
@@ -684,11 +889,12 @@ class TorchEngine:
         seeds, counters = self._seed_arrays(seqs)
         samp = self._samp_arrays(seqs)
         v = self._variant(seqs)
-        d = self._to_device({
+        host = {
             "tokens": toks, "table": self._table_array(seqs),
             "prefix": np.asarray([it.chunk_start for it in items], np.int32),
-            "chunk": np.asarray([it.chunk_len for it in items], np.int32),
-            "seeds": seeds, "ctr": counters, **samp})
+            "chunk": np.asarray([it.chunk_len for it in items], np.int32)}
+        self._plan("prefill", arrays=host)
+        d = self._to_device({**host, "seeds": seeds, "ctr": counters, **samp})
         media.encode_pending(self, seqs)
         logits = self.model.forward_prefill(
             self.kv, d["tokens"], d["table"], d["prefix"], d["chunk"],
@@ -753,6 +959,7 @@ class TorchEngine:
         hard_cap = self.cfg.hard_cap
         if (
             not self.cfg.fuse_prefill_decode
+            or self.tp > 1  # followers replay from host arrays only
             or self.cfg.speculative_ngram_k > 0  # drafts need the fetched token
             or not all(it.samples for it in items)
             or any(s.status != "running" for s in seqs)
@@ -794,6 +1001,12 @@ class TorchEngine:
         """Issue `chain_len` decode blocks of T steps: block k+1 takes
         block k's device-side token, position, counter (and counts)
         carries.  Returns one host fetch per block."""
+        if self._lockstep is not None:
+            self._plan("decode", arrays={k: t.numpy() for k, t in d.items()
+                                         if k != "counts"},
+                       counts=self._sparse_counts(d.get("counts")),
+                       variant=[v.penalized, v.with_top, v.greedy],
+                       chain_len=chain_len, n_steps=T)
         key = ("decode", T, v.greedy, v.penalized, v.with_top,
                d["table"].shape[1])
         fn = self._block_fn("decode", T, v)
@@ -958,9 +1171,11 @@ class TorchEngine:
         seeds, counters = self._seed_arrays(rows)
         table = self._table_array(rows)
         greedy = self._is_greedy(rows)
-        d = self._host({"tokens": tokens, "pos": positions,
-                        "ctr": counters, "table": table, "seeds": seeds,
-                        **self._samp_arrays(rows), **self._rope_inputs(rows)})
+        host = {"tokens": tokens, "pos": positions, "ctr": counters,
+                "table": table, "seeds": seeds, **self._samp_arrays(rows),
+                **self._rope_inputs(rows)}
+        self._plan("spec", arrays=host, k=k, greedy=greedy)
+        d = self._host(host)
         key = ("spec", k, greedy, table.shape[1])
         outs = self.graphs.run(key, self._block_fn("spec", k, Variant(greedy=greedy)), d)
         out, logp, n_acc = blocks.unpack_spec(HostFetch(outs["packed"]).numpy(),
@@ -993,7 +1208,10 @@ class TorchEngine:
     # -- the device-resident decode loop (continuous chaining) --------------- #
 
     def _cc_ok(self) -> bool:
-        return self.cfg.decode_continuous
+        """The continuous loop for a flat engine; a tp group keeps the
+        chained paths (JAX's `_cc_ok` under a mesh; the loop is
+        output-invisible)."""
+        return self.cfg.decode_continuous and self.tp == 1
 
     def _ensure_drain_pool(self) -> cf.ThreadPoolExecutor:
         if self._drain_pool is None:
@@ -1362,6 +1580,7 @@ class TorchEngine:
     def _export_dev(self, pages: List[int]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Gather of page ids → fresh device tensors k, v [L, n, page, n_kv,
         hd] (exactly n pages: no padding width to bound recompiles)."""
+        self._flat_only("a KV page move")
         idx = self._page_index(pages)
         return self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
 
@@ -1370,6 +1589,7 @@ class TorchEngine:
         """Scatter k, v [L, n, page, n_kv, hd] (host or device) into page ids
         IN PLACE: the captured graphs hold the pool's addresses, so the
         pool tensors are never replaced."""
+        self._flat_only("a KV page move")
         idx = self._page_index(pages)
         self.kv.k.index_copy_(1, idx, k.to(self.device, non_blocking=True))
         self.kv.v.index_copy_(1, idx, v.to(self.device, non_blocking=True))
@@ -1465,6 +1685,7 @@ class TorchEngine:
         """Attach a KVBM connector (`kvbm.TieredKvCache` shape: on_event /
         pump_offloads / onboard).  The engine pumps its offload queue and
         routes admission-time cache misses through it."""
+        self._flat_only('a KVBM connector')
         self.tiered = connector
         self.add_event_sink(connector.on_event)
 
@@ -1599,6 +1820,7 @@ class TorchEngine:
             for r, j in enumerate(group):
                 tokens[r, :len(rows[j])] = rows[j]
                 lens[r] = len(rows[j])
+            self._plan("embed", arrays={"tokens": tokens, "lens": lens})
             d = self._to_device({"tokens": tokens, "lens": lens})
             vec = self.model.forward_embed(d["tokens"], d["lens"])
             out[group] = vec.cpu().numpy()
@@ -1668,6 +1890,7 @@ class TorchEngine:
         KvTransferSource`) the pages stay held under a transfer handle and
         the answer carries only its descriptor; without it the KV rides
         inline (the JAX package's fallback blob)."""
+        self._flat_only('disaggregated prefill')
         from ..disagg.transfer import tensor_bytes
 
         request = dict(request)
@@ -1714,6 +1937,7 @@ class TorchEngine:
         """Decode side of the inline-blob fallback: import a whole KV blob,
         then continue decoding (the block-ID path is `generate_imported`
         fed by the data plane)."""
+        self._flat_only('disaggregated decode')
         from ..disagg.transfer import DTYPES
 
         context = context or Context()
@@ -1753,6 +1977,7 @@ class TorchEngine:
         continuation after its first token.  The sequence reaches the
         scheduler through `add_imported` (never `add`, which would prefill
         it again)."""
+        self._flat_only('disaggregated decode')
         context = context or Context()
         self._ensure_pump()
         opts = _opts_from_request(request)
@@ -1812,8 +2037,16 @@ class TorchEngine:
             self.scheduler.finish(seq, "error")
             self._deliver(seq, [], "error")
         self.scheduler.deferred_free = None
-        self.kv.k.zero_()
-        self.kv.v.zero_()
+        if self._lockstep is not None:
+            # the followers zero their pools too, and every rank opens a
+            # fresh device group; a group that cannot recover is lost,
+            # and every later dispatch fails at once
+            try:
+                self._lockstep.recover()
+            except Exception as e:  # noqa: BLE001
+                logger.exception("tp group recovery failed")
+                self._lockstep.lost = self._lockstep.lost or f"recover: {e}"
+        self.reset_kv()
         self.pool = PagePool(self.cfg.num_pages, self.cfg.page_size,
                              event_sink=self._emit_event)
         self._emit_event(KvEvent("cleared", []))

@@ -39,6 +39,11 @@ On the CPU the same block functions run eagerly on the same inputs (the
 plain kernel versions), so the CPU tests exercise the code the graphs
 hold; the runner still records each key, so a test can hold the key set
 fixed the way the JAX tests hold compiles fixed.
+
+An engine of a tp group (``capture=False``, chosen by the engine from its
+group) runs the blocks eagerly on the card too: their model collectives
+go through `torch.distributed`, and gloo's cannot be captured into a
+CUDA graph.  Its stats say ``"mode": "eager"``.
 """
 
 from __future__ import annotations
@@ -76,9 +81,10 @@ class GraphRunner:
     them eagerly (CPU).  One runner per engine; used from the engine's
     step thread only (runners of other engines may run beside it)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, capture: bool = True):
         self.device = device
-        self.cuda = device.type == "cuda"
+        # capture and replay graphs (CUDA), or run each block eagerly
+        self.cuda = device.type == "cuda" and capture
         self._graphs: Dict[Hashable, _Graph] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.cuda else None
         # one side stream for every warm-up and capture: the allocator
@@ -98,7 +104,8 @@ class GraphRunner:
         return sorted(self._graphs, key=repr)
 
     def stats(self) -> dict:
-        return {"graphs": len(self._graphs), "captures": self.captures,
+        return {"mode": "graphs" if self.cuda else "eager",
+                "graphs": len(self._graphs), "captures": self.captures,
                 "replays": self.replays,
                 "capture_seconds": self.capture_seconds,
                 "pool_bytes": self.pool_bytes}
@@ -137,7 +144,8 @@ class GraphRunner:
                         f"{tuple(t.shape)}, captured {tuple(dst.shape)}")
                 dst.copy_(t, non_blocking=True)
         if not self.cuda:
-            g.inputs.update(updates)
+            g.inputs.update({k: t.to(self.device, non_blocking=True)
+                             for k, t in updates.items()})
             g.outputs = g.fn(g.inputs)
             return g.outputs
         g.graph.replay()

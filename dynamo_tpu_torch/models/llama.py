@@ -24,6 +24,19 @@ the JAX package's `models/llama.py`.
   only, never the KV slot.
 - Embeddings (`forward_embed`): the prefill layer body at prefix 0 over
   whole inputs, mean-pooled and unit-normalised; no KV is kept.
+- Tensor parallelism (``Llama(..., rank, tp)``, `parallel/`): a shard
+  holds nh/tp q heads and nkv/tp kv heads with their slices of q/k/v,
+  biases and sinks, ffn/tp of a dense MLP, E/tp experts (the router
+  replicated), and vocab/tp rows of the embedding and LM head; its pool
+  holds nkv/tp heads.  The row-parallel products (``wo``, ``w_down``, the
+  experts' combine) are summed over the ranks in f32 and rounded once to
+  the model's dtype, where the flat model rounds its one f32 sum: the two
+  differ only in the order of f32 additions (the ranks' partial sums
+  are added last), so a bf16 result moves by at most one rounding step
+  and an f32 one by ~1e-7 relative.  ``bo`` is added once, after the sum.
+  The embedding is vocab-parallel and the logits are gathered over the
+  full vocabulary (both exact), so every rank samples the same token.
+  At tp 1 none of this runs: the flat path is unchanged.
 """
 
 from __future__ import annotations
@@ -36,6 +49,14 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.collectives import all_reduce_sum, embed_lookup, gather_logits
+from ..parallel.sharding import (
+    TOP_AXES,
+    check_divisible,
+    param_shard_axes,
+    shard,
+    shard_params,
+)
 from ..ops import (
     decode_attention,
     prefill_attention,
@@ -48,7 +69,7 @@ from ..ops.moe import grouped_gemm, grouped_glu
 from ..ops.paged_attention import kv_slots, write_kv_slots
 from ..ops.rotary import mrope_cos_sin, mrope_sections, rope_cos_sin, rotate
 from .config import ModelConfig
-from .quantization import _swap, is_quantized, matmul_any
+from .quantization import _mm_f32, _swap, is_quantized, matmul_any
 
 
 class KVCache:
@@ -64,21 +85,46 @@ class KVCache:
 
     @staticmethod
     def create(cfg: ModelConfig, num_pages: int, page_size: int,
-               dtype=torch.bfloat16, device=None) -> "KVCache":
+               dtype=torch.bfloat16, device=None, tp: int = 1) -> "KVCache":
+        """A zeroed pool; at ``tp`` > 1 one rank's: nkv/tp kv heads."""
         device = resolve_device(device)
         shape = (cfg.num_hidden_layers, num_pages, page_size,
-                 cfg.num_key_value_heads, cfg.head_dim_)
+                 cfg.num_key_value_heads // tp, cfg.head_dim_)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig, tp: int = 1) -> None:
     if cfg.mrope_section and sum(cfg.mrope_section) != cfg.head_dim_ // 2:
         raise ValueError(f"{cfg.name}: mrope_section {cfg.mrope_section} does "
                          f"not split the {cfg.head_dim_ // 2} rotary frequencies")
     if cfg.is_moe and cfg.moe_impl not in _MOE_IMPLS:
         raise ValueError(
             f"moe_impl must be ragged|a2a|capacity|dense, got {cfg.moe_impl!r}")
+    check_divisible(cfg, tp)
+    if tp > 1 and cfg.is_moe and cfg.moe_impl not in ("ragged", "a2a"):
+        raise ValueError(f"moe_impl={cfg.moe_impl!r} under tp: experts shard "
+                         f"over tp through the ragged dispatch (ragged|a2a)")
+
+
+class TpComm:
+    """A model's place in its tp group: its rank, the group's size, and
+    the `parallel.TpGroup` its collectives run on (attached by the engine
+    with `Llama.attach_group`; a shard without one cannot run forward)."""
+
+    def __init__(self, rank: int = 0, tp: int = 1):
+        self.rank = rank
+        self.tp = tp
+        self.group = None
+
+    def pg(self):
+        if self.group is None:
+            raise RuntimeError("a tp shard runs its collectives on a tp group: "
+                               "attach one (Llama.attach_group)")
+        return self.group.dev_group
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(t, self.pg())
 
 
 # 1-D parameters drawn at std 0.02 by `init_params` (the JAX scales)
@@ -103,7 +149,9 @@ def layer_keys(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(keys)
 
 
-def _param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+def _param_shapes(cfg: ModelConfig, tp: int = 1) -> Dict[str, tuple]:
+    """Per-layer parameter shapes; at ``tp`` > 1 one rank's shard (the
+    axis of `parallel.param_shard_axes` divided by tp)."""
     h, hd, f = cfg.hidden_size, cfg.head_dim_, cfg.intermediate_size
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     shapes = {"wq": (h, nh * hd), "wk": (h, nkv * hd), "wv": (h, nkv * hd),
@@ -118,6 +166,13 @@ def _param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
                        "b_down": (E, h)})
     else:
         shapes.update({"w_gate": (h, f), "w_up": (h, f), "w_down": (f, h)})
+    if tp > 1:
+        axes = param_shard_axes(cfg)
+        for name, axis in axes.items():
+            if axis is not None:
+                shp = list(shapes[name])
+                shp[axis] //= tp
+                shapes[name] = tuple(shp)
     return shapes
 
 
@@ -198,14 +253,26 @@ def _moe_ragged(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     token's result does not depend on its batch-mates: the grouped GEMM
     sums each row over K in one fixed order, and the combine scatters the
     sorted rows back to [T, k, h] by the inverse permutation (unique
-    indices, no atomics) and adds the k rows in order."""
+    indices, no atomics) and adds the k rows in order.
+
+    Under tp (JAX's ``ep_axis="tp"``) a rank holds E/tp experts and the
+    router whole: its own experts' assignments sort first, by expert, and
+    the other ranks' ride its last group (the kernels' groups must cover
+    every row, and A stays T*k), where the combine weighs them 0; the
+    f32 sums of the ranks are then added by an all-reduce."""
     B, S, h = x.shape
-    E, k, dt = cfg.num_experts, cfg.num_experts_per_tok, x.dtype
+    k, dt = cfg.num_experts_per_tok, x.dtype
+    E = lp.w_gate.shape[0]  # this rank's experts
     T = B * S
     A = T * k
     xf = x.reshape(T, h)
     weights, selected = _route(lp, xf, k)  # [T, k]
     expert_of = selected.reshape(A)  # assignment -> expert
+    mine = None
+    if lp.comm.tp > 1:
+        local = expert_of - lp.comm.rank * E
+        mine = (local >= 0) & (local < E)
+        expert_of = torch.where(mine, local, torch.full_like(local, E - 1))
     order = torch.argsort(expert_of, stable=True)  # group by expert
     token_of = order // k  # assignment a (row-major [T, k]) is token a // k
     xs = xf[token_of]  # [A, h] rows sorted by expert
@@ -219,11 +286,16 @@ def _moe_ragged(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ys = grouped_gemm(act, lp.w_down, offs, lp.b_down)  # f32 [A, h]
 
     contrib = ys * weights.reshape(A)[order][:, None]
+    if mine is not None:  # another rank's row: 0, whatever its product
+        contrib = torch.where(mine[order][:, None], contrib,
+                              torch.zeros_like(contrib))
     slots = torch.empty_like(contrib).index_copy_(0, order, contrib)
     slots = slots.view(T, k, h)
     out = slots[:, 0]
     for j in range(1, k):
         out = out + slots[:, j]
+    if mine is not None:
+        out = lp.comm.all_reduce(out.contiguous())
     return out.reshape(B, S, h).to(dt)
 
 
@@ -293,13 +365,15 @@ class DecoderLayer(nn.Module):
     MoE, with residuals.  `window` is this layer's sliding window (0 =
     full attention)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, window: int = 0):
+    def __init__(self, cfg: ModelConfig, dtype, device, window: int = 0,
+                 comm: TpComm = None):
         super().__init__()
         self.cfg = cfg
         self.window = int(window)
+        self.comm = comm or TpComm()
         keys = set(layer_keys(cfg))
         # every optional parameter the config lacks is None
-        for name, shape in _param_shapes(cfg).items():
+        for name, shape in _param_shapes(cfg, self.comm.tp).items():
             setattr(self, name, nn.Parameter(
                 torch.empty(shape, dtype=dtype, device=device),
                 requires_grad=False) if name in keys else None)
@@ -315,18 +389,27 @@ class DecoderLayer(nn.Module):
         y = x @ w
         return y if b is None else y + b
 
+    def _row_out(self, x, w):
+        """x @ w of a row-parallel weight: without tp `_proj`; under tp
+        this rank's f32 partial product, summed over the ranks, rounded
+        once to x's dtype."""
+        if self.comm.tp == 1:
+            return self._proj(x, w)
+        y = matmul_any(x, w) if is_quantized(w) else _mm_f32(x, w)
+        return self.comm.all_reduce(y.contiguous()).to(x.dtype)
+
     def _qkv(self, x: torch.Tensor):
-        c = self.cfg
+        c, tp = self.cfg, self.comm.tp
         q = self._proj(x, self.wq, self.bq).unflatten(
-            -1, (c.num_attention_heads, c.head_dim_))
+            -1, (c.num_attention_heads // tp, c.head_dim_))
         k = self._proj(x, self.wk, self.bk).unflatten(
-            -1, (c.num_key_value_heads, c.head_dim_))
+            -1, (c.num_key_value_heads // tp, c.head_dim_))
         v = self._proj(x, self.wv, self.bv).unflatten(
-            -1, (c.num_key_value_heads, c.head_dim_))
+            -1, (c.num_key_value_heads // tp, c.head_dim_))
         return q, k, v
 
     def _attn_out(self, attn: torch.Tensor) -> torch.Tensor:
-        y = self._proj(attn, self.wo)
+        y = self._row_out(attn, self.wo)
         return y if self.bo is None else y + self.bo
 
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
@@ -335,7 +418,7 @@ class DecoderLayer(nn.Module):
             return _MOE_IMPLS[self.cfg.moe_impl](self, x, self.cfg)
         act = (torch.nn.functional.silu(matmul_any(x, self.w_gate))
                * matmul_any(x, self.w_up))
-        return self._proj(act.to(x.dtype), self.w_down)
+        return self._row_out(act.to(x.dtype), self.w_down)
 
     def _attn_extras(self):
         """(window or None, f32 sinks or None) for the kernels."""
@@ -387,13 +470,15 @@ class Llama(nn.Module):
     `params_from_jax` resolve their device the same way.  The MoE path
     runs the grouped GEMM kernel on the card, which takes bf16 only."""
 
-    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
+                 rank: int = 0, tp: int = 1):
         super().__init__()
-        _check_supported(cfg)
+        _check_supported(cfg, tp)
         self.cfg = cfg
         self.dtype = dtype
         self.device = device = resolve_device(device)
-        h, V = cfg.hidden_size, cfg.vocab_size
+        self.comm = TpComm(rank, tp)
+        h, V = cfg.hidden_size, cfg.vocab_size // tp
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
@@ -402,7 +487,7 @@ class Llama(nn.Module):
         self.embed = p(V, h)
         self.final_norm = p(h)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype, device, window)
+            DecoderLayer(cfg, dtype, device, window, self.comm)
             for window in cfg.layer_windows())
         self.lm_head = None if cfg.tie_word_embeddings else p(h, V)
         self.inv_freq = rope_frequencies(cfg.head_dim_, cfg.rope_theta,
@@ -411,12 +496,35 @@ class Llama(nn.Module):
         self.mrope_sec = (mrope_sections(cfg.mrope_section, device=device)
                           if cfg.mrope_section else None)
 
+    @property
+    def tp(self) -> int:
+        return self.comm.tp
+
+    def attach_group(self, group) -> None:
+        """Run this shard's collectives on `group` (a `parallel.TpGroup`
+        of ``tp`` ranks, this model's rank among them)."""
+        if (group.world, group.rank) != (self.comm.tp, self.comm.rank):
+            raise ValueError(f"a shard of rank {self.comm.rank} of "
+                             f"{self.comm.tp} on rank {group.rank} of "
+                             f"{group.world}")
+        self.comm.group = group
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.comm.tp == 1:
+            return self.embed[tokens]
+        return embed_lookup(self.embed, tokens, self.comm.rank, self.comm.pg())
+
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + LM head; f32 logits.  An int8 head (quantization
-        adds one even when tied) goes through `matmul_any`."""
+        adds one even when tied) goes through `matmul_any`.  Under tp each
+        rank's vocabulary slice is gathered to the full width."""
         x = rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
         head = self.lm_head if self.lm_head is not None else self.embed.t()
-        return matmul_any(x, head)
+        logits = matmul_any(x, head)
+        if self.comm.tp == 1:
+            return logits
+        return gather_logits(logits, self.comm.rank, self.comm.tp,
+                             self.comm.pg())
 
     def _prefill_layers(self, kv: KVCache, tokens, page_table, prefix_lens,
                         chunk_lens, extra_embeds=None, extra_mask=None,
@@ -438,7 +546,7 @@ class Llama(nn.Module):
         else:
             rope = (*rope_cos_sin(positions, self.inv_freq), self.rope_scale)
         slot = kv_slots(page_table, prefix_lens, chunk_lens, S, kv.page_size)
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         if extra_embeds is not None:
             x = torch.where(extra_mask[..., None], extra_embeds.to(x.dtype), x)
         for i, layer in enumerate(self.layers):
@@ -495,9 +603,9 @@ class Llama(nn.Module):
         lens = lens.to(device=dev, dtype=torch.int32)
         prefix = torch.zeros(B, dtype=torch.int32, device=dev)
         table = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-        page = torch.zeros((1, 1, c.num_key_value_heads, c.head_dim_),
+        page = torch.zeros((1, 1, c.num_key_value_heads // self.tp, c.head_dim_),
                            dtype=self.dtype, device=dev)
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         for layer in self.layers:
             x = layer.prefill(x, (page, page), rope, table, prefix, lens, None)
         x = rms_norm(x, self.final_norm, c.rms_norm_eps)
@@ -519,7 +627,7 @@ class Llama(nn.Module):
         slot = kv_slots(page_table, positions, torch.ones_like(positions), 1,
                         kv.page_size)
         seq_lens = (positions + 1).to(torch.int32)
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         for i, layer in enumerate(self.layers):
             x = layer.decode(x, (kv.k[i], kv.v[i]), rope, page_table,
                              seq_lens, slot)
@@ -536,18 +644,24 @@ def _init_scale(name: str, t: torch.Tensor) -> float:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device=None) -> Llama:
+                dtype=torch.bfloat16, device=None, rank: int = 0,
+                tp: int = 1) -> Llama:
     """Random weights from `generator` (drawn on the generator's device),
     with the JAX package's scales: normal / sqrt(fan_in) (expert stacks
     too), biases 0.02, sinks 1, embedding 0.02, norms 1.  Drawn one tensor
     at a time in f32 and cast, so a full-size model never holds more than
-    one f32 tensor at once."""
-    model = Llama(cfg, dtype=dtype, device=device)
+    one f32 tensor at once.  With ``tp`` > 1 the model is rank `rank`'s
+    shard: every tensor is still drawn whole, in the flat model's order,
+    and the rank keeps its slice, so the shards of one seed are the flat
+    model's values."""
+    model = Llama(cfg, dtype=dtype, device=device, rank=rank, tp=tp)
+    full = _param_shapes(cfg)
+    axes = param_shard_axes(cfg)
 
-    def fill(t: torch.Tensor, scale: float) -> None:
-        w = torch.randn(t.shape, generator=generator, dtype=torch.float32,
+    def fill(t: torch.Tensor, shape, scale: float, axis=None) -> None:
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
-        t.copy_((w * scale).to(dtype))
+        t.copy_((shard(w, axis, rank, tp) * scale).to(dtype))
 
     with torch.no_grad():
         for layer in model.layers:
@@ -556,11 +670,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 if name.endswith("norm"):
                     t.fill_(1.0)
                 else:
-                    fill(t, _init_scale(name, t))
-        fill(model.embed, 0.02)
+                    w = torch.empty(full[name], device="meta")
+                    fill(t, full[name], _init_scale(name, w), axes[name])
+        h, V = cfg.hidden_size, cfg.vocab_size
+        fill(model.embed, (V, h), 0.02, TOP_AXES["embed"])
         model.final_norm.fill_(1.0)
         if model.lm_head is not None:
-            fill(model.lm_head, 1.0 / math.sqrt(cfg.hidden_size))
+            fill(model.lm_head, (h, V), 1.0 / math.sqrt(h), TOP_AXES["lm_head"])
     return model
 
 
@@ -572,15 +688,21 @@ def _from_numpy(a) -> torch.Tensor:
 
 
 def params_from_jax(cfg: ModelConfig, tree: Dict, dtype=None,
-                    device=None) -> Llama:
+                    device=None, rank: int = 0, tp: int = 1) -> Llama:
     """The port's model from a JAX `init_params` / `load_params` tree
     already converted to numpy (``jax.tree.map(np.asarray, params)``):
     layer stacks [L, ...] become per-layer parameters, and int8
     ``{"q", "s"}`` leaves (after JAX `quantize_params`) stay quantized,
     with a tied model's added ``lm_head``.  `dtype` defaults to the tree's
-    own (bf16 arrays arrive as ml_dtypes and go through f32)."""
+    own (bf16 arrays arrive as ml_dtypes and go through f32).  With
+    ``tp`` > 1, rank `rank`'s shard: the numpy leaves are sliced as JAX's
+    `param_pspecs` / `quantize_pspecs` place them (`parallel.
+    shard_params`) before anything reaches the device."""
+    if tp > 1:
+        tree = shard_params(tree, cfg, rank, tp)
     embed = _from_numpy(tree["embed"])
-    model = Llama(cfg, dtype=dtype or embed.dtype, device=device)
+    model = Llama(cfg, dtype=dtype or embed.dtype, device=device, rank=rank,
+                  tp=tp)
     dev = model.device
     layers = tree["layers"]
     unknown = set(layers) - set(layer_keys(cfg))
@@ -611,4 +733,22 @@ def params_from_jax(cfg: ModelConfig, tree: Dict, dtype=None,
             stacked = _from_numpy(leaf)
             for i, layer in enumerate(model.layers):
                 getattr(layer, name).copy_(stacked[i])
+    return model
+
+
+@torch.no_grad()
+def shard_model(full: Llama, rank: int, tp: int, device=None) -> Llama:
+    """Rank `rank`'s shard of an unquantized flat model (one the loader
+    read onto the CPU), on `device`."""
+    cfg = full.cfg
+    model = Llama(cfg, dtype=full.dtype, device=device, rank=rank, tp=tp)
+    axes = param_shard_axes(cfg)
+    for src, dst in zip(full.layers, model.layers):
+        for name in layer_keys(cfg):
+            getattr(dst, name).copy_(shard(getattr(src, name), axes[name],
+                                           rank, tp))
+    model.embed.copy_(shard(full.embed, TOP_AXES["embed"], rank, tp))
+    model.final_norm.copy_(full.final_norm)
+    if model.lm_head is not None:
+        model.lm_head.copy_(shard(full.lm_head, TOP_AXES["lm_head"], rank, tp))
     return model

@@ -28,15 +28,23 @@ def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and "q" in w
 
 
-def quantize_tensor(w: torch.Tensor, stacked: bool = False) -> Dict[str, torch.Tensor]:
+def quantize_tensor(w: torch.Tensor, stacked: bool = False,
+                    group=None) -> Dict[str, torch.Tensor]:
     """Symmetric per-output-channel int8 (last axis = output channels),
     bit-equal to the JAX function: the absmax in f32, scale = max(absmax,
     1e-8) / 127, q = clip(round-half-even(w / scale), -127, 127).
-    `stacked` keeps the leading (layer) axis: scales come out [L, out]."""
+    `stacked` keeps the leading (layer) axis: scales come out [L, out].
+    `group`: `w` is one rank's row shard of a weight split on its input
+    axis; the absmax is taken over the whole input axis (a max over the
+    ranks), so q is the slice of the whole weight's q and s its s."""
     first = 1 if stacked else 0
     reduce = tuple(range(first, w.ndim - 1))
     wf = w.float()
     absmax = wf.abs().amax(dim=reduce) if reduce else wf.abs()
+    if group is not None:
+        from ..parallel.collectives import all_reduce_max
+
+        absmax = all_reduce_max(absmax.contiguous(), group)
     scale = torch.clamp(absmax, min=1e-8) / 127.0
     div = scale
     for ax in reduce:
@@ -93,12 +101,22 @@ def quantize_params(model) -> Any:
     layer, stay high-precision for the grouped GEMM) and the LM head.  A
     tied model gets an int8 ``lm_head`` copy of ``embed.T`` (the embedding
     lookup keeps the original table).  One layer's weights are replaced at
-    a time, so the model never holds two copies of all of them."""
+    a time, so the model never holds two copies of all of them.  A tp
+    shard (its group attached) quantizes as JAX quantizes the whole
+    weight before sharding it: a row-parallel weight's scales come from
+    the whole input axis (`quantize_tensor`'s `group`), a column-parallel
+    one's are its own slice of them."""
+    from ..parallel.sharding import param_shard_axes
+
+    comm = model.comm
+    axes = param_shard_axes(model.cfg)
     for layer in model.layers:
         for key in QUANT_KEYS:
             w = getattr(layer, key, None)
             if w is not None and not is_quantized(w) and w.dim() == 2:
-                _swap(layer, key, quantize_tensor(w))
+                rows = comm.tp > 1 and axes[key] == 0
+                _swap(layer, key, quantize_tensor(
+                    w, group=comm.pg() if rows else None))
     head = model.lm_head
     if head is not None and not is_quantized(head):
         _swap(model, "lm_head", quantize_tensor(head))

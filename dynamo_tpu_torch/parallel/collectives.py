@@ -1,0 +1,81 @@
+"""The tp group's collectives, built from ``broadcast`` and ``all_reduce``
+only: that is what gloo offers for CUDA tensors, and what NCCL offers
+everywhere.  The JAX package gets the same collectives from GSPMD (XLA
+inserts them; no Pallas kernel computes them).
+
+- `all_reduce_sum`: the row-parallel outputs (after ``wo`` and
+  ``w_down``, and the experts' combine) summed over the ranks in place;
+- `embed_lookup`: the vocab-parallel embedding: each rank looks up the
+  tokens of its vocabulary rows, the others' rows are zero, and the sum
+  over ranks is exact (one nonzero term per element);
+- `gather_logits`: the full vocabulary from each rank's slice, as an
+  all-reduce into a zeroed full-width buffer (exact, as above);
+- `broadcast_plan`: the leader's plan bytes to every rank, length first
+  and then the payload padded to a power of two (`dynamo_tpu/parallel/
+  multihost.py` `broadcast_plan`).
+
+A collective's result is the same on every rank (ring all-reduce and
+NCCL hand each rank the same reduced values), so every rank samples the
+same token from the same logits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum `t` over the ranks of `group`, in place; returns `t`."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, rank: int,
+                 group) -> torch.Tensor:
+    """Rows of the full embedding for `tokens`, from this rank's slice
+    ``embed`` [V/tp, h]: local rows where the token is ours, zeros
+    elsewhere, summed over the ranks (in the table's dtype, exact)."""
+    n = embed.shape[0]
+    lo = rank * n
+    local = tokens - lo
+    mine = (local >= 0) & (local < n)
+    x = embed[torch.where(mine, local, torch.zeros_like(local))]
+    x = x * mine[..., None].to(x.dtype)
+    return all_reduce_sum(x, group)
+
+
+def gather_logits(local: torch.Tensor, rank: int, tp: int,
+                  group) -> torch.Tensor:
+    """The full-vocabulary logits [..., V] from this rank's slice
+    [..., V/tp]: an all-reduce into a zeroed full-width buffer."""
+    n = local.shape[-1]
+    full = local.new_zeros((*local.shape[:-1], n * tp))
+    full[..., rank * n:(rank + 1) * n] = local
+    return all_reduce_sum(full, group)
+
+
+def broadcast_plan(payload: bytes, group=None, src: int = 0) -> bytes:
+    """Broadcast `src`'s bytes to every rank of `group` (the default group
+    when None), over CPU tensors: first the length (a fixed 8-byte round
+    every rank can join without knowing the size), then the payload,
+    padded to a power of two (at least 64 bytes) so plans of any size fit
+    in few buffer sizes.  Other ranks pass ``b""``."""
+    is_src = dist.get_rank() == src
+    n = torch.tensor([len(payload) if is_src else 0], dtype=torch.int64)
+    dist.broadcast(n, src=src, group=group)
+    size = int(n.item())
+    if size == 0:
+        return b""
+    width = 1 << max(6, (size - 1).bit_length())
+    buf = torch.zeros(width, dtype=torch.uint8)
+    if is_src:
+        buf[:size] = torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
+    dist.broadcast(buf, src=src, group=group)
+    return buf[:size].numpy().tobytes()

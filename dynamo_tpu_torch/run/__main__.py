@@ -14,7 +14,9 @@
 ``--model`` takes a checkpoint directory (the loader and tokenizer.json),
 ``tiny`` or a canned config name (``llama-3.1-8b``, ``gpt-oss-20b``, ...;
 random weights from ``--seed``); ``--quantization int8`` serves int8
-projections; see `dynamo_tpu_torch.worker`.  Runs on CUDA unless given ``--device cpu``.
+projections; ``--tp N`` (``--tp-devices``) serves on a tensor-parallel
+group of N processes; see `dynamo_tpu_torch.worker`.  Runs on CUDA unless
+given ``--device cpu``.
 
 A batch input line is a JSON object with ``token_ids`` plus optional
 sampling fields (``temperature``, ``top_k``, ``top_p``, ``seed``,

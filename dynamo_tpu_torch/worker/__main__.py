@@ -29,8 +29,16 @@ sharing one set of weights on the card, each with its own pool of
 ``--num-pages`` and its own KV events and metrics under the packed
 (instance, rank) key; it does not compose with ``--disagg-role``,
 ``--kvbm`` or ``--encode-component``.  Every worker answers embedding
-requests (``/v1/embeddings`` at the frontend).  Meshes (tp, pp, sp),
-multihost and mock engines are later slices.  Multimodal models serve image and
+requests (``/v1/embeddings`` at the frontend).  ``--tp N`` serves the
+model on a tensor-parallel group of N processes (`TorchEngine(parallel=
+ParallelConfig(tp=N))`): this process leads, builds rank 0's shard and
+spawns the other ranks, each building its own shard from the same
+``--model`` / ``--seed`` (``--sharpen``) or checkpoint; one card a rank
+under NCCL by default, or ``--tp-devices`` to name them (``cuda:0`` N
+times shares one card over gloo; ``--device cpu`` runs the group on the
+CPU).  The card and the publishers are the leader's alone.  ``--dp``,
+``--sp`` and ``--pp`` above 1, multihost and mock engines are later
+slices.  Multimodal models serve image and
 video chats: a qwen-vl checkpoint directory or ``qwen2.5-vl-7b`` brings
 its tower, ``--vision tiny`` pairs a tiny CLIP tower with ``--model
 tiny``; ``--disagg-role encode`` serves only the tower (component
@@ -161,6 +169,36 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
     # JAX engine flags the port refuses (TorchEngine names them)
     ap.add_argument("--quantization", default="none", choices=["none", "int8"])
     ap.add_argument("--kv-partition", action="store_true")
+    # the serving mesh: tp over torch.distributed (dp, sp and pp are
+    # refused, each naming the roadmap item that ports it)
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel degree")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: a group of N processes")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel degree")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel degree")
+    ap.add_argument("--tp-devices", default="",
+                    help="comma-separated device of each tp rank (default: "
+                         "one card a rank, or the CPU with --device cpu); "
+                         "ranks sharing a card use gloo")
+
+
+def parallel_from_args(args):
+    """(ParallelConfig or None, the ranks' devices or None)."""
+    from ..parallel import ParallelConfig, check_ported
+
+    pcfg = ParallelConfig(dp=args.dp, tp=args.tp, sp=args.sp, pp=args.pp)
+    check_ported(pcfg)
+    if pcfg.tp == 1:
+        return None, None
+    if args.tp_devices:
+        devices = [d.strip() for d in args.tp_devices.split(",") if d.strip()]
+    elif args.device == "cpu":
+        devices = ["cpu"] * pcfg.tp
+    else:
+        devices = None
+    return pcfg, devices
 
 
 def engine_config_from_args(args):
@@ -229,6 +267,7 @@ def build_engine(args):
 
     device = resolve_device(args.device)
     ecfg = engine_config_from_args(args)
+    parallel, tp_devices = parallel_from_args(args)
     dtype = getattr(torch, args.dtype or (
         "float32" if args.model == "tiny" else "bfloat16"))
     offload = bool(getattr(args, "encode_component", ""))
@@ -249,6 +288,11 @@ def build_engine(args):
                 raise SystemExit(f"image_token_id {img_id} does not round-trip "
                                  f"through the tokenizer (got {img_tok!r})")
             media = _media_card(vcfg, img_tok, img_id)
+        elif parallel is not None:
+            from ..parallel import CheckpointShards
+
+            # each rank reads the checkpoint and keeps its slices
+            model = CheckpointShards(cfg, args.model, str(dtype).split(".")[-1])
         else:
             model = load_params(args.model, cfg, dtype=dtype, device=device)
     else:
@@ -264,8 +308,15 @@ def build_engine(args):
                              f"directory, tiny, or one of {sorted(CONFIGS)}")
         if args.num_layers:
             cfg = dataclasses.replace(cfg, num_hidden_layers=args.num_layers)
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        model = init_params(cfg, gen, dtype=dtype, device=device)
+        if parallel is not None:
+            from ..parallel import SeededShards
+
+            # each rank draws the flat model's tensors and keeps its slices
+            model = SeededShards(cfg, args.seed, str(dtype).split(".")[-1],
+                                 sharpen=args.sharpen)
+        else:
+            gen = torch.Generator(device=device).manual_seed(args.seed)
+            model = init_params(cfg, gen, dtype=dtype, device=device)
         # the tower draws from a generator of its own, so cutting the
         # LLM's depth (an encode worker's) leaves it unchanged
         vgen = torch.Generator(device=device).manual_seed(args.seed + 1)
@@ -278,7 +329,7 @@ def build_engine(args):
             vcfg = tiny_vision_config(out_hidden_size=cfg.hidden_size)
             tower = init_vision_params(vcfg, vgen, device=device)
             media = _media_card(vcfg, "<image>", tok.encode("<image>")[0])
-        if args.sharpen:
+        if args.sharpen and parallel is None:
             sharpen(model, tower if media.get("mm_arch") == "qwen2_vl" else None)
     if offload:
         tower = None  # media go to the encode worker; keep the geometry
@@ -293,6 +344,10 @@ def build_engine(args):
         ecfg = dataclasses.replace(ecfg, quantization="none")
 
     def make_engine():
+        if parallel is not None:
+            return TorchEngine(cfg, model, ecfg, eos_token_ids=eos,
+                               vision=(tower, vcfg) if vcfg is not None else None,
+                               parallel=parallel, devices=tp_devices)
         return TorchEngine(cfg, model, ecfg, eos_token_ids=eos, device=device,
                            vision=(tower, vcfg) if vcfg is not None else None)
 
@@ -421,6 +476,20 @@ def check_role(args) -> None:
         ]:
             if bad:
                 raise SystemExit(f"--dp-ranks > 1 is incompatible with {flag}")
+    if args.tp > 1:
+        # a tp group serves generate and embed; these move one rank's
+        # pages or stack engines (ROADMAP 2.2b)
+        for bad, flag in [
+            (args.dp_ranks > 1, "--dp-ranks"),
+            (args.disagg_role != "both", "--disagg-role"),
+            (args.kvbm, "--kvbm"),
+            (bool(args.encode_component), "--encode-component"),
+            (args.park_max_pages > 0, "--park-max-pages"),
+            (multimodal, "a vision tower"),
+        ]:
+            if bad:
+                raise SystemExit(f"--tp > 1 with {flag} is not served yet "
+                                 f"(ROADMAP 2.2b)")
     if args.disagg_role == "prefill" and args.device != "cpu":
         from ..disagg.device_transfer import expandable_segments
 

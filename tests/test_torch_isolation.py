@@ -253,3 +253,67 @@ def test_dp_ranks_refuse_without_cuda(monkeypatch):
          "--num-pages", "16"]))
     assert isinstance(engine, DpRankEngine)
     assert all(e.device.type == "cpu" for e in engine.engines)
+
+
+PARALLEL = ("__init__", "mesh", "sharding", "collectives")
+
+# run as a script: a spawned follower re-imports it as its main module, so
+# the poisoned names below hold in the leader and in the follower
+_TP_SCRIPT = '''
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+
+
+def main():
+    import asyncio
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models import tiny_config
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards
+
+    cfg = tiny_config()
+    engine = TorchEngine(
+        cfg, SeededShards(cfg, 0, "float32"),
+        EngineConfig(page_size=8, num_pages=32, max_model_len=64),
+        parallel=ParallelConfig(tp=2), devices=["cpu", "cpu"])
+
+    async def run():
+        out = []
+        try:
+            async for d in engine.generate({{
+                    "token_ids": [1, 2, 3],
+                    "sampling_options": {{"temperature": 0.0}},
+                    "stop_conditions": {{"max_tokens": 4, "ignore_eos": True}}}}):
+                out += d["token_ids"]
+            stats = await engine.group_stats()
+        finally:
+            await engine.shutdown()
+        return out, sorted(stats)
+
+    print(asyncio.run(run()))
+
+
+if __name__ == "__main__":
+    main()
+'''
+
+
+def test_parallel_modules_and_the_follower_import_no_jax(tmp_path):
+    """The tp slice's modules are among the sources the import checks
+    walk, and a tp group's leader and its spawned follower (the follower
+    entry point, `engine.lockstep.follower_main`) serve with JAX and the
+    JAX package made unimportable in both processes."""
+    walked = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in PARALLEL:
+        assert os.path.join("parallel", f"{mod}.py") in walked
+    assert os.path.join("engine", "lockstep.py") in walked
+    script = tmp_path / "tp_no_jax.py"
+    script.write_text(_TP_SCRIPT.format(forbidden=FORBIDDEN))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    tokens, ranks = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    assert len(tokens) == 4 and ranks == [0, 1]
