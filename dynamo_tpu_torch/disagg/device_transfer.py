@@ -25,6 +25,21 @@ protocol as the host lane:
    cross-process device pull (``dma_addr``), which its TPU plugin cannot
    serve.
 
+Under tensor parallelism every rank of a prefill group exports its pools
+(`TorchEngine.ipc_entries`: the descriptor's entry lists them under
+``ranks``, each rank's pools holding its n_kv / tp heads), and every rank
+of a decode group maps the source ranks whose heads it holds and re-pages
+its own head window from each (`TorchEngine.import_ipc`: one windowed
+`kv_repage` launch per overlapping source rank, through a ``kv_import``
+plan).  The source's event is its leader's, recorded after the prompt's
+last chunk; a follower's KV writes are complete before its share of that
+chunk's last collective, which gloo (the backend of ranks sharing a card,
+as the lane needs) copies to the host before the leader's returns.  The
+colocated lane under tp moves the source's export (every kv head,
+gathered through its group) into the destination's pages: one whole-row
+re-page into a flat destination, or into a staging tensor of the
+destination's page size that a tp destination imports.
+
 A process cannot open its own IPC handle: that case is the colocated
 lane, which the client tries first.  Pools allocated under
 ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` cannot be exported
@@ -36,6 +51,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -87,21 +103,55 @@ async def fetch_colocated(client, source, descriptor) -> List[int]:
     n_dst = -(-held.prompt_len // client.dest_layout.page_size)
     dest_pages = await dst_engine.alloc_pages(n_dst)
     try:
-        def op():
-            kv_repage(src_engine.kv.k, src_engine.kv.v, dst_engine.kv.k,
-                      dst_engine.kv.v, held.pages, dest_pages, held.prompt_len)
-            # the source's next step may reuse the pages once released:
-            # engines on other streams wait for the read first
-            stream = dst_engine._stream  # noqa: SLF001
-            if stream is not None and stream != src_engine._stream:  # noqa: SLF001
-                stream.synchronize()
-
-        await dst_engine._device_op(op)  # noqa: SLF001
+        if src_engine.tp > 1 or dst_engine.tp > 1:
+            await _colocated_tp(src_engine, dst_engine, held, dest_pages)
+        else:
+            await _colocated_flat(src_engine, dst_engine, held, dest_pages)
     except BaseException:
         await dst_engine.free_pages(dest_pages)
         raise
     await source._release(descriptor["transfer_id"])  # noqa: SLF001
     return dest_pages
+
+
+async def _colocated_tp(src_engine, dst_engine, held, dest_pages) -> None:
+    """The colocated lane when either side is a tp group: the source's
+    export (every kv head, a device op of its own engine) re-paged on the
+    destination's device, straight into a flat destination's pool or into
+    a staging tensor that a tp destination imports (a ``kv_import``)."""
+    k, v = await src_engine._device_op(  # noqa: SLF001
+        lambda: src_engine._export_dev(held.pages))  # noqa: SLF001
+
+    def op():
+        dev = dst_engine.device
+        sk, sv = k.to(dev), v.to(dev)
+        n = len(held.pages)
+        if dst_engine.tp == 1:
+            kv_repage(sk, sv, dst_engine.kv.k, dst_engine.kv.v, range(n),
+                      dest_pages, held.prompt_len)
+            return
+        L, _, ps_d = dst_engine.kv.k.shape[:3]
+        stage = [torch.empty((L, len(dest_pages), ps_d, *sk.shape[3:]),
+                             dtype=dst_engine.kv.k.dtype, device=dev)
+                 for _ in range(2)]
+        kv_repage(sk, sv, stage[0], stage[1], range(n),
+                  range(len(dest_pages)), held.prompt_len)
+        dst_engine._import_dev(dest_pages, stage[0], stage[1])  # noqa: SLF001
+
+    await dst_engine._device_op(op)  # noqa: SLF001
+
+
+async def _colocated_flat(src_engine, dst_engine, held, dest_pages) -> None:
+    def op():
+        kv_repage(src_engine.kv.k, src_engine.kv.v, dst_engine.kv.k,
+                  dst_engine.kv.v, held.pages, dest_pages, held.prompt_len)
+        # the source's next step may reuse the pages once released:
+        # engines on other streams wait for the read first
+        stream = dst_engine._stream  # noqa: SLF001
+        if stream is not None and stream != src_engine._stream:  # noqa: SLF001
+            stream.synchronize()
+
+    await dst_engine._device_op(op)  # noqa: SLF001
 
 
 # -- CUDA IPC lane --------------------------------------------------------------- #
@@ -149,6 +199,20 @@ def ipc_export(engine) -> Dict[str, Any]:
     return entry
 
 
+def rank_entries(entry: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Each source rank's pool entry, in rank order (a flat source's entry
+    is its only rank's)."""
+    return entry.get("ranks") or [entry]
+
+
+def group_entry(entries: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The source entry a tp group publishes: rank 0's, with every rank's
+    under ``ranks`` (a flat engine's is its own)."""
+    if len(entries) == 1:
+        return entries[0]
+    return {**entries[0], "ranks": entries}
+
+
 def open_ipc_pools(entry: Dict[str, Any], device: torch.device
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Map a source's K and V pools into this process (on the card the
@@ -189,70 +253,68 @@ class IpcLane:
         self.injected = opener is not None
         self._open = opener or open_ipc_pools
         self._open_event = event_opener or open_ipc_event
-        # (lease, k handle) -> (k, v) mapped pools
+        # (lease, k handle) -> (k, v) mapped pools; mapped on the engine's
+        # step thread, dropped from the event loop's  # guarded-by: _lock
         self._maps: Dict[Tuple[int, bytes], Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._lock = threading.Lock()
         self.opened = 0  # mappings made, for tests and counters
 
     def usable(self, entry: Optional[Dict[str, Any]]) -> bool:
-        """True when this lane serves the entry: the source's pools lie on
-        this engine's card (or an opener was injected)."""
+        """True when this lane serves the entry: every source rank's pools
+        lie on this engine's card (or an opener was injected)."""
         if not entry:
             return False
         if self.injected:
             return True
         return (self.device.type == "cuda"
-                and entry.get("uuid") == device_uuid(self.device))
+                and all(e.get("uuid") == device_uuid(self.device)
+                        for e in rank_entries(entry)))
 
     def pools(self, entry: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
         key = (int(entry.get("lease", 0)), bytes(entry["k"]["share"][1]))
-        pools = self._maps.get(key)
-        if pools is None:
-            pools = self._open(entry, self.device)
-            self._maps[key] = pools
-            self.opened += 1
-        return pools
+        with self._lock:
+            pools = self._maps.get(key)
+            if pools is None:
+                pools = self._open(entry, self.device)
+                self._maps[key] = pools
+                self.opened += 1
+            return pools
 
     def event(self, entry: Dict[str, Any]):
         return self._open_event(entry.get("event"), self.device)
 
     def drop(self, lease: int) -> int:
         """Close the mappings of a source lease; returns how many."""
-        keys = [k for k in self._maps if k[0] == int(lease)]
-        for k in keys:
-            del self._maps[k]
-        return len(keys)
+        with self._lock:
+            keys = [k for k in self._maps if k[0] == int(lease)]
+            for k in keys:
+                del self._maps[k]
+            return len(keys)
 
     @property
     def mapped(self) -> int:
-        return len(self._maps)
+        with self._lock:
+            return len(self._maps)
 
 
 async def fetch_ipc(client, descriptor) -> List[int]:
     """Move a transfer's pages from a source process's pools on this card:
-    allocate the destination pages, map the source pools (once per
-    lease), then as one device op wait on the source's event, launch the
-    re-page and synchronise the stream; only then release the source's
-    hold.  Any failure frees the destination pages, releases the hold and
-    raises (the caller prefills locally)."""
+    allocate the destination pages, then as one device op map the source
+    pools (once per lease, through the client's `IpcLane`), wait on the
+    source's event, launch the re-page on every destination rank
+    (`TorchEngine.import_ipc`: one whole-row launch between flat engines,
+    a head window per overlapping source rank under tp) and synchronise;
+    only then release the source's hold.  Any failure frees the
+    destination pages, releases the hold and raises (the caller prefills
+    locally)."""
     engine = client.engine
     entry = descriptor["cuda_ipc"]
     prompt_len = int(descriptor["prompt_len"])
     n_dst = -(-prompt_len // client.dest_layout.page_size)
     dest_pages = await engine.alloc_pages(n_dst)
     try:
-        src_k, src_v = client.ipc.pools(entry)
-        event = client.ipc.event(entry)
-
-        def op():
-            stream = engine._stream  # noqa: SLF001
-            if event is not None and stream is not None:
-                event.wait(stream)
-            kv_repage(src_k, src_v, engine.kv.k, engine.kv.v, entry["pages"],
-                      dest_pages, prompt_len)
-            if stream is not None:
-                stream.synchronize()
-
-        await engine._device_op(op)  # noqa: SLF001
+        await engine._device_op(lambda: engine.import_ipc(  # noqa: SLF001
+            entry, dest_pages, prompt_len, client.ipc))
     except BaseException:
         await engine.free_pages(dest_pages)
         await client._release_remote(descriptor)  # noqa: SLF001

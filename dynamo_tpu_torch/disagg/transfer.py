@@ -160,10 +160,15 @@ class KvTransferSource:
         return sum(len(h.pages) for h in self._held.values())
 
     async def start(self) -> "KvTransferSource":
-        from .device_transfer import ipc_export
+        from .device_transfer import group_entry, ipc_export
 
         if self.engine.device.type == "cuda":
-            self.ipc = ipc_export(self.engine)
+            if getattr(self.engine, "tp", 1) > 1:
+                # every rank's pools (an ``ipc_export`` plan, between steps)
+                self.ipc = group_entry(await self.engine._device_op(  # noqa: SLF001
+                    self.engine.ipc_entries))
+            else:
+                self.ipc = ipc_export(self.engine)
         self._server = await asyncio.start_server(self._on_conn, self.host, 0)
         self.port = self._server.sockets[0].getsockname()[1]
         self._reaper = asyncio.create_task(self._reap_loop())
@@ -186,6 +191,8 @@ class KvTransferSource:
         value = {"layout": self.layout.to_dict(), "addr": self.address}
         if self.ipc is not None:
             self.ipc["lease"] = runtime.primary_lease
+            for e in self.ipc.get("ranks", ()):
+                e["lease"] = runtime.primary_lease
             value["cuda_ipc"] = self.ipc
         await runtime.put_leased(key, pack(value))
 

@@ -68,8 +68,19 @@ embeddings.  Under tp the blocks run eagerly (`graphs.py`), a decode
 dispatch takes the chained paths (not the continuous loop, as JAX's
 `_cc_ok` under a mesh) and no prefill fuses into a decode chain (the
 followers replay from host arrays only, as JAX's multihost plans).
-Parking, KVBM tiers, disaggregated serving, vision and kv_partition are
-refused under tp, each naming its roadmap item.
+KV moves under tp hold every kv head, as the JAX engine's (whose export
+gathers the sharded pool): `_export_dev` sends a ``kv_export`` plan and
+joins every rank's head slice in rank order (`parallel.collectives.
+gather_heads`), `_import_dev` a ``kv_import`` plan whose full-head pages
+the leader broadcasts and each rank scatters its own heads of, in place.
+So parked sequences, KVBM blocks on the host and the disk and the disagg
+host lane carry one layout whatever the tp, and a block written by a tp 2
+engine onboards into a flat one.  The disagg CUDA IPC lane instead lets
+every destination rank read its head window straight from the source
+ranks' pools (`import_ipc`: a ``kv_import`` plan of the ``ipc`` lane,
+one windowed `kv_repage` launch per overlapping source rank).  Vision,
+kv_partition and fuse_projections are refused under tp, each naming its
+roadmap item.
 
 Not ported yet (later slices): meshed dp, pp, sp, kv_partition and
 multihost.
@@ -161,20 +172,15 @@ _PLAN_ARRAYS = {
     "decode": ("tok", "pos", "ctr", "table", "seeds") + blocks.SAMP_COLUMNS,
     "spec": ("tokens", "pos", "ctr", "table", "seeds") + blocks.SAMP_COLUMNS,
     "embed": ("tokens", "lens"),
+    "kv_export": ("pages",),
+    "kv_import": ("pages",),
 }
 
-# what a tp engine refuses, and the roadmap item that brings it
-_TP_LATER = "under tp yet (ROADMAP 2.2b)"
-
-
-def _tp_refusals(cfg: EngineConfig, tiered, vision) -> List[str]:
+def _tp_refusals(cfg: EngineConfig, vision) -> List[str]:
     bad = []
-    if cfg.park_max_pages > 0:
-        bad.append("parking (park_max_pages > 0: a per-rank page export)")
-    if tiered is not None:
-        bad.append("KVBM tiers (a per-rank page export)")
     if vision is not None:
-        bad.append("vision (the tower on the leader, embeds on the plan)")
+        bad.append("vision (the tower on the leader, embeds on the plan: "
+                   "ROADMAP 2.2b.3)")
     if cfg.kv_partition:
         bad.append("kv_partition (ROADMAP 2.6)")
     if cfg.fuse_projections:
@@ -211,9 +217,9 @@ class TorchEngine:
             check_ported(parallel)
             _check_supported(model_cfg, self.tp)
         if self.tp > 1:
-            bad = _tp_refusals(self.cfg, tiered, vision)
+            bad = _tp_refusals(self.cfg, vision)
             if bad:
-                raise ValueError(f"not served {_TP_LATER}: {'; '.join(bad)}")
+                raise ValueError(f"not served under tp: {'; '.join(bad)}")
             if group is None:
                 # the leader: spawn the followers, join, build rank 0
                 self.group, procs, devs = lockstep.start_group(
@@ -277,14 +283,16 @@ class TorchEngine:
                              event_sink=self._emit_event)
         self.scheduler = Scheduler(self.cfg, self.pool)
         # preemption parking lot (overload control): batch-class victims
-        # preempted mid-decode park byte-exact KV here and resume through
-        # ordinary admission; a tp group preempts by recomputing
+        # preempted mid-decode park byte-exact KV here (every kv head,
+        # under tp too) and resume through ordinary admission
         self.parking = ParkingLot(self.cfg.park_max_pages)
-        if self.tp == 1:
-            self.scheduler.park_fn = self._park_seq
-            self.scheduler.resume_fn = self._resume_parked
-            self.scheduler.unpark_fn = self._unpark_seq
+        self.scheduler.park_fn = self._park_seq
+        self.scheduler.resume_fn = self._resume_parked
+        self.scheduler.unpark_fn = self._unpark_seq
         self.tiered = None
+        # a follower's mappings of disagg source pools (the CUDA IPC lane;
+        # the leader maps through its transfer client's `IpcLane`)
+        self._ipc_lane = None
         # the device loop: captured block graphs, block functions per
         # (kind, rung, variant); a tp group's blocks run eagerly (their
         # gloo collectives cannot be captured)
@@ -668,12 +676,6 @@ class TorchEngine:
                  else await self._device_op(self._lockstep.stats))
         return {**stats, 0: dict(LAUNCHES)}
 
-    def _flat_only(self, what: str) -> None:
-        """Refuse a KV move of one rank's pool under tp."""
-        if self.tp > 1:
-            raise ValueError(f"{what} is not served {_TP_LATER}: it moves "
-                             f"pages of every rank's pool")
-
     def reset_kv(self) -> None:
         """Zero the pool in place (captured graphs hold its addresses)."""
         self.kv.k.zero_()
@@ -691,6 +693,10 @@ class TorchEngine:
             raise KeyError(f"a {kind!r} plan lacks {missing}")
         if kind in ("prefill", "embed"):
             return self._to_device(desc["arrays"])
+        if kind == "kv_export":
+            return {"pages": self._page_index(desc["arrays"]["pages"])}
+        if kind == "kv_import":
+            return self._import_inputs(desc)
         if kind in ("decode", "spec"):
             d = self._host(desc["arrays"])
             if desc.get("counts") is not None:
@@ -719,6 +725,10 @@ class TorchEngine:
                                                 Variant(greedy=greedy)), d)
         elif kind == "embed":
             self.model.forward_embed(d["tokens"], d["lens"])
+        elif kind == "kv_export":
+            self._export_replay(d["pages"])
+        elif kind == "kv_import":
+            self._import_replay(desc, d)
 
     @staticmethod
     def _sparse_counts(counts: Optional[torch.Tensor]):
@@ -1574,25 +1584,167 @@ class TorchEngine:
 
     # -- KV off the device: export/import, park/resume, KVBM ----------------- #
 
-    def _page_index(self, pages: List[int]) -> torch.Tensor:
-        return torch.tensor(pages, dtype=torch.int64, device=self.device)
+    def _page_index(self, pages) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(pages, np.int64), device=self.device)
 
     def _export_dev(self, pages: List[int]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Gather of page ids → fresh device tensors k, v [L, n, page, n_kv,
-        hd] (exactly n pages: no padding width to bound recompiles)."""
-        self._flat_only("a KV page move")
-        idx = self._page_index(pages)
-        return self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
+        hd] (exactly n pages: no padding width to bound recompiles).  Under
+        tp every rank gathers its head slice and the slices join in rank
+        order: the model's full kv heads (a ``kv_export`` plan)."""
+        self._plan("kv_export", arrays={"pages": np.asarray(pages, np.int64)})
+        return self._export_replay(self._page_index(pages))
+
+    def _export_replay(self, idx: torch.Tensor):
+        k, v = self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
+        if self.tp == 1:
+            return k, v
+        from ..parallel.collectives import gather_heads
+
+        g = self.group
+        return (gather_heads(k, g.rank, g.world, g.dev_group),
+                gather_heads(v, g.rank, g.world, g.dev_group))
 
     def _import_dev(self, pages: List[int], k: torch.Tensor,
                     v: torch.Tensor) -> None:
         """Scatter k, v [L, n, page, n_kv, hd] (host or device) into page ids
         IN PLACE: the captured graphs hold the pool's addresses, so the
-        pool tensors are never replaced."""
-        self._flat_only("a KV page move")
+        pool tensors are never replaced.  Under tp `k`, `v` hold every kv
+        head: the leader broadcasts them and each rank scatters its own
+        heads (a ``kv_import`` plan)."""
         idx = self._page_index(pages)
-        self.kv.k.index_copy_(1, idx, k.to(self.device, non_blocking=True))
-        self.kv.v.index_copy_(1, idx, v.to(self.device, non_blocking=True))
+        k = k.to(self.device, non_blocking=True)
+        v = v.to(self.device, non_blocking=True)
+        if self.tp == 1:
+            self.kv.k.index_copy_(1, idx, k)
+            self.kv.v.index_copy_(1, idx, v)
+            return
+        self._plan("kv_import", arrays={"pages": np.asarray(pages, np.int64)},
+                   lane="leader", shape=list(k.shape),
+                   dtype=str(k.dtype).removeprefix("torch."))
+        self._import_replay({"lane": "leader"},
+                            {"pages": idx, "k": k.contiguous(),
+                             "v": v.contiguous()})
+
+    def _import_inputs(self, desc: Dict[str, Any]) -> Dict[str, Any]:
+        """A follower's host half of a ``kv_import`` plan: the page ids
+        and, for the leader's broadcast, the buffers it lands in; for the
+        ipc lane, the mapped source pools of each window (so a follower
+        that cannot map them answers not-ready before any collective)."""
+        pages = desc["arrays"]["pages"]
+        if desc["lane"] == "leader":
+            from ..disagg.transfer import DTYPES
+
+            return {"pages": self._page_index(pages), **{
+                name: torch.empty(desc["shape"], dtype=DTYPES[desc["dtype"]],
+                                  device=self.device) for name in ("k", "v")}}
+        if desc["lane"] == "ipc":
+            if self._ipc_lane is None:
+                from ..disagg.device_transfer import IpcLane
+
+                self._ipc_lane = IpcLane(self.device)
+            return {"pages": pages.tolist(), "lane": self._ipc_lane,
+                    "windows": self._ipc_windows(desc["entry"], self._ipc_lane)}
+        raise ValueError(f"unknown kv_import lane {desc['lane']!r}")
+
+    def _import_replay(self, desc: Dict[str, Any], d: Dict[str, Any]) -> None:
+        """Every rank's device half of a tp ``kv_import``."""
+        if desc["lane"] == "ipc":
+            return self._ipc_import_replay(desc, d)
+        from ..parallel.collectives import broadcast_bytes
+
+        g = self.group
+        h = self.kv.k.shape[3]
+        for name, pool in (("k", self.kv.k), ("v", self.kv.v)):
+            full = broadcast_bytes(d[name], 0, g.dev_group)
+            pool.index_copy_(1, d["pages"], full.narrow(3, g.rank * h, h))
+
+    def rank_pages(self, pages) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Each rank's own heads of `pages` as host tensors [L, n, page,
+        n_kv / tp, hd], in rank order: under tp a ``kv_read`` plan, answered
+        over the plan group like ``stats`` (a check of what every rank's
+        pool holds that does not ride the device group's gather)."""
+        own = self.local_pages(pages)
+        if self._lockstep is None:
+            return [own]
+        return self._lockstep.read_pages(list(pages), own)
+
+    def local_pages(self, pages) -> Tuple[torch.Tensor, torch.Tensor]:
+        idx = self._page_index(pages)
+        return (self.kv.k.index_select(1, idx).cpu(),
+                self.kv.v.index_select(1, idx).cpu())
+
+    # -- the CUDA IPC lane into a tp group: each rank reads its window ------ #
+
+    def ipc_entries(self) -> List[Dict[str, Any]]:
+        """Every rank's CUDA IPC entry for its K and V pools
+        (`disagg.device_transfer.ipc_export`), in rank order: the source
+        side of the ipc lane (a disagg prefill worker publishes them once;
+        under tp the followers answer an ``ipc_export`` plan)."""
+        from ..disagg.device_transfer import ipc_export
+
+        own = ipc_export(self)
+        if self._lockstep is None:
+            return [own]
+        return self._lockstep.ipc_entries(own)
+
+    def _ipc_windows(self, entry: Dict[str, Any], lane) -> list:
+        """(source k, source v, src_head, dst_head, heads) of each source
+        rank this rank's heads overlap, their pools mapped into this
+        process through `lane` (once per source lease)."""
+        from ..disagg.device_transfer import rank_entries
+        from ..ops.kv_transfer import head_windows
+
+        ranks = rank_entries(entry)
+        n_kv = self.model_cfg.num_key_value_heads
+        rank = self.group.rank if self.group is not None else 0
+        out = []
+        for s, src_head, dst_head, heads in head_windows(
+                n_kv, len(ranks), self.tp, rank):
+            if not lane.usable(ranks[s]):
+                raise ValueError(f"source rank {s}'s pools are not on this "
+                                 f"rank's card")
+            k, v = lane.pools(ranks[s])
+            out.append((k, v, src_head, dst_head, heads))
+        return out
+
+    def import_ipc(self, entry: Dict[str, Any], dest_pages: List[int],
+                   prompt_len: int, lane) -> None:
+        """Move a prompt held by a source group's pools (its ipc entry:
+        every rank's pools, the prompt's pages and the source's event)
+        into `dest_pages` of every rank's pool: each rank waits on the
+        event and re-pages its own head window from each source rank it
+        overlaps (one launch each), then the group all-reduces a flag, so
+        every rank's reads are done when this returns.  A flat engine
+        reading a flat source is one whole-row launch.  The leader maps
+        its own windows before it sends the plan, so a failure there
+        reaches no follower."""
+        d = {"pages": dest_pages, "lane": lane,
+             "windows": self._ipc_windows(entry, lane)}
+        desc = {"lane": "ipc", "entry": entry, "prompt_len": int(prompt_len)}
+        self._plan("kv_import",
+                   arrays={"pages": np.asarray(dest_pages, np.int64)}, **desc)
+        self._ipc_import_replay(desc, d)
+
+    def _ipc_import_replay(self, desc: Dict[str, Any], d: Dict[str, Any]) -> None:
+        from ..ops.kv_transfer import kv_repage
+
+        entry, pages = desc["entry"], d["pages"]
+        stream = self._stream
+        event = d["lane"].event(entry)
+        if event is not None and stream is not None:
+            event.wait(stream)
+        for k, v, src_head, dst_head, heads in d["windows"]:
+            kv_repage(k, v, self.kv.k, self.kv.v, entry["pages"], pages,
+                      desc["prompt_len"], src_head=src_head,
+                      dst_head=dst_head, heads=heads)
+        if stream is not None:
+            stream.synchronize()
+        if self.tp > 1:
+            from ..parallel.collectives import all_reduce_sum
+
+            all_reduce_sum(torch.ones(1, device=self.device),
+                           self.group.dev_group)
 
     def _note_move(self, kind: str, pages: int, t0: float, **extra) -> None:
         if self.dispatch_trace is not None:
@@ -1617,8 +1769,15 @@ class TorchEngine:
         t0 = time.perf_counter()
         # parking IS a synchronous device→host copy: the victim's pages
         # are freed the moment park_fn returns
-        with torch.cuda.stream(self._stream):
-            k, v = to_host(list(self._export_dev(seq.pages[:n_used])))
+        try:
+            with torch.cuda.stream(self._stream):
+                k, v = to_host(list(self._export_dev(seq.pages[:n_used])))
+        except lockstep.FollowerError:
+            # a follower refused the export before any collective: the
+            # group is intact, and the victim keeps running
+            logger.exception("park of %s refused by a tp follower",
+                             seq.request_id)
+            return False
         ok = self.parking.park(ParkedSeq(
             request_id=seq.request_id, k=k, v=v, n_pages=n_used,
             num_computed=seq.num_computed, kv_rank=seq.kv_rank,
@@ -1685,7 +1844,6 @@ class TorchEngine:
         """Attach a KVBM connector (`kvbm.TieredKvCache` shape: on_event /
         pump_offloads / onboard).  The engine pumps its offload queue and
         routes admission-time cache misses through it."""
-        self._flat_only('a KVBM connector')
         self.tiered = connector
         self.add_event_sink(connector.on_event)
 
@@ -1890,7 +2048,6 @@ class TorchEngine:
         KvTransferSource`) the pages stay held under a transfer handle and
         the answer carries only its descriptor; without it the KV rides
         inline (the JAX package's fallback blob)."""
-        self._flat_only('disaggregated prefill')
         from ..disagg.transfer import tensor_bytes
 
         request = dict(request)
@@ -1937,7 +2094,6 @@ class TorchEngine:
         """Decode side of the inline-blob fallback: import a whole KV blob,
         then continue decoding (the block-ID path is `generate_imported`
         fed by the data plane)."""
-        self._flat_only('disaggregated decode')
         from ..disagg.transfer import DTYPES
 
         context = context or Context()
@@ -1977,7 +2133,6 @@ class TorchEngine:
         continuation after its first token.  The sequence reaches the
         scheduler through `add_imported` (never `add`, which would prefill
         it again)."""
-        self._flat_only('disaggregated decode')
         context = context or Context()
         self._ensure_pump()
         opts = _opts_from_request(request)

@@ -25,7 +25,14 @@ one host:
 - the kinds: ``prefill`` (a prefill pass, also the prefill half of a
   mixed dispatch), ``decode`` (one-step or multi-step blocks, a chain of
   them, also a mixed dispatch's decode half), ``spec`` (a speculative
-  verify), ``embed``, ``recover``, ``stats`` and ``shutdown``;
+  verify), ``embed``, ``kv_export`` (pages of every rank's pool joined
+  into full kv heads, JAX's plan of that name), ``kv_import`` (full-head
+  pages the leader broadcasts, each rank scattering its heads; or the
+  CUDA IPC lane's windows, each rank reading its heads from a source
+  group's pools), ``ipc_export`` (each rank's CUDA IPC entry for its
+  pools) and ``kv_read`` (each rank's own heads of some pages, on the
+  host), both gathered like ``stats``, ``recover``, ``stats`` and
+  ``shutdown``;
 - every wait is bounded: model collectives by the device group's timeout,
   a follower's wait for the next plan by a day (the leader may idle) and
   at once when the leader's process goes (its sockets close; a watchdog
@@ -166,6 +173,23 @@ class Leader:
         self._take_stats(_gather(_own_stats()))
         return dict(self.rank_launches)
 
+    def ipc_entries(self, own: Dict[str, Any]) -> List[Dict[str, Any]]:
+        """Every rank's CUDA IPC entry for its pools (the leader's is
+        `own`), in rank order; raises if a follower could not make one."""
+        self._bcast({"kind": "ipc_export"})
+        entries = _gather(own)
+        bad = [r for r, e in enumerate(entries) if e is None]
+        if bad:
+            raise RuntimeError(f"tp ranks {bad} could not export their pools "
+                               f"through CUDA IPC (see their logs)")
+        return entries
+
+    def read_pages(self, pages: List[int], own) -> List[Any]:
+        """Every rank's own heads of `pages` (host tensors; the leader's
+        are `own`), in rank order."""
+        self._bcast({"kind": "kv_read", "pages": pages})
+        return _gather(own)
+
     def _take_stats(self, per_rank: List[dict]) -> None:
         for rank, s in enumerate(per_rank):
             if s is not None:
@@ -198,6 +222,16 @@ class Leader:
                 p.terminate()
                 p.join(JOIN_TIMEOUT_S)
         self.group.close()
+
+
+def _own_ipc_entry(engine) -> Optional[Dict[str, Any]]:
+    from ..disagg.device_transfer import ipc_export
+
+    try:
+        return ipc_export(engine)
+    except Exception:  # noqa: BLE001 — the leader raises for the group
+        logger.exception("tp rank %d cannot export its pools", engine.group.rank)
+        return None
 
 
 def _own_stats() -> dict:
@@ -239,7 +273,9 @@ def build_in_turn(rank: int, devices: Sequence, build):
     """This rank's ``build()`` (its model shard).  Ranks that share a
     device take turns, in rank order, so one full tensor at a time is
     drawn on the device (`init_params` draws each tensor whole before
-    keeping the rank's slice).  Every rank passes every turn's barrier,
+    keeping the rank's slice), each rank emptying its cache after its
+    turn so what stays on the card is the shards.  Every rank passes
+    every turn's barrier,
     even when its build raises, which it then re-raises."""
     if len(set(map(str, devices))) == len(devices):
         return build()
@@ -250,6 +286,10 @@ def build_in_turn(rank: int, devices: Sequence, build):
                 out = build()
             except Exception as e:  # noqa: BLE001 — re-raised after the turns
                 err = e
+            if devices[rank].type == "cuda":
+                # hand the turn's full-size draws back to the card before
+                # the next rank draws (the caching allocator keeps them)
+                torch.cuda.empty_cache()
         dist.barrier()
     if err is not None:
         raise err
@@ -316,6 +356,12 @@ def follow(engine, group: TpGroup) -> None:
             engine.reset_kv()
             group.rebuild()
             poisoned = False
+            continue
+        if kind == "ipc_export":
+            _gather(_own_ipc_entry(engine))
+            continue
+        if kind == "kv_read":
+            _gather(engine.local_pages(desc["pages"]))
             continue
         ready = not poisoned
         inputs = None

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 
@@ -106,6 +106,13 @@ class ModelConfig:
             self.sliding_window if "sliding" in t else 0
             for t in self.layer_types
         ]
+
+    def with_depth(self, layers: int) -> "ModelConfig":
+        """This config cut to its first `layers` layers at full width, its
+        per-layer attention types cut with it."""
+        types = self.layer_types
+        return replace(self, num_hidden_layers=layers,
+                       layer_types=None if types is None else tuple(types[:layers]))
 
     def num_params(self) -> int:
         """Approximate parameter count (for memory planning)."""

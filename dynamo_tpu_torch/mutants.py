@@ -4,7 +4,9 @@ Each mutant is a copy of the checkout, in a temporary directory, whose
 `csrc/paged_attention.cu`, `csrc/grouped_gemm.cu`, `csrc/kv_transfer.cu`
 or `csrc/vision_attention.cu` carries one planted fault.  Every copy builds
 its own kernels (in parallel), then runs phase 3 alone; phase 3 must fail
-with "kernel disagrees".  Needs a CUDA card:
+with "kernel disagrees".  A mutant of the re-page between tp groups must
+also fail phase 16 (b)'s byte check, run in its copy on a transfer made in
+process (`chip_smoke.window_probe_main`).  Needs a CUDA card:
 
     python3 -m dynamo_tpu_torch.mutants            # every mutant
     python3 -m dynamo_tpu_torch.mutants NAME ...   # some of them
@@ -84,6 +86,12 @@ MUTANTS = {
         ""),
     "re-page counts destination tokens in source pages": (
         KT, "const int t = j * ps_d + s;", "const int t = j * ps_s + s;"),
+    # the re-page between tp groups: a window read one head off (the
+    # windowed cases; a whole row read one head off reads the next
+    # token's first head)
+    "re-page shifts the source head window by one head": (
+        KT, "const int src_off = src_head * hd, dst_off = dst_head * hd;",
+        "const int src_off = (src_head + 1) * hd, dst_off = dst_head * hd;"),
     # the towers' segment attention (the windowed and CLIP cases have more
     # than one segment; 4784 and 577 are not multiples of the 64-key tile,
     # and the windows hold at most 64 patches: every timed case ends in a
@@ -104,6 +112,9 @@ MUTANTS = {
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
 _PHASE3 = "import chip_smoke; chip_smoke.phase_kernels()"
+# the mutants phase 16 (b)'s byte check must see too
+_WINDOW_PROBE = "import sys, chip_smoke; sys.exit(chip_smoke.window_probe_main())"
+BYTE_CHECKED = ("re-page shifts the source head window by one head",)
 
 
 def _copy(name: str) -> str:
@@ -142,9 +153,16 @@ def main(argv=None) -> int:
             cases = [json.loads(ln) for ln in proc.stdout.splitlines()
                      if ln.startswith('{"phase": "kernel_check"')]
             caught = proc.returncode != 0 and "kernel disagrees" in proc.stderr
+            probe = None
+            if n in BYTE_CHECKED:
+                p2 = _py(_WINDOW_PROBE, dirs[n])
+                lines = [json.loads(ln) for ln in p2.stdout.splitlines()
+                         if ln.startswith('{"window_probe"')]
+                probe = lines[-1]["window_probe"] if lines else {"rc": p2.returncode}
+                caught = caught and bool(probe.get("differing_elements"))
             missed += not caught
             print(json.dumps({
-                "mutant": n, "caught": caught,
+                "mutant": n, "caught": caught, "window_probe": probe,
                 "rel_err_over_tol": {c["case"]: (c["max_rel_err"] / c["rtol"]
                                                  if c["rtol"] else c["max_rel_err"])
                                      for c in cases},

@@ -11,6 +11,14 @@ address.  Pools are [L, P, page, n_kv, hd]; destination page ``j`` of the
 transfer takes the prompt's tokens ``j * ps_d ... (j + 1) * ps_d - 1``,
 read through ``src_pages`` (the source's pages in prompt order).
 
+Under tensor parallelism each rank's pool holds its own n_kv / tp heads,
+and a move between pools of different tp takes a window of the row:
+``heads`` heads from head ``src_head`` of the source row into head
+``dst_head`` of the destination row (the destination's other heads are
+left as they are).  `head_windows` lists the launches a destination rank
+needs, one per source rank whose heads it overlaps.  Without a window the
+whole row moves, which needs both pools to hold the same heads.
+
 On CUDA tensors it launches `kv_repage_kernel` (`csrc/kv_transfer.cu`;
 f32 and bf16 in and out): one launch for K and V, on the current stream,
 and adds one to ``LAUNCHES["kv_repage"]`` (`_launches.py`).  The wrapper
@@ -36,7 +44,7 @@ _VEC = 8  # elements a kernel thread moves per step
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIG = [_P] * 6 + [_I] * 5 + [_L] * 2 + [_I] * 3 + [_P]
+_SIG = [_P] * 6 + [_I] * 10 + [_L] * 2 + [_I] * 3 + [_P]
 
 
 def _fn():
@@ -57,6 +65,43 @@ def covering_pages(src_pages: Sequence[int], n_dst: int, ps_s: int,
     return list(src_pages)[:need] + [0] * max(0, need - len(src_pages))
 
 
+def head_windows(n_kv: int, tp_s: int, tp_d: int, rank_d: int) -> list:
+    """The launches destination rank `rank_d` of a tp_d group takes to fill
+    its heads from a tp_s group's pools: ``(source rank, src_head,
+    dst_head, heads)`` per source rank it overlaps, in source-rank order.
+    One launch when tp_s <= tp_d (a window of one source rank's row),
+    tp_s / tp_d launches otherwise (each filling a window of its row)."""
+    if n_kv % tp_s or n_kv % tp_d:
+        raise ValueError(f"{n_kv} kv heads do not split over tp {tp_s} and "
+                         f"tp {tp_d}")
+    h_s, h_d = n_kv // tp_s, n_kv // tp_d
+    lo, hi = rank_d * h_d, (rank_d + 1) * h_d
+    out = []
+    for s in range(lo // h_s, -(-hi // h_s)):
+        a, b = max(lo, s * h_s), min(hi, (s + 1) * h_s)
+        out.append((s, a - s * h_s, a - lo, b - a))
+    return out
+
+
+def _window(src_k: torch.Tensor, dst_k: torch.Tensor, src_head: int,
+            dst_head: int, heads: Optional[int]) -> int:
+    """The window's head count, checked against both pools."""
+    kvh_s, kvh_d = src_k.shape[3], dst_k.shape[3]
+    if heads is None:
+        if (src_head, dst_head) != (0, 0) or kvh_s != kvh_d:
+            raise ValueError(f"a whole-row re-page needs pools of equal heads "
+                             f"({kvh_s} -> {kvh_d}); pass a window")
+        heads = kvh_s
+    if heads <= 0 or src_head < 0 or dst_head < 0:
+        raise ValueError(f"bad head window: {heads} heads from {src_head} "
+                         f"into {dst_head}")
+    if src_head + heads > kvh_s or dst_head + heads > kvh_d:
+        raise ValueError(f"the window of {heads} heads from head {src_head} "
+                         f"into head {dst_head} leaves the rows ({kvh_s} -> "
+                         f"{kvh_d} heads)")
+    return heads
+
+
 def repage_index(src_pages: Sequence[int], dst_pages: Sequence[int],
                  ps_s: int, ps_d: int, device) -> torch.Tensor:
     """The kernel's page ids on the device (int32): the covering source
@@ -71,12 +116,16 @@ def repage_index(src_pages: Sequence[int], dst_pages: Sequence[int],
 def kv_repage_plain(src_k: torch.Tensor, src_v: torch.Tensor,
                     dst_k: torch.Tensor, dst_v: torch.Tensor,
                     src_pages: Sequence[int], dst_pages: Sequence[int],
-                    prompt_len: int, index: Optional[torch.Tensor] = None) -> None:
+                    prompt_len: int, index: Optional[torch.Tensor] = None,
+                    src_head: int = 0, dst_head: int = 0,
+                    heads: Optional[int] = None) -> None:
     """The same function in PyTorch: `index_select` of the source pages,
-    token-major reshape, the zero mask past `prompt_len`, the cast, and an
-    in-place `index_copy_` into the destination pages.  `index` as for
+    the window's heads (`narrow`), token-major reshape, the zero mask past
+    `prompt_len`, the cast, and an in-place `index_copy_` into the window
+    of the destination pages.  `index` and the window as for
     `kv_repage_cuda`."""
     n_dst = len(dst_pages)
+    heads = _window(src_k, dst_k, src_head, dst_head, heads)
     if n_dst == 0:
         return
     ps_s, ps_d = src_k.shape[2], dst_k.shape[2]
@@ -87,13 +136,14 @@ def kv_repage_plain(src_k: torch.Tensor, src_v: torch.Tensor,
     didx = index[len(pages):].long()
     target = n_dst * ps_d
     for src, dst in ((src_k, dst_k), (src_v, dst_v)):
-        L, _, _, kvh, hd = src.shape
-        toks = src.index_select(1, sidx).reshape(L, len(pages) * ps_s, kvh, hd)
-        toks = toks[:, :target]
+        L, hd = src.shape[0], src.shape[4]
+        toks = src.index_select(1, sidx).narrow(3, src_head, heads)
+        toks = toks.reshape(L, len(pages) * ps_s, heads, hd)[:, :target]
         keep = torch.arange(target, device=src.device) < prompt_len
         toks = torch.where(keep[None, :, None, None], toks, torch.zeros_like(toks))
-        dst.index_copy_(1, didx, toks.to(dst.dtype).reshape(L, n_dst, ps_d, kvh, hd)
-                        .to(dst.device))
+        dst.narrow(3, dst_head, heads).index_copy_(
+            1, didx, toks.to(dst.dtype).reshape(L, n_dst, ps_d, heads, hd)
+            .to(dst.device))
 
 
 def _check_pool(name: str, t: torch.Tensor, device) -> None:
@@ -113,7 +163,9 @@ def _check_pool(name: str, t: torch.Tensor, device) -> None:
 def kv_repage_cuda(src_k: torch.Tensor, src_v: torch.Tensor,
                    dst_k: torch.Tensor, dst_v: torch.Tensor,
                    src_pages: Sequence[int], dst_pages: Sequence[int],
-                   prompt_len: int, index: Optional[torch.Tensor] = None) -> None:
+                   prompt_len: int, index: Optional[torch.Tensor] = None,
+                   src_head: int = 0, dst_head: int = 0,
+                   heads: Optional[int] = None) -> None:
     dev = dst_k.device
     if dev.type != "cuda":
         raise ValueError("kv_repage_cuda takes CUDA tensors only")
@@ -126,12 +178,14 @@ def kv_repage_cuda(src_k: torch.Tensor, src_v: torch.Tensor,
         raise ValueError("dst_k and dst_v differ")
     L, P_s, ps_s, kvh, hd = src_k.shape
     L_d, P_d, ps_d, kvh_d, hd_d = dst_k.shape
-    if (L, kvh, hd) != (L_d, kvh_d, hd_d):
+    if (L, hd) != (L_d, hd_d):
         raise ValueError(f"incompatible pools: {tuple(src_k.shape)} -> "
                          f"{tuple(dst_k.shape)}")
-    row = kvh * hd
-    if row % _VEC:
-        raise ValueError(f"n_kv * head_dim = {row} is not a multiple of {_VEC}")
+    heads = _window(src_k, dst_k, src_head, dst_head, heads)
+    if any(n * hd % _VEC for n in (heads, src_head, dst_head)):
+        raise ValueError(f"a window of {heads} heads of {hd} at heads "
+                         f"{src_head} -> {dst_head} is not {_VEC}-element "
+                         f"aligned")
     n_dst = len(dst_pages)
     if n_dst * ps_d < prompt_len or len(src_pages) * ps_s < prompt_len:
         raise ValueError(f"{len(src_pages)} source / {n_dst} destination pages "
@@ -151,7 +205,8 @@ def kv_repage_cuda(src_k: torch.Tensor, src_v: torch.Tensor,
                          f"ids of `repage_index` on {dev}")
     err = _fn()(src_k.data_ptr(), src_v.data_ptr(), dst_k.data_ptr(),
                 dst_v.data_ptr(), idx.data_ptr(), idx[len(pages):].data_ptr(),
-                L, n_dst, ps_s, ps_d, row, P_s * ps_s * row, P_d * ps_d * row,
+                L, n_dst, ps_s, ps_d, hd, kvh, kvh_d, src_head, dst_head,
+                heads, P_s * ps_s * kvh * hd, P_d * ps_d * kvh_d * hd,
                 int(prompt_len), _DTYPES[src_k.dtype], _DTYPES[dst_k.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -161,13 +216,16 @@ def kv_repage_cuda(src_k: torch.Tensor, src_v: torch.Tensor,
 
 def kv_repage(src_k: torch.Tensor, src_v: torch.Tensor, dst_k: torch.Tensor,
               dst_v: torch.Tensor, src_pages: Sequence[int],
-              dst_pages: Sequence[int], prompt_len: int) -> None:
+              dst_pages: Sequence[int], prompt_len: int, src_head: int = 0,
+              dst_head: int = 0, heads: Optional[int] = None) -> None:
     """Re-page `prompt_len` tokens from `src_pages` of (src_k, src_v) into
     `dst_pages` of (dst_k, dst_v), in place; destination tokens past the
-    prompt become zeros.  The kernel on CUDA, the plain version on the
-    CPU."""
+    prompt become zeros.  With a window, only `heads` heads move, from
+    head `src_head` of the source row into head `dst_head` of the
+    destination row.  The kernel on CUDA, the plain version on the CPU."""
+    win = dict(src_head=src_head, dst_head=dst_head, heads=heads)
     if dst_k.device.type == "cpu" and src_k.device.type == "cpu":
         return kv_repage_plain(src_k, src_v, dst_k, dst_v, src_pages,
-                               dst_pages, prompt_len)
+                               dst_pages, prompt_len, **win)
     return kv_repage_cuda(src_k, src_v, dst_k, dst_v, src_pages, dst_pages,
-                          prompt_len)
+                          prompt_len, **win)

@@ -10,6 +10,11 @@ inserts them; no Pallas kernel computes them).
   over ranks is exact (one nonzero term per element);
 - `gather_logits`: the full vocabulary from each rank's slice, as an
   all-reduce into a zeroed full-width buffer (exact, as above);
+- `broadcast_bytes` / `gather_heads`: a tensor's bytes from one rank to
+  every rank (any dtype, moved as uint8, so bit for bit), and the
+  full-head KV pages from each rank's head slice, every rank
+  broadcasting its slice in turn (the KV moves of `engine/lockstep.py`:
+  a parked sequence, a tier block and a disagg export hold every head);
 - `broadcast_plan`: the leader's plan bytes to every rank, length first
   and then the payload padded to a power of two (`dynamo_tpu/parallel/
   multihost.py` `broadcast_plan`).
@@ -59,6 +64,26 @@ def gather_logits(local: torch.Tensor, rank: int, tp: int,
     full = local.new_zeros((*local.shape[:-1], n * tp))
     full[..., rank * n:(rank + 1) * n] = local
     return all_reduce_sum(full, group)
+
+
+def broadcast_bytes(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Broadcast the contiguous `t` from rank `src` in place, as its raw
+    bytes (exact for every dtype: no arithmetic touches them); returns
+    `t`."""
+    dist.broadcast(t.view(-1).view(torch.uint8), src=src, group=group)
+    return t
+
+
+def gather_heads(local: torch.Tensor, rank: int, tp: int, group,
+                 axis: int = 3) -> torch.Tensor:
+    """Every rank's `local` slice (the same shape on every rank) joined
+    along `axis` in rank order, on every rank: each rank broadcasts its
+    slice in turn."""
+    parts = []
+    for r in range(tp):
+        buf = local.contiguous() if r == rank else torch.empty_like(local)
+        parts.append(broadcast_bytes(buf, r, group))
+    return torch.cat(parts, dim=axis)
 
 
 def broadcast_plan(payload: bytes, group=None, src: int = 0) -> bytes:

@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 # the later slices that bring the other axes (ROADMAP.md queue 1)
-_LATER = {"dp": "ROADMAP 2.2b (meshed dp)", "sp": "ROADMAP 2.4 (sp prefill)",
+_LATER = {"dp": "ROADMAP 2.2b.1 (meshed dp)", "sp": "ROADMAP 2.4 (sp prefill)",
           "pp": "ROADMAP 2.3 (pipeline stages)"}
 
 # seconds a rank waits inside one model collective for the others before

@@ -36,7 +36,9 @@ spawns the other ranks, each building its own shard from the same
 ``--model`` / ``--seed`` (``--sharpen``) or checkpoint; one card a rank
 under NCCL by default, or ``--tp-devices`` to name them (``cuda:0`` N
 times shares one card over gloo; ``--device cpu`` runs the group on the
-CPU).  The card and the publishers are the leader's alone.  ``--dp``,
+CPU).  The card and the publishers are the leader's alone; a tp group
+parks, serves KVBM tiers and takes either disagg role, with every kv head
+in what leaves the device (`TorchEngine`).  ``--dp``,
 ``--sp`` and ``--pp`` above 1, multihost and mock engines are later
 slices.  Multimodal models serve image and
 video chats: a qwen-vl checkpoint directory or ``qwen2.5-vl-7b`` brings
@@ -307,7 +309,7 @@ def build_engine(args):
             raise SystemExit(f"unknown model {args.model!r}: a checkpoint "
                              f"directory, tiny, or one of {sorted(CONFIGS)}")
         if args.num_layers:
-            cfg = dataclasses.replace(cfg, num_hidden_layers=args.num_layers)
+            cfg = cfg.with_depth(args.num_layers)
         if parallel is not None:
             from ..parallel import SeededShards
 
@@ -477,19 +479,17 @@ def check_role(args) -> None:
             if bad:
                 raise SystemExit(f"--dp-ranks > 1 is incompatible with {flag}")
     if args.tp > 1:
-        # a tp group serves generate and embed; these move one rank's
-        # pages or stack engines (ROADMAP 2.2b)
-        for bad, flag in [
-            (args.dp_ranks > 1, "--dp-ranks"),
-            (args.disagg_role != "both", "--disagg-role"),
-            (args.kvbm, "--kvbm"),
-            (bool(args.encode_component), "--encode-component"),
-            (args.park_max_pages > 0, "--park-max-pages"),
-            (multimodal, "a vision tower"),
+        # a tp group serves generate, embed and every KV move (parking,
+        # KVBM tiers, the disagg roles); these stack engines or put media
+        # on the plans
+        for bad, flag, item in [
+            (args.dp_ranks > 1, "--dp-ranks", "2.2b.4"),
+            (bool(args.encode_component), "--encode-component", "2.2b.3"),
+            (multimodal, "a vision tower", "2.2b.3"),
         ]:
             if bad:
                 raise SystemExit(f"--tp > 1 with {flag} is not served yet "
-                                 f"(ROADMAP 2.2b)")
+                                 f"(ROADMAP {item})")
     if args.disagg_role == "prefill" and args.device != "cpu":
         from ..disagg.device_transfer import expandable_segments
 

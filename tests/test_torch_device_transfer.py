@@ -283,11 +283,11 @@ async def test_ipc_handle_cache_and_release_order(model, monkeypatch):
     fake = FakeIpc(src, log)
     client = KvTransferClient(dst, lanes=("ipc",), ipc_opener=fake.open,
                               ipc_event_opener=fake.event)
-    repage = dt.kv_repage
+    repage = kt.kv_repage
 
-    def logged_repage(*args):
+    def logged_repage(*args, **kw):
         log.append(("repage", len(source._held)))
-        return repage(*args)
+        return repage(*args, **kw)
 
     release = client._release_remote
 
@@ -295,7 +295,7 @@ async def test_ipc_handle_cache_and_release_order(model, monkeypatch):
         await release(desc)
         log.append(("released", len(source._held)))
 
-    monkeypatch.setattr(dt, "kv_repage", logged_repage)
+    monkeypatch.setattr(kt, "kv_repage", logged_repage)
     monkeypatch.setattr(client, "_release_remote", logged_release)
     try:
         descs = await _prefills(src, source, 3)

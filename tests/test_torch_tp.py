@@ -119,14 +119,13 @@ def test_no_silent_collapse_onto_the_cpu():
 
 
 @pytest.mark.parametrize("over, tp_cfg, match", [
-    ({"park_max_pages": 4}, None, "parking"),
     ({"kv_partition": True}, None, "kv_partition"),
     ({"fuse_projections": True}, None, "fuse_projections"),
     ({}, {"vocab_size": 255}, "vocab_size"),
     ({}, {"num_key_value_heads": 1, "num_attention_heads": 4}, "kv heads"),
     ({}, {"num_experts": 3}, "num_experts"),
     ({}, {"num_experts": 4, "moe_impl": "dense"}, "ragged"),
-], ids=["parking", "kv_partition", "fuse_projections", "vocab", "kv_heads",
+], ids=["kv_partition", "fuse_projections", "vocab", "kv_heads",
         "experts", "moe_impl"])
 def test_engine_refusals(over, tp_cfg, match):
     """Each refusal raises before a follower is spawned."""
@@ -138,10 +137,9 @@ def test_engine_refusals(over, tp_cfg, match):
 
 
 @pytest.mark.parametrize("kw, match", [
-    ({"tiered": object()}, "KVBM"),
     ({"vision": (None, object())}, "vision"),
 ])
-def test_engine_refuses_tiers_and_vision(kw, match):
+def test_engine_refuses_vision(kw, match):
     cfg = tcfg.tiny_config()
     with pytest.raises(ValueError, match=match):
         TorchEngine(cfg, SeededShards(cfg, 0, "float32"),
@@ -151,11 +149,9 @@ def test_engine_refuses_tiers_and_vision(kw, match):
 
 @pytest.mark.parametrize("flags, match", [
     (["--tp", "2", "--dp-ranks", "2"], "--dp-ranks"),
-    (["--tp", "2", "--disagg-role", "decode"], "--disagg-role"),
-    (["--tp", "2", "--kvbm"], "--kvbm"),
-    (["--tp", "2", "--park-max-pages", "8"], "--park-max-pages"),
+    (["--tp", "2", "--encode-component", "encoder"], "--encode-component"),
     (["--tp", "2", "--vision", "tiny"], "vision"),
-], ids=["dp_ranks", "disagg", "kvbm", "parking", "vision"])
+], ids=["dp_ranks", "encode_component", "vision"])
 def test_worker_refuses_with_tp(flags, match):
     from dynamo_tpu_torch.worker.__main__ import build_parser, check_role
 
