@@ -103,7 +103,7 @@ async def fetch_colocated(client, source, descriptor) -> List[int]:
     n_dst = -(-held.prompt_len // client.dest_layout.page_size)
     dest_pages = await dst_engine.alloc_pages(n_dst)
     try:
-        if src_engine.tp > 1 or dst_engine.tp > 1:
+        if getattr(src_engine, "world", 1) > 1 or getattr(dst_engine, "world", 1) > 1:
             await _colocated_tp(src_engine, dst_engine, held, dest_pages)
         else:
             await _colocated_flat(src_engine, dst_engine, held, dest_pages)
@@ -115,10 +115,12 @@ async def fetch_colocated(client, source, descriptor) -> List[int]:
 
 
 async def _colocated_tp(src_engine, dst_engine, held, dest_pages) -> None:
-    """The colocated lane when either side is a tp group: the source's
-    export (every kv head, a device op of its own engine) re-paged on the
-    destination's device, straight into a flat destination's pool or into
-    a staging tensor that a tp destination imports (a ``kv_import``)."""
+    """The colocated lane when either side is a group: the source's export
+    (every kv head, from the pages' replica; a device op of its own
+    engine) re-paged on the destination's device, straight into a flat
+    destination's pool or into a staging tensor that a group destination
+    imports (a ``kv_import`` to the pages' partition, or to every
+    replica)."""
     k, v = await src_engine._device_op(  # noqa: SLF001
         lambda: src_engine._export_dev(held.pages))  # noqa: SLF001
 
@@ -126,7 +128,7 @@ async def _colocated_tp(src_engine, dst_engine, held, dest_pages) -> None:
         dev = dst_engine.device
         sk, sv = k.to(dev), v.to(dev)
         n = len(held.pages)
-        if dst_engine.tp == 1:
+        if getattr(dst_engine, "world", 1) == 1:
             kv_repage(sk, sv, dst_engine.kv.k, dst_engine.kv.v, range(n),
                       dest_pages, held.prompt_len)
             return

@@ -2,7 +2,7 @@
 the JAX package's `disagg/handler.py`).
 
 The port has no chaos gates and no tracing spans yet (ROADMAP queue 1,
-items 7.4 and 7.6), so the handoff has neither the JAX handler's
+items 3.4 and 3.6), so the handoff has neither the JAX handler's
 `disagg.handoff` chaos gate nor its `disagg.handoff` / `disagg.kv_transfer`
 spans; a lost prefill worker, a lost transfer and a rejected import take
 the same local fallback and the same counter as there.

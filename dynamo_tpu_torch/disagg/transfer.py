@@ -162,7 +162,11 @@ class KvTransferSource:
     async def start(self) -> "KvTransferSource":
         from .device_transfer import group_entry, ipc_export
 
-        if self.engine.device.type == "cuda":
+        # a dp group's pages sit on one replica's ranks (or on every
+        # replica): it serves them through its exports, on the host lane
+        # (an entry naming one replica's ranks is not ported: ROADMAP
+        # 2.2b.6)
+        if self.engine.device.type == "cuda" and getattr(self.engine, "dp", 1) == 1:
             if getattr(self.engine, "tp", 1) > 1:
                 # every rank's pools (an ``ipc_export`` plan, between steps)
                 self.ipc = group_entry(await self.engine._device_op(  # noqa: SLF001

@@ -88,6 +88,27 @@ def unpack_out(packed: np.ndarray, b: int, with_top: bool = False):
             lps.reshape(*packed.shape[:-1], b, TOPLP))
 
 
+def out_widths(with_top: bool) -> tuple:
+    """The per-row widths of `pack_out`'s sections, in order."""
+    return (1, 1, TOPLP, TOPLP) if with_top else (1, 1)
+
+
+def join_packed(parts: List[torch.Tensor], widths) -> torch.Tensor:
+    """Packed results of row blocks (each [..., sum(widths) * b], the
+    same b; sections of `widths` values a row, row-major) as one packed
+    result over all the blocks' rows, in block order: each section's
+    blocks side by side (the counterpart of JAX's `_unpack_rows(...,
+    blocks=R)`, which unpacks block-wise instead)."""
+    if len(parts) == 1:
+        return parts[0]
+    b = parts[0].shape[-1] // sum(widths)
+    out, off = [], 0
+    for w in widths:
+        out += [p[..., off * b:(off + w) * b] for p in parts]
+        off += w
+    return torch.cat(out, dim=-1)
+
+
 def pack_out_cc(out, logp, act, logits=None) -> torch.Tensor:
     """`pack_out` plus the per-row EMITTED flag of the device-resident loop
     (1.0 where the row emitted at this step).  Layout: [tok(B) | logp(B) |

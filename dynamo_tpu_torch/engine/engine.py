@@ -78,12 +78,41 @@ host lane carry one layout whatever the tp, and a block written by a tp 2
 engine onboards into a flat one.  The disagg CUDA IPC lane instead lets
 every destination rank read its head window straight from the source
 ranks' pools (`import_ipc`: a ``kv_import`` plan of the ``ipc`` lane,
-one windowed `kv_repage` launch per overlapping source rank).  Vision,
-kv_partition and fuse_projections are refused under tp, each naming its
-roadmap item.
+one windowed `kv_repage` launch per overlapping source rank).  Vision
+and fuse_projections are refused under tp, each naming its roadmap item
+or its reason.
 
-Not ported yet (later slices): meshed dp, pp, sp, kv_partition and
-multihost.
+Meshed data parallelism (``parallel=ParallelConfig(dp=D, tp=N)``): the
+group holds D replicas of N ranks each (rank ``d * N + t``), every
+replica holding the same tp shards; the leader (rank 0) runs the one
+scheduler and sends every plan to the whole group.  A dispatch's rows
+are laid out as D uniform blocks, one a replica: each rank computes its
+replica's block (the model's collectives on its replica's tp group), and
+each replica's tensor rank 0 returns its block's packed results to the
+leader over its dp group (`parallel.collectives.all_parts`), which joins
+them (`blocks.join_packed`).  The pool is either
+
+- replicated over dp (the default): every replica holds every page, and
+  the decode batch rounds up to a multiple of D (JAX `engine.py:1508-
+  1516`, its rows ``P("dp")``); after each dispatch the replicas swap
+  the K/V rows their blocks wrote over their dp groups and write the
+  others' rows too, so every replica's pool ends each dispatch
+  byte-equal to the others' (what GSPMD's scatter into JAX's replicated
+  pool gives), the trash page aside; or
+- partitioned (``kv_partition=True``, JAX `:1483-1507`): a
+  `ShardedPagePool` of D partitions (global page ``d * num_pages +
+  local``), each replica's pool holding its own; the scheduler pins a
+  sequence to a partition (`Sequence.kv_rank`), a block holds the rows
+  of its replica's sequences with LOCAL page tables, and nothing crosses
+  replicas but the results.  The fused prefill is off, mixed dispatches
+  stay on, speculative decoding is off (as in JAX).
+
+KV moves follow the pool: an export reads one partition (the owner's
+heads joined over its tp group, then sent to the leader), an import
+lands on the admitting sequence's partition, or on every replica of a
+replicated pool.  Vision is refused under dp (ROADMAP 2.2b.3).
+
+Not ported yet (later slices): pp, sp and multihost.
 """
 
 from __future__ import annotations
@@ -162,10 +191,6 @@ class ForwardPassMetrics:
     parked_pages: int = 0
 
 
-def _unported(cfg: EngineConfig) -> List[str]:
-    return ["kv_partition"] if cfg.kv_partition else []
-
-
 # the host arrays each plan kind must carry (`TorchEngine.replay_inputs`)
 _PLAN_ARRAYS = {
     "prefill": ("tokens", "table", "prefix", "chunk"),
@@ -176,17 +201,36 @@ _PLAN_ARRAYS = {
     "kv_import": ("pages",),
 }
 
-def _tp_refusals(cfg: EngineConfig, vision) -> List[str]:
+def _group_refusals(cfg: EngineConfig, vision, tp: int) -> List[str]:
     bad = []
     if vision is not None:
         bad.append("vision (the tower on the leader, embeds on the plan: "
                    "ROADMAP 2.2b.3)")
-    if cfg.kv_partition:
-        bad.append("kv_partition (ROADMAP 2.6)")
-    if cfg.fuse_projections:
+    if cfg.fuse_projections and tp > 1:
         bad.append("fuse_projections (the fused output axis does not carry "
                    "the megatron tp splits, as in JAX)")
     return bad
+
+
+def _dp_config(cfg: EngineConfig, dp: int) -> EngineConfig:
+    """The engine config of a dp group (JAX `engine.py:1483-1516`): a
+    partitioned pool turns the fused prefill off and refuses decode
+    buckets below ``max_num_seqs``; a replicated one rounds every decode
+    bucket up to a multiple of dp."""
+    import dataclasses
+
+    if cfg.kv_partition:
+        if max(cfg.decode_batch_buckets) < cfg.max_num_seqs:
+            # bucket_for clamps to buckets[-1]: a per-rank decode group
+            # wider than the largest bucket would break the R-uniform-
+            # blocks layout (JAX's refusal)
+            raise ValueError(
+                f"kv_partition requires max(decode_batch_buckets)"
+                f"={max(cfg.decode_batch_buckets)} >= "
+                f"max_num_seqs={cfg.max_num_seqs}")
+        return dataclasses.replace(cfg, fuse_prefill_decode=False)
+    return dataclasses.replace(cfg, decode_batch_buckets=sorted(
+        {-(-b // dp) * dp for b in cfg.decode_batch_buckets}))
 
 
 class TorchEngine:
@@ -202,12 +246,14 @@ class TorchEngine:
         device=None,
         tiered=None,  # kvbm.TieredKvCache — host/disk KV tiers
         vision=None,  # (tower or None, VisionConfig | Qwen2VLVisionConfig)
-        parallel=None,  # parallel.ParallelConfig — the tp group
+        parallel=None,  # parallel.ParallelConfig — the dp x tp group
         devices=None,  # each rank's device (default: one card a rank)
         group=None,  # a follower's TpGroup (set by lockstep.follower_main)
     ):
         self.cfg = engine_cfg or EngineConfig()
         self.tp = parallel.tp if parallel is not None else 1
+        self.dp = parallel.dp if parallel is not None else 1
+        self.world = self.tp * self.dp
         self.group = group
         self._lockstep: Optional[lockstep.Leader] = None
         if parallel is not None:
@@ -216,10 +262,18 @@ class TorchEngine:
 
             check_ported(parallel)
             _check_supported(model_cfg, self.tp)
-        if self.tp > 1:
-            bad = _tp_refusals(self.cfg, vision)
+        if self.cfg.kv_partition and self.dp == 1:
+            raise ValueError("kv_partition requires a serving mesh "
+                             "(ParallelConfig with dp*sp > 1)")
+        # a partitioned pool: one partition a dp replica (JAX `_pooled`)
+        self._pooled = bool(self.cfg.kv_partition)
+        if self.dp > 1:
+            self.cfg = _dp_config(self.cfg, self.dp)
+        if self.world > 1:
+            bad = _group_refusals(self.cfg, vision, self.tp)
             if bad:
-                raise ValueError(f"not served under tp: {'; '.join(bad)}")
+                what = "dp x tp" if self.dp > 1 else "tp"
+                raise ValueError(f"not served under {what}: {'; '.join(bad)}")
             if group is None:
                 # the leader: spawn the followers, join, build rank 0
                 self.group, procs, devs = lockstep.start_group(
@@ -250,7 +304,7 @@ class TorchEngine:
 
     def _setup(self, model_cfg, model, eos_token_ids, event_sink, device,
                tiered, vision) -> None:
-        if self.tp > 1:
+        if self.world > 1:
             model.attach_group(self.group)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -261,9 +315,6 @@ class TorchEngine:
         # the vision tower and its config; a tower of None keeps only the
         # geometry (a worker whose media an encode worker encodes)
         self.vision = vision
-        bad = _unported(self.cfg)
-        if bad:
-            raise ValueError(f"not ported to TorchEngine yet: {', '.join(bad)}")
         if self.cfg.quantization == "int8":
             # in place: the caller's model becomes the int8 one, so an 8B
             # model never holds both copies (a tp shard's row-parallel
@@ -279,8 +330,7 @@ class TorchEngine:
         self._extra_event_sinks: List[Callable[[KvEvent], None]] = []
         if event_sink:
             self._extra_event_sinks.append(event_sink)
-        self.pool = PagePool(self.cfg.num_pages, self.cfg.page_size,
-                             event_sink=self._emit_event)
+        self.pool = self._make_pool()
         self.scheduler = Scheduler(self.cfg, self.pool)
         # preemption parking lot (overload control): batch-class victims
         # preempted mid-decode park byte-exact KV here (every kv head,
@@ -294,9 +344,9 @@ class TorchEngine:
         # the leader maps through its transfer client's `IpcLane`)
         self._ipc_lane = None
         # the device loop: captured block graphs, block functions per
-        # (kind, rung, variant); a tp group's blocks run eagerly (their
-        # gloo collectives cannot be captured)
-        self.graphs = GraphRunner(self.device, capture=self.tp == 1)
+        # (kind, rung, variant); a group's blocks run eagerly (their gloo
+        # collectives and the replicas' gathers cannot be captured)
+        self.graphs = GraphRunner(self.device, capture=self.world == 1)
         self._block_fns: Dict[tuple, Callable] = {}
         self._py_rng = random.Random(0xD1A)
         self._queues: Dict[str, asyncio.Queue] = {}
@@ -342,9 +392,21 @@ class TorchEngine:
             self.attach_connector(tiered)
 
     def _make_kv(self) -> KVCache:
+        """This rank's pool: ``num_pages`` pages of its heads (a replica of
+        a partitioned pool holds its partition's pages, local ids)."""
         return KVCache.create(self.model_cfg, self.cfg.num_pages,
                               self.cfg.page_size, dtype=self.model.dtype,
                               device=self.device, tp=self.tp)
+
+    def _make_pool(self):
+        if self._pooled:
+            from .page_pool import ShardedPagePool
+
+            return ShardedPagePool(self.dp, self.cfg.num_pages,
+                                   self.cfg.page_size,
+                                   event_sink=self._emit_event)
+        return PagePool(self.cfg.num_pages, self.cfg.page_size,
+                        event_sink=self._emit_event)
 
     # -- events / metrics ------------------------------------------------- #
 
@@ -370,8 +432,10 @@ class TorchEngine:
         m = ForwardPassMetrics(
             active_seqs=running,
             waiting_seqs=waiting,
-            kv_usage=self.pool.usage(),
-            kv_total_pages=self.cfg.usable_pages,
+            # the fullest partition: one full rank blocks admission (a
+            # sequence pins to a rank); capacity sums the partitions
+            kv_usage=self.pool.usage_max_rank(),
+            kv_total_pages=self.cfg.usable_pages * self.pool.ranks,
             num_requests_total=self._requests_total,
             spec_draft_tokens_total=self._spec_draft_total,
             spec_accepted_tokens_total=self._spec_accepted_total,
@@ -405,6 +469,8 @@ class TorchEngine:
             from ..ops._launches import LAUNCHES
 
             m.tp = self.tp
+            m.dp = self.dp
+            m.kv_partition = self._pooled
             m.tp_backend = self.group.backend
             m.tp_plans_total = self._lockstep.plans
             m.tp_rank_launches = {
@@ -694,7 +760,8 @@ class TorchEngine:
         if kind in ("prefill", "embed"):
             return self._to_device(desc["arrays"])
         if kind == "kv_export":
-            return {"pages": self._page_index(desc["arrays"]["pages"])}
+            return {"pages": self._page_index(desc["arrays"]["pages"]),
+                    "src": desc.get("src", 0)}
         if kind == "kv_import":
             return self._import_inputs(desc)
         if kind in ("decode", "spec"):
@@ -713,20 +780,17 @@ class TorchEngine:
         desc, d = arg
         kind = desc["kind"]
         if kind == "prefill":
-            self.model.forward_prefill(self.kv, d["tokens"], d["table"],
-                                       d["prefix"], d["chunk"])
+            self._prefill_block(d, Variant(*desc["variant"]))
         elif kind == "decode":
             self._dispatch_decode(d, Variant(*desc["variant"]),
                                   desc["chain_len"], desc["n_steps"])
         elif kind == "spec":
-            k, greedy = desc["k"], desc["greedy"]
-            key = ("spec", k, greedy, d["table"].shape[1])
-            self.graphs.run(key, self._block_fn("spec", k,
-                                                Variant(greedy=greedy)), d)
+            self._spec_block(d, desc["k"], desc["greedy"])
         elif kind == "embed":
-            self.model.forward_embed(d["tokens"], d["lens"])
+            if self.group.replica == 0:  # replica 0 embeds (`_embed_rows`)
+                self.model.forward_embed(d["tokens"], d["lens"])
         elif kind == "kv_export":
-            self._export_replay(d["pages"])
+            self._export_replay(d["pages"], d["src"])
         elif kind == "kv_import":
             self._import_replay(desc, d)
 
@@ -756,8 +820,140 @@ class TorchEngine:
         position 0 of trash page 0).  Every block then has the same matrix
         shapes, so the GEMM library picks the same kernels whatever the
         batch holds, a row's tokens do not depend on its batch-mates, and
-        one graph per key serves every batch."""
-        return list(seqs) + [None] * (self.cfg.max_num_seqs - len(seqs))
+        one graph per key serves every batch.  Under dp the rows are dp
+        uniform blocks, one a replica: a replicated pool pads to the next
+        multiple of dp and splits the rows in order; a partitioned pool
+        gives each partition's sequences a block of `max_num_seqs` rows
+        (JAX `_decode_rows`)."""
+        n = self.cfg.max_num_seqs
+        if not self._pooled:
+            n = -(-n // self.dp) * self.dp
+            return list(seqs) + [None] * (n - len(seqs))
+        return self._rank_blocks(seqs, lambda s: s.kv_rank, n)
+
+    def _rank_blocks(self, items, rank_of, width: int) -> list:
+        """`items` grouped by partition into dp blocks of `width` rows
+        each (None-padded), in partition order."""
+        by_rank: List[list] = [[] for _ in range(self.dp)]
+        for it in items:
+            by_rank[rank_of(it)].append(it)
+        if max(len(g) for g in by_rank) > width:
+            raise ValueError(f"a partition's rows exceed the block width "
+                             f"{width}")
+        rows: list = []
+        for g in by_rank:
+            rows += g + [None] * (width - len(g))
+        return rows
+
+    def _prefill_rows(self, items: List[PrefillItem]) -> List[Optional[PrefillItem]]:
+        """The prefill row layout: the items themselves on a flat engine;
+        under dp, dp uniform blocks (a replicated pool pads to a multiple
+        of dp, a partitioned pool groups the items by partition, JAX
+        `_prefill_rows`).  A padding row runs a 1-token chunk into the
+        trash page."""
+        if self.dp == 1:
+            return list(items)
+        if not self._pooled:
+            n = -(-len(items) // self.dp) * self.dp
+            return list(items) + [None] * (n - len(items))
+        counts = [0] * self.dp
+        for it in items:
+            counts[it.seq.kv_rank] += 1
+        return self._rank_blocks(items, lambda it: it.seq.kv_rank,
+                                 max(counts))
+
+    # -- the replicas of a dp group ------------------------------------------ #
+
+    def _block(self, d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This replica's rows of a dispatch's inputs (every input is
+        row-major): the whole of them without dp."""
+        if self.dp == 1:
+            return d
+        n = next(iter(d.values())).shape[0] // self.dp
+        lo = self.group.replica * n
+        return {k: t[lo:lo + n] for k, t in d.items()}
+
+    def _partition(self, pages) -> Tuple[Optional[int], List[int]]:
+        """(the partition holding `pages`, their local ids) on a
+        partitioned pool; (None, the pages) on a replicated or flat one.
+        The pages of one sequence or transfer share one partition."""
+        pages = [int(p) for p in pages]
+        if not self._pooled:
+            return None, pages
+        ranks = {self.pool.rank_of(p) for p in pages} or {0}
+        if len(ranks) > 1:
+            raise ValueError(f"pages {pages} span partitions {sorted(ranks)}")
+        return ranks.pop(), [self.pool.local_id(p) for p in pages]
+
+    def _replica_writes(self, table: np.ndarray, start, count) -> list:
+        """The pool slots each replica's block wrote in a dispatch: row i
+        wrote positions start[i] .. start[i] + count[i] - 1 (those below
+        the context cap; the rest, and padding rows, hit the trash page).
+        Returns one (pages, slots) pair of int64 arrays a replica."""
+        ps, cap = self.cfg.page_size, self.cfg.hard_cap
+        start = np.asarray(start, np.int64).reshape(-1)
+        count = np.broadcast_to(np.asarray(count, np.int64),
+                                start.shape).copy()
+        width = table.shape[1]
+        q = start[:, None] + np.arange(max(int(count.max()), 1))[None]
+        ok = (q - start[:, None] < count[:, None]) & (q < cap)
+        col = np.minimum(q // ps, width - 1)
+        ok &= q // ps < width
+        page = np.where(ok, np.take_along_axis(table.astype(np.int64), col, 1),
+                        0)
+        ok &= page != 0
+        n = len(start) // self.dp
+        out = []
+        for d in range(self.dp):
+            m = ok[d * n:(d + 1) * n]
+            out.append((page[d * n:(d + 1) * n][m],
+                        (q[d * n:(d + 1) * n] % ps)[m]))
+        return out
+
+    def _sync_replicas(self, table, start, count) -> None:
+        """A replicated pool after a dispatch: every replica sends the K/V
+        rows its block wrote to the others over its dp group (each tensor
+        rank its own heads) and writes theirs, so every replica's pool is
+        byte-equal again, the trash page aside.  No-op without dp and on
+        a partitioned pool."""
+        if self.dp == 1 or self._pooled:
+            return
+        from ..parallel.collectives import all_parts
+
+        g = self.group
+        writes = self._replica_writes(_host_array(table), _host_array(start),
+                                      _host_array(count))
+        L, _, _, h, hd = self.kv.k.shape
+        idx = [(torch.as_tensor(p, device=self.device),
+                torch.as_tensor(sl, device=self.device)) for p, sl in writes]
+        pg, sl = idx[g.replica]
+        own = torch.stack([self.kv.k[:, pg, sl], self.kv.v[:, pg, sl]])
+        parts = all_parts(own, g.replica, g.dp_ranks(), g.dp_group,
+                          shapes=[(2, L, len(p), h, hd) for p, _ in writes])
+        for r, part in enumerate(parts):
+            if r != g.replica and part.shape[2]:
+                pg, sl = idx[r]
+                self.kv.k[:, pg, sl] = part[0]
+                self.kv.v[:, pg, sl] = part[1]
+
+    def _gather_results(self, packed: List[torch.Tensor], widths
+                        ) -> Optional[List[torch.Tensor]]:
+        """Each replica's packed results (one tensor a block) joined over
+        every row, on the leader; None on the other ranks.  Without dp
+        the leader's own.  Under dp every replica's tensor rank 0 sends
+        its block's over its dp group."""
+        if self.dp == 1:
+            return packed if self._lockstep is not None or self.group is None \
+                else None
+        g = self.group
+        if g.tp_rank != 0:
+            return None
+        from ..parallel.collectives import all_parts
+
+        joined = [blocks.join_packed(all_parts(p, g.replica, g.dp_ranks(),
+                                               g.dp_group), widths)
+                  for p in packed]
+        return joined if g.rank == 0 else None
 
     def _seed_arrays(self, rows: List[Optional[Sequence]]):
         seeds = [s.seed & 0xFFFFFFFF if s else 0 for s in rows]
@@ -785,10 +981,14 @@ class TorchEngine:
         need = max((len(s.pages) for s in rows if s), default=1)
         width = bucket_for(max(need, 1), self.cfg.table_width_buckets)
         table = np.zeros((len(rows), width), np.int32)
+        npp = self.cfg.num_pages
         for i, s in enumerate(rows):
             if s is not None:
                 n = min(len(s.pages), width)
-                table[i, :n] = s.pages[:n]
+                # a partitioned pool's tables hold LOCAL ids (each
+                # partition's page 0 is its own trash page)
+                table[i, :n] = ([p % npp for p in s.pages[:n]] if self._pooled
+                                else s.pages[:n])
         return table
 
     def _samp_arrays(self, rows: List[Optional[Sequence]]) -> Dict[str, np.ndarray]:
@@ -888,44 +1088,73 @@ class TorchEngine:
 
     def _prefill_pass(self, items: List[PrefillItem]):
         """Run one prefill chunk per item eagerly and sample every row;
-        returns (device tokens [B], host fetch of the packed result,
-        with_top)."""
+        returns (device tokens [B] (flat engines), host fetch of the
+        packed result, with_top, the row layout)."""
         seqs = [it.seq for it in items]
+        rows = self._prefill_rows(items)
+        seq_rows = [it.seq if it else None for it in rows]
         S = max(it.chunk_len for it in items)
-        toks = np.zeros((len(items), S), np.int64)
-        for i, it in enumerate(items):
-            toks[i, :it.chunk_len] = it.seq.prompt[
-                it.chunk_start:it.chunk_start + it.chunk_len]
-        seeds, counters = self._seed_arrays(seqs)
-        samp = self._samp_arrays(seqs)
+        toks = np.zeros((len(rows), S), np.int64)
+        for i, it in enumerate(rows):
+            if it is not None:
+                toks[i, :it.chunk_len] = it.seq.prompt[
+                    it.chunk_start:it.chunk_start + it.chunk_len]
+        seeds, counters = self._seed_arrays(seq_rows)
+        samp = self._samp_arrays(seq_rows)
         v = self._variant(seqs)
+        v = Variant(with_top=v.with_top, greedy=v.greedy)
         host = {
-            "tokens": toks, "table": self._table_array(seqs),
-            "prefix": np.asarray([it.chunk_start for it in items], np.int32),
-            "chunk": np.asarray([it.chunk_len for it in items], np.int32)}
-        self._plan("prefill", arrays=host)
-        d = self._to_device({**host, "seeds": seeds, "ctr": counters, **samp})
+            "tokens": toks, "table": self._table_array(seq_rows),
+            "prefix": np.asarray([it.chunk_start if it else 0 for it in rows],
+                                 np.int32),
+            "chunk": np.asarray([it.chunk_len if it else 1 for it in rows],
+                                np.int32)}
+        samp_arrays = {"seeds": seeds, "ctr": counters, **samp}
+        if self.dp > 1:  # every replica samples its own rows
+            host.update(samp_arrays)
+        self._plan("prefill", arrays=host,
+                   variant=[v.penalized, v.with_top, v.greedy])
+        d = self._to_device({**host, **samp_arrays})
         media.encode_pending(self, seqs)
-        logits = self.model.forward_prefill(
-            self.kv, d["tokens"], d["table"], d["prefix"], d["chunk"],
+        tok_d, packed = self._prefill_block(
+            d, v, held=[it.seq for it in items
+                        if it.samples and it.seq.hold_pages],
             **media.prefill_extras(self, items, S))
-        for it in items:
-            if it.samples and it.seq.hold_pages and self.device.type == "cuda":
+        return tok_d, HostFetch(packed), v.with_top, rows
+
+    def _prefill_block(self, d: Dict[str, torch.Tensor], v: Variant,
+                       held=(), **extras):
+        """Every rank's device half of a prefill pass: its replica's rows
+        through the model, the replicas' pools brought level, and the
+        rows sampled where their results go (the leader; each replica's
+        tensor rank 0 under dp).  Returns (tokens, packed) on the
+        leader, (None, None) elsewhere."""
+        blk = self._block(d)
+        logits = self.model.forward_prefill(
+            self.kv, blk["tokens"], blk["table"], blk["prefix"], blk["chunk"],
+            **extras)
+        if self.device.type == "cuda":
+            for seq in held:
                 # the held prompt's KV is all written once this chunk is:
                 # an event recorded here orders a reader in another
                 # process after these writes and after nothing later
-                it.seq.kv_ready = torch.cuda.Event(interprocess=True)
-                it.seq.kv_ready.record()
-        tok_d, packed = blocks.sample_pack(logits, d, d["ctr"],
-                                           Variant(with_top=v.with_top,
-                                                   greedy=v.greedy))
-        return tok_d, HostFetch(packed), v.with_top
+                seq.kv_ready = torch.cuda.Event(interprocess=True)
+                seq.kv_ready.record()
+        self._sync_replicas(d["table"], d["prefix"], d["chunk"])
+        if self.group is not None and self.group.rank != 0 and (
+                self.dp == 1 or self.group.tp_rank != 0):
+            return None, None
+        tok, packed = blocks.sample_pack(logits, blk, blk["ctr"], v)
+        joined = self._gather_results([packed], blocks.out_widths(v.with_top))
+        return (tok, joined[0]) if joined is not None else (None, None)
 
-    def _consume_prefill(self, items: List[PrefillItem], fetch: HostFetch,
-                         with_top: bool) -> None:
-        out, logp, tids, tlps = blocks.unpack_out(fetch.numpy(), len(items),
+    def _consume_prefill(self, rows: List[Optional[PrefillItem]],
+                         fetch: HostFetch, with_top: bool) -> None:
+        out, logp, tids, tlps = blocks.unpack_out(fetch.numpy(), len(rows),
                                                   with_top)
-        for i, it in enumerate(items):
+        for i, it in enumerate(rows):
+            if it is None:
+                continue
             s = it.seq
             if s.status != "running":  # preempted after planning
                 continue
@@ -939,7 +1168,7 @@ class TorchEngine:
         if not items:
             return
         self._note_dispatch("prefill")
-        tok_d, fetch, with_top = self._prefill_pass(items)
+        tok_d, fetch, with_top, rows = self._prefill_pass(items)
         # the dispatch is committed: account the computed tokens NOW so a
         # fused decode chain plans from current positions
         for it in items:
@@ -950,7 +1179,7 @@ class TorchEngine:
         deferred = [] if fused else None
         self.scheduler.deferred_free = deferred
         try:
-            self._consume_prefill(items, fetch, with_top)
+            self._consume_prefill(rows, fetch, with_top)
             if fused:
                 rows, fetches, v = fused
                 self._consume_decode(fetches, rows, v.with_top)
@@ -969,7 +1198,7 @@ class TorchEngine:
         hard_cap = self.cfg.hard_cap
         if (
             not self.cfg.fuse_prefill_decode
-            or self.tp > 1  # followers replay from host arrays only
+            or self.world > 1  # followers replay from host arrays only
             or self.cfg.speculative_ngram_k > 0  # drafts need the fetched token
             or not all(it.samples for it in items)
             or any(s.status != "running" for s in seqs)
@@ -1010,7 +1239,9 @@ class TorchEngine:
                          chain_len: int, T: int) -> List[HostFetch]:
         """Issue `chain_len` decode blocks of T steps: block k+1 takes
         block k's device-side token, position, counter (and counts)
-        carries.  Returns one host fetch per block."""
+        carries.  Returns one host fetch per block (None on a follower).
+        Under dp each rank runs its replica's rows, then the replicas
+        level a replicated pool and send their results to the leader."""
         if self._lockstep is not None:
             self._plan("decode", arrays={k: t.numpy() for k, t in d.items()
                                          if k != "counts"},
@@ -1020,13 +1251,18 @@ class TorchEngine:
         key = ("decode", T, v.greedy, v.penalized, v.with_top,
                d["table"].shape[1])
         fn = self._block_fn("decode", T, v)
-        fetches, ups = [], d
+        fetches, ups = [], self._block(d)
         for _ in range(chain_len):
             outs = self.graphs.run(key, fn, ups)
-            fetches.append(HostFetch(outs["packed"]))
+            fetches.append(HostFetch(outs["packed"]) if self.dp == 1
+                           else outs["packed"])
             ups = {k: outs[k] for k in ("tok", "pos", "ctr", "counts")
                    if k in outs}
-        return fetches
+        if self.dp == 1:
+            return fetches
+        self._sync_replicas(d["table"], d["pos"], chain_len * T)
+        joined = self._gather_results(fetches, blocks.out_widths(v.with_top))
+        return None if joined is None else [HostFetch(p) for p in joined]
 
     def _decode_inputs(self, rows, v: Variant) -> Dict[str, torch.Tensor]:
         tokens, positions = self._decode_arrays(rows)
@@ -1133,14 +1369,14 @@ class TorchEngine:
         # shortest rung, and the next chunk rides the following dispatch
         T, _ = self.scheduler.select_decode_rung()
         self._note_dispatch("mixed", T)
-        _, p_fetch, p_top = self._prefill_pass(items)
+        _, p_fetch, p_top, p_rows = self._prefill_pass(items)
         rows = self._decode_rows(dseqs)
         v = self._variant(rows)
         d_fetch = self._dispatch_decode(self._decode_inputs(rows, v), v, 1, T)
         for it in items:
             if it.seq.status == "running":
                 it.seq.num_computed += it.chunk_len
-        self._consume_prefill(items, p_fetch, p_top)
+        self._consume_prefill(p_rows, p_fetch, p_top)
         self._consume_decode(d_fetch, rows, v.with_top)
 
     # -- speculative decoding (n-gram draft + fused verify) ------------------ #
@@ -1152,7 +1388,7 @@ class TorchEngine:
         k+1 tokens of the context cap would write drafts past their
         page-table horizon."""
         k = self.cfg.speculative_ngram_k
-        if k <= 0:
+        if k <= 0 or self._pooled:  # JAX runs no verify on a partition
             return False
         if any(s.opts.penalized or s.opts.top_logprobs > 0 for s in seqs):
             return False
@@ -1185,10 +1421,8 @@ class TorchEngine:
                 "table": table, "seeds": seeds, **self._samp_arrays(rows),
                 **self._rope_inputs(rows)}
         self._plan("spec", arrays=host, k=k, greedy=greedy)
-        d = self._host(host)
-        key = ("spec", k, greedy, table.shape[1])
-        outs = self.graphs.run(key, self._block_fn("spec", k, Variant(greedy=greedy)), d)
-        out, logp, n_acc = blocks.unpack_spec(HostFetch(outs["packed"]).numpy(),
+        packed = self._spec_block(self._host(host), k, greedy)
+        out, logp, n_acc = blocks.unpack_spec(HostFetch(packed).numpy(),
                                               B, k + 1)
         self._spec_dispatch_total += 1
         drafted = accepted = 0
@@ -1215,13 +1449,25 @@ class TorchEngine:
                 if s.status != "running":
                     break  # stop inside the accepted run; rest discarded
 
+    def _spec_block(self, d: Dict[str, torch.Tensor], k: int, greedy: bool):
+        """Every rank's device half of a verify: its replica's rows, the
+        replicas levelled (k + 1 positions a row), the packed results on
+        the leader (None elsewhere)."""
+        blk = self._block(d)
+        key = ("spec", k, greedy, blk["table"].shape[1])
+        outs = self.graphs.run(key, self._block_fn("spec", k,
+                                                   Variant(greedy=greedy)), blk)
+        self._sync_replicas(d["table"], d["pos"], k + 1)
+        joined = self._gather_results([outs["packed"]], (k + 1, k + 1, 1))
+        return None if joined is None else joined[0]
+
     # -- the device-resident decode loop (continuous chaining) --------------- #
 
     def _cc_ok(self) -> bool:
-        """The continuous loop for a flat engine; a tp group keeps the
+        """The continuous loop for a flat engine; a group keeps the
         chained paths (JAX's `_cc_ok` under a mesh; the loop is
         output-invisible)."""
-        return self.cfg.decode_continuous and self.tp == 1
+        return self.cfg.decode_continuous and self.world == 1
 
     def _ensure_drain_pool(self) -> cf.ThreadPoolExecutor:
         if self._drain_pool is None:
@@ -1591,19 +1837,43 @@ class TorchEngine:
         """Gather of page ids → fresh device tensors k, v [L, n, page, n_kv,
         hd] (exactly n pages: no padding width to bound recompiles).  Under
         tp every rank gathers its head slice and the slices join in rank
-        order: the model's full kv heads (a ``kv_export`` plan)."""
-        self._plan("kv_export", arrays={"pages": np.asarray(pages, np.int64)})
-        return self._export_replay(self._page_index(pages))
+        order: the model's full kv heads (a ``kv_export`` plan).  Under dp
+        the pages are read on one replica (the partition holding them, or
+        replica 0 of a replicated pool) and reach the leader over its dp
+        group (JAX `_build_export_fn_pooled`)."""
+        src, local = self._partition(pages)
+        src = src or 0
+        self._plan("kv_export", arrays={"pages": np.asarray(local, np.int64)},
+                   src=src)
+        return self._export_replay(self._page_index(local), src)
 
-    def _export_replay(self, idx: torch.Tensor):
-        k, v = self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
-        if self.tp == 1:
-            return k, v
-        from ..parallel.collectives import gather_heads
-
+    def _export_replay(self, idx: torch.Tensor, src: int = 0):
+        """Every rank's device half of an export from replica `src`; the
+        full-head pages on the leader (what the other ranks return is not
+        used)."""
         g = self.group
-        return (gather_heads(k, g.rank, g.world, g.dev_group),
-                gather_heads(v, g.rank, g.world, g.dev_group))
+        if self.world == 1:
+            return self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
+        from ..parallel.collectives import broadcast_bytes, gather_heads
+
+        L, _, ps, h, hd = self.kv.k.shape
+        full = (L, len(idx), ps, h * self.tp, hd)
+        k = v = None
+        if g.replica == src:
+            k, v = self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
+            if self.tp > 1:
+                ranks = g.tp_ranks()
+                k = gather_heads(k, g.tp_rank, ranks, g.dev_group)
+                v = gather_heads(v, g.tp_rank, ranks, g.dev_group)
+        if src != 0 and g.tp_rank == 0:
+            # the owner's tensor rank 0 sends the pages to the leader
+            if g.replica != src:
+                k = self.kv.k.new_empty(full)
+                v = self.kv.v.new_empty(full)
+            owner = src * self.tp
+            broadcast_bytes(k, owner, g.dp_group)
+            broadcast_bytes(v, owner, g.dp_group)
+        return k, v
 
     def _import_dev(self, pages: List[int], k: torch.Tensor,
                     v: torch.Tensor) -> None:
@@ -1611,20 +1881,27 @@ class TorchEngine:
         IN PLACE: the captured graphs hold the pool's addresses, so the
         pool tensors are never replaced.  Under tp `k`, `v` hold every kv
         head: the leader broadcasts them and each rank scatters its own
-        heads (a ``kv_import`` plan)."""
-        idx = self._page_index(pages)
+        heads (a ``kv_import`` plan); under dp they land on the pages'
+        partition, or on every replica of a replicated pool."""
+        dst, local = self._partition(pages)
+        idx = self._page_index(local)
         k = k.to(self.device, non_blocking=True)
         v = v.to(self.device, non_blocking=True)
-        if self.tp == 1:
+        if self.world == 1:
             self.kv.k.index_copy_(1, idx, k)
             self.kv.v.index_copy_(1, idx, v)
             return
-        self._plan("kv_import", arrays={"pages": np.asarray(pages, np.int64)},
-                   lane="leader", shape=list(k.shape),
+        self._plan("kv_import", arrays={"pages": np.asarray(local, np.int64)},
+                   lane="leader", shape=list(k.shape), dst=dst,
                    dtype=str(k.dtype).removeprefix("torch."))
-        self._import_replay({"lane": "leader"},
+        self._import_replay({"lane": "leader", "dst": dst},
                             {"pages": idx, "k": k.contiguous(),
                              "v": v.contiguous()})
+
+    def _lands_here(self, dst: Optional[int]) -> bool:
+        """Does an import into partition `dst` (None: every replica of a
+        replicated pool) write this rank's pool?"""
+        return self.group is None or dst is None or dst == self.group.replica
 
     def _import_inputs(self, desc: Dict[str, Any]) -> Dict[str, Any]:
         """A follower's host half of a ``kv_import`` plan: the page ids
@@ -1632,6 +1909,8 @@ class TorchEngine:
         ipc lane, the mapped source pools of each window (so a follower
         that cannot map them answers not-ready before any collective)."""
         pages = desc["arrays"]["pages"]
+        if desc["lane"] == "ipc" and not self._lands_here(desc.get("dst")):
+            return {"pages": pages.tolist(), "lane": None, "windows": []}
         if desc["lane"] == "leader":
             from ..disagg.transfer import DTYPES
 
@@ -1648,26 +1927,41 @@ class TorchEngine:
         raise ValueError(f"unknown kv_import lane {desc['lane']!r}")
 
     def _import_replay(self, desc: Dict[str, Any], d: Dict[str, Any]) -> None:
-        """Every rank's device half of a tp ``kv_import``."""
+        """Every rank's device half of a group's ``kv_import``: the
+        leader's full-head pages reach the destination replicas' tensor
+        rank 0 over the dp group (when the destination is not replica 0
+        alone), then each destination replica's ranks over its tp group,
+        and each rank scatters its own heads."""
         if desc["lane"] == "ipc":
             return self._ipc_import_replay(desc, d)
         from ..parallel.collectives import broadcast_bytes
 
         g = self.group
+        dst = desc.get("dst")
         h = self.kv.k.shape[3]
         for name, pool in (("k", self.kv.k), ("v", self.kv.v)):
-            full = broadcast_bytes(d[name], 0, g.dev_group)
-            pool.index_copy_(1, d["pages"], full.narrow(3, g.rank * h, h))
+            full = d[name]
+            if self.dp > 1 and dst != 0 and g.tp_rank == 0:
+                broadcast_bytes(full, 0, g.dp_group)
+            if not self._lands_here(dst):
+                continue
+            if self.tp > 1:
+                broadcast_bytes(full, g.tp_ranks()[0], g.dev_group)
+            pool.index_copy_(1, d["pages"], full.narrow(3, g.tp_rank * h, h))
 
     def rank_pages(self, pages) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Each rank's own heads of `pages` as host tensors [L, n, page,
-        n_kv / tp, hd], in rank order: under tp a ``kv_read`` plan, answered
-        over the plan group like ``stats`` (a check of what every rank's
-        pool holds that does not ride the device group's gather)."""
-        own = self.local_pages(pages)
+        n_kv / tp, hd], in global rank order: under a group a ``kv_read``
+        plan, answered over the plan group like ``stats`` (a check of what
+        every rank's pool holds that does not ride the device groups'
+        gathers).  On a partitioned pool every rank reads the pages'
+        LOCAL ids: the partition's replica holds them, the others hold
+        other pages there."""
+        _, local = self._partition(pages)
+        own = self.local_pages(local)
         if self._lockstep is None:
             return [own]
-        return self._lockstep.read_pages(list(pages), own)
+        return self._lockstep.read_pages(local, own)
 
     def local_pages(self, pages) -> Tuple[torch.Tensor, torch.Tensor]:
         idx = self._page_index(pages)
@@ -1697,7 +1991,7 @@ class TorchEngine:
 
         ranks = rank_entries(entry)
         n_kv = self.model_cfg.num_key_value_heads
-        rank = self.group.rank if self.group is not None else 0
+        rank = self.group.tp_rank if self.group is not None else 0
         out = []
         for s, src_head, dst_head, heads in head_windows(
                 n_kv, len(ranks), self.tp, rank):
@@ -1712,18 +2006,24 @@ class TorchEngine:
                    prompt_len: int, lane) -> None:
         """Move a prompt held by a source group's pools (its ipc entry:
         every rank's pools, the prompt's pages and the source's event)
-        into `dest_pages` of every rank's pool: each rank waits on the
-        event and re-pages its own head window from each source rank it
-        overlaps (one launch each), then the group all-reduces a flag, so
-        every rank's reads are done when this returns.  A flat engine
-        reading a flat source is one whole-row launch.  The leader maps
-        its own windows before it sends the plan, so a failure there
-        reaches no follower."""
-        d = {"pages": dest_pages, "lane": lane,
-             "windows": self._ipc_windows(entry, lane)}
-        desc = {"lane": "ipc", "entry": entry, "prompt_len": int(prompt_len)}
+        into `dest_pages` of every destination rank's pool: each rank
+        waits on the event and re-pages its own head window from each
+        source rank it overlaps (one launch each), then the group
+        all-reduces a flag, so every rank's reads are done when this
+        returns.  Under dp the destination ranks are the replica of the
+        pages' partition (the other replicas read nothing), or every
+        replica of a replicated pool.  A flat engine reading a flat
+        source is one whole-row launch.  The leader maps its own windows
+        before it sends the plan, so a failure there reaches no
+        follower."""
+        dst, local = self._partition(dest_pages)
+        d = {"pages": local, "lane": lane,
+             "windows": (self._ipc_windows(entry, lane)
+                         if self._lands_here(dst) else [])}
+        desc = {"lane": "ipc", "entry": entry, "prompt_len": int(prompt_len),
+                "dst": dst}
         self._plan("kv_import",
-                   arrays={"pages": np.asarray(dest_pages, np.int64)}, **desc)
+                   arrays={"pages": np.asarray(local, np.int64)}, **desc)
         self._ipc_import_replay(desc, d)
 
     def _ipc_import_replay(self, desc: Dict[str, Any], d: Dict[str, Any]) -> None:
@@ -1731,20 +2031,22 @@ class TorchEngine:
 
         entry, pages = desc["entry"], d["pages"]
         stream = self._stream
-        event = d["lane"].event(entry)
-        if event is not None and stream is not None:
-            event.wait(stream)
+        if d["windows"]:
+            event = d["lane"].event(entry)
+            if event is not None and stream is not None:
+                event.wait(stream)
         for k, v, src_head, dst_head, heads in d["windows"]:
             kv_repage(k, v, self.kv.k, self.kv.v, entry["pages"], pages,
                       desc["prompt_len"], src_head=src_head,
                       dst_head=dst_head, heads=heads)
         if stream is not None:
             stream.synchronize()
-        if self.tp > 1:
-            from ..parallel.collectives import all_reduce_sum
+        if self.world > 1:
+            # every rank's reads are done (its stream synchronised) before
+            # the leader returns and the source releases its pages
+            import torch.distributed as dist
 
-            all_reduce_sum(torch.ones(1, device=self.device),
-                           self.group.dev_group)
+            dist.all_reduce(torch.ones(1))
 
     def _note_move(self, kind: str, pages: int, t0: float, **extra) -> None:
         if self.dispatch_trace is not None:
@@ -1878,9 +2180,21 @@ class TorchEngine:
                 pages.append(page)
         if not pages:
             return []
+        if self._pooled:
+            # cached blocks may sit on several partitions; an export reads
+            # one: a chunk a partition (JAX's grouping)
+            by_rank: Dict[int, List[tuple]] = {}
+            for h, p in zip(resolved, pages):
+                by_rank.setdefault(self.pool.rank_of(p), []).append((h, p))
+            groups = list(by_rank.values())
+        else:
+            groups = [list(zip(resolved, pages))]
+        chunks = []
         with torch.cuda.stream(self._stream):
-            k, v = self._export_dev(pages)
-        return [(resolved, k, v)]
+            for items in groups:
+                k, v = self._export_dev([p for _, p in items])
+                chunks.append(([h for h, _ in items], k, v))
+        return chunks
 
     def export_cached_blocks(self, hashes):
         """SYNC device→host export of committed blocks (pump/executor
@@ -1890,9 +2204,10 @@ class TorchEngine:
         chunks = self.export_cached_blocks_device(hashes)
         if not chunks:
             return [], None, None
-        (out_h, k, v), = chunks
+        out_h = [h for c in chunks for h in c[0]]
         with torch.cuda.stream(self._stream):
-            k, v = to_host([k, v])
+            k, v = to_host([torch.cat([c[1] for c in chunks], dim=1),
+                            torch.cat([c[2] for c in chunks], dim=1)])
         return out_h, k, v
 
     def import_committed_blocks(self, blocks, rank: Optional[int] = None
@@ -2141,6 +2456,9 @@ class TorchEngine:
         seq.seed = opts.seed if opts.seed is not None else self._py_rng.getrandbits(31)
         seq.t_arrival = time.monotonic()
         seq.pages = list(pages)
+        if self._pooled and pages:
+            # adopted on the partition its pages were imported into
+            seq.kv_rank = self.pool.rank_of(pages[0])
         seq.num_computed = len(prompt)
         seq.num_cached = len(prompt)
         seq.output_tokens = [first_token]
@@ -2202,8 +2520,7 @@ class TorchEngine:
                 logger.exception("tp group recovery failed")
                 self._lockstep.lost = self._lockstep.lost or f"recover: {e}"
         self.reset_kv()
-        self.pool = PagePool(self.cfg.num_pages, self.cfg.page_size,
-                             event_sink=self._emit_event)
+        self.pool = self._make_pool()
         self._emit_event(KvEvent("cleared", []))
         self.scheduler.pool = self.pool
         for seq in self.scheduler.waiting:
@@ -2300,6 +2617,13 @@ class TorchEngine:
 
 def _call(fn: Callable[[], Any]) -> Any:
     return fn()
+
+
+def _host_array(x) -> np.ndarray:
+    """A plan's host array, from numpy, a number or a tensor anywhere."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def _tops_for(seq: Sequence, tids, tlps, idx):

@@ -17,7 +17,7 @@ one host:
   cannot (its dispatch raised before any model collective) makes the
   leader's step raise `FollowerError`: the leader fails the step's
   requests and broadcasts ``recover``, on which every rank zeroes its
-  pool and opens a fresh device group;
+  pool and opens fresh device groups;
 - a follower whose device work fails midway is poisoned: the leader's
   next model collective times out (`parallel.mesh.tp_timeout_s`) and
   recovers as above; until ``recover`` the poisoned follower refuses
@@ -32,7 +32,9 @@ one host:
   group's pools), ``ipc_export`` (each rank's CUDA IPC entry for its
   pools) and ``kv_read`` (each rank's own heads of some pages, on the
   host), both gathered like ``stats``, ``recover``, ``stats`` and
-  ``shutdown``;
+  ``shutdown``; every plan reaches every rank of every replica, and
+  ``recover``, ``stats``, the ready check and ``shutdown`` cover them
+  all;
 - every wait is bounded: model collectives by the device group's timeout,
   a follower's wait for the next plan by a day (the leader may idle) and
   at once when the leader's process goes (its sockets close; a watchdog
@@ -242,16 +244,16 @@ def _own_stats() -> dict:
 
 def start_group(pcfg: ParallelConfig, devices: Optional[Sequence],
                 follower_args: Dict[str, Any]):
-    """Spawn the followers of a tp group and join it as rank 0: returns
-    (TpGroup, [processes], each rank's device).  `follower_args` are what each follower needs
-    to build its engine (pickled to it): the model config, the model
-    source, the engine config and the eos ids."""
+    """Spawn the followers of a dp x tp group and join it as rank 0:
+    returns (TpGroup, [processes], each rank's device).  `follower_args`
+    are what each follower needs to build its engine (pickled to it): the
+    model config, the model source, the engine config and the eos ids."""
     devs = group_devices(pcfg, devices)
     backend = choose_backend(devs)
     init = f"tcp://127.0.0.1:{free_port()}"
     ctx = mp.get_context("spawn")
     procs = []
-    for rank in range(1, pcfg.tp):
+    for rank in range(1, pcfg.world):
         spec = dict(follower_args, rank=rank, parallel=pcfg,
                     devices=[str(d) for d in devs], backend=backend,
                     init_method=init, parent=os.getpid())
@@ -260,7 +262,7 @@ def start_group(pcfg: ParallelConfig, devices: Optional[Sequence],
         p.start()
         procs.append(p)
     try:
-        group = TpGroup(0, pcfg.tp, devs[0], backend, init)
+        group = TpGroup(0, pcfg.world, devs[0], backend, init, dp=pcfg.dp)
     except BaseException:
         for p in procs:
             p.terminate()
@@ -325,12 +327,13 @@ def follower_main(spec: Dict[str, Any]) -> None:
     _watch_parent(spec["parent"])
     rank, pcfg = spec["rank"], spec["parallel"]
     devs = [torch.device(d) for d in spec["devices"]]
-    group = TpGroup(rank, pcfg.tp, devs[rank], spec["backend"],
-                    spec["init_method"])
+    group = TpGroup(rank, pcfg.world, devs[rank], spec["backend"],
+                    spec["init_method"], dp=pcfg.dp)
     engine = None
     try:
+        # every replica builds the same tp shards
         model = build_in_turn(rank, devs, lambda: spec["model"](
-            rank, pcfg.tp, group.device))
+            group.tp_rank, pcfg.tp, group.device))
         engine = TorchEngine(spec["model_cfg"], model, spec["engine_cfg"],
                              eos_token_ids=spec["eos"], parallel=pcfg,
                              devices=devs, group=group)

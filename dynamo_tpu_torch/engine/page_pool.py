@@ -41,7 +41,7 @@ class NoPagesError(RuntimeError):
 class PagePool:
     """Free-list page allocator + hash-addressed prefix cache."""
 
-    ranks = 1  # partition count (the scheduler's rank-aware surface)
+    ranks = 1  # partition count (ShardedPagePool overrides)
 
     def __init__(self, num_pages: int, page_size: int,
                  event_sink: Optional[Callable[[KvEvent], None]] = None):
@@ -208,3 +208,173 @@ class PagePool:
     def _emit(self, ev: KvEvent) -> None:
         if self._event_sink:
             self._event_sink(ev)
+
+
+class ShardedPagePool:
+    """KV pool partitioned into R independent per-device-shard pools
+    (the dp/sp-sharded pool: on a dp×sp×tp serving mesh each (dp, sp)
+    shard owns its own page range, so aggregate HBM KV capacity scales
+    with the mesh instead of replicating — the TPU-native analog of the
+    reference engines sharding KV across their TP/DP ranks,
+    reference docs/architecture/disagg_serving.md:110-120).
+
+    Page ids are GLOBAL: id = rank * num_pages + local_id, so sequences,
+    transfer descriptors, and the scheduler carry plain ints; the engine
+    derives (rank, local) with divmod when building per-shard tables.
+    Each rank's local page 0 is its trash page.
+
+    Prefix caches are per-rank (a block cached on rank 2 is invisible to
+    rank 3's attention); `best_rank` steers admission toward the rank
+    holding the longest cached run.  KV events deduplicate across ranks:
+    "stored" fires when a hash first appears on ANY rank, "removed" when
+    it leaves the LAST one — the router's per-worker view stays a set of
+    hashes, matching the single-pool contract."""
+
+    def __init__(self, ranks: int, num_pages: int, page_size: int,
+                 event_sink: Optional[Callable[[KvEvent], None]] = None):
+        self.ranks = ranks
+        self.num_pages = num_pages  # PER RANK (per-shard HBM is fixed)
+        self.page_size = page_size
+        self._event_sink = event_sink
+        self._hash_ranks: Dict[int, int] = {}  # hash → #ranks caching it
+        self.pools = [
+            PagePool(num_pages, page_size,
+                     event_sink=self._make_sink(r))
+            for r in range(ranks)
+        ]
+
+    def _make_sink(self, rank: int) -> Callable[[KvEvent], None]:
+        del rank  # events carry hashes, not pages — all ranks dedup here
+
+        def sink(ev: KvEvent) -> None:
+            if self._event_sink is None:
+                return
+            if ev.kind == "stored":
+                fresh = [h for h in ev.block_hashes
+                         if self._hash_ranks.get(h, 0) == 0]
+                for h in ev.block_hashes:
+                    self._hash_ranks[h] = self._hash_ranks.get(h, 0) + 1
+                if fresh:
+                    self._event_sink(KvEvent("stored", fresh, ev.parent_hash))
+            elif ev.kind == "removed":
+                gone = []
+                for h in ev.block_hashes:
+                    left = self._hash_ranks.get(h, 0) - 1
+                    if left <= 0:
+                        self._hash_ranks.pop(h, None)
+                        gone.append(h)
+                    else:
+                        self._hash_ranks[h] = left
+                if gone:
+                    self._event_sink(KvEvent("removed", gone))
+            # "cleared" is suppressed per-rank: a rank-0 clear while ranks
+            # 1..R-1 still hold cached hashes would transiently wipe the
+            # router's view of hashes still onboard — clear_cache() emits
+            # ONE pool-wide event after every sub-pool has cleared
+
+        return sink
+
+    # -- global-id helpers --------------------------------------------------- #
+
+    def rank_of(self, page: int) -> int:
+        return page // self.num_pages
+
+    def local_id(self, page: int) -> int:
+        return page % self.num_pages
+
+    def _split(self, pages: Sequence[int]):
+        by_rank: Dict[int, List[int]] = {}
+        for p in pages:
+            by_rank.setdefault(p // self.num_pages, []).append(
+                p % self.num_pages
+            )
+        return by_rank
+
+    # -- stats --------------------------------------------------------------- #
+
+    @property
+    def free_pages(self) -> int:
+        return sum(p.free_pages for p in self.pools)
+
+    @property
+    def evictable_pages(self) -> int:
+        return sum(p.evictable_pages for p in self.pools)
+
+    @property
+    def available_pages(self) -> int:
+        return sum(p.available_pages for p in self.pools)
+
+    def usage(self) -> float:
+        usable = self.ranks * (self.num_pages - 1)
+        return 1.0 - (self.available_pages / usable) if usable else 1.0
+
+    def usage_max_rank(self) -> float:
+        """One full rank blocks admission even when aggregate usage looks
+        low (sequences pin to a rank) — busy/capacity signals key off the
+        fullest partition, not the average."""
+        return max(p.usage() for p in self.pools)
+
+    def available_on(self, rank: int) -> int:
+        return self.pools[rank].available_pages
+
+    # -- allocation ---------------------------------------------------------- #
+
+    def allocate_on(self, rank: int, n: int) -> List[int]:
+        base = rank * self.num_pages
+        return [base + p for p in self.pools[rank].allocate(n)]
+
+    def allocate(self, n: int) -> List[int]:
+        """Rank-less allocation (transfer-service staging): picks the
+        emptiest rank that can hold all n pages — a single transfer's
+        pages must be co-resident for its adopter."""
+        rank = max(range(self.ranks), key=lambda r: self.pools[r].available_pages)
+        return self.allocate_on(rank, n)
+
+    def free(self, pages: Sequence[int]) -> None:
+        for rank, local in self._split(pages).items():
+            self.pools[rank].free(local)
+
+    # -- prefix cache -------------------------------------------------------- #
+
+    def lookup_on(self, rank: int, block_hashes: Sequence[int]) -> List[int]:
+        base = rank * self.num_pages
+        return [base + p for p in self.pools[rank].lookup(block_hashes)]
+
+    def best_rank(self, block_hashes: Sequence[int]):
+        """Rank with the longest cached prefix run; ties break toward
+        the most available pages (load spreading)."""
+        best, best_hits = 0, -1
+        for r, pool in enumerate(self.pools):
+            hits = pool.peek(block_hashes) if block_hashes else 0
+            if hits > best_hits or (
+                hits == best_hits
+                and pool.available_pages > self.pools[best].available_pages
+            ):
+                best, best_hits = r, hits
+        return best, max(best_hits, 0)
+
+    def cached_page(self, block_hash: int) -> Optional[int]:
+        for r, pool in enumerate(self.pools):
+            p = pool.cached_page(block_hash)
+            if p is not None:
+                return r * self.num_pages + p
+        return None
+
+    def peek(self, block_hashes: Sequence[int]) -> int:
+        return max(pool.peek(block_hashes) for pool in self.pools)
+
+    def commit(self, page: int, block_hash: int, parent_hash: Optional[int]) -> int:
+        rank = page // self.num_pages
+        local = self.pools[rank].commit(
+            page % self.num_pages, block_hash, parent_hash
+        )
+        return rank * self.num_pages + local
+
+    def clear_cache(self) -> int:
+        # per-rank "cleared" events are suppressed in the sink (see
+        # _make_sink); the removed-event bookkeeping keeps _hash_ranks
+        # consistent for hashes that survive (referenced cached pages)
+        n = sum(pool.clear_cache() for pool in self.pools)
+        if self._event_sink is not None:
+            self._event_sink(KvEvent("cleared", []))
+        return n

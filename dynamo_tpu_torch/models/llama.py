@@ -501,12 +501,13 @@ class Llama(nn.Module):
         return self.comm.tp
 
     def attach_group(self, group) -> None:
-        """Run this shard's collectives on `group` (a `parallel.TpGroup`
-        of ``tp`` ranks, this model's rank among them)."""
-        if (group.world, group.rank) != (self.comm.tp, self.comm.rank):
+        """Run this shard's collectives on `group` (a `parallel.TpGroup`:
+        its replica's tp group of ``tp`` ranks, this model's rank among
+        them; the replicas of a dp x tp group hold the same shards)."""
+        if (group.tp, group.tp_rank) != (self.comm.tp, self.comm.rank):
             raise ValueError(f"a shard of rank {self.comm.rank} of "
-                             f"{self.comm.tp} on rank {group.rank} of "
-                             f"{group.world}")
+                             f"{self.comm.tp} on tensor rank {group.tp_rank} "
+                             f"of {group.tp}")
         self.comm.group = group
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ or `csrc/vision_attention.cu` carries one planted fault.  Every copy builds
 its own kernels (in parallel), then runs phase 3 alone; phase 3 must fail
 with "kernel disagrees".  A mutant of the re-page between tp groups must
 also fail phase 16 (b)'s byte check, run in its copy on a transfer made in
-process (`chip_smoke.window_probe_main`).  Needs a CUDA card:
+process (`chip_smoke.window_probe_main`).  A mutant of the engine's
+partitioned dispatch (`engine/engine.py`) is checked by phase 17's probe
+instead (`chip_smoke.py --dp-probe`: a partitioned dp 2 group against a
+flat engine), which must report problems.  Needs a CUDA card:
 
     python3 -m dynamo_tpu_torch.mutants            # every mutant
     python3 -m dynamo_tpu_torch.mutants NAME ...   # some of them
@@ -30,6 +33,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("dynamo_tpu_torch", "csrc")
 PA, GG, KT = "paged_attention.cu", "grouped_gemm.cu", "kv_transfer.cu"
 VA = "vision_attention.cu"
+# the engine, relative to the kernel sources
+ENGINE = os.path.join("..", "engine", "engine.py")
 
 # name -> (source file, a text of it, its faulty replacement); each text
 # occurs once
@@ -108,6 +113,13 @@ MUTANTS = {
         "const int key = (col_key(4 * c + i) + NK - 1) % NK;"),
     "segment leaves the zero-filled keys of the last tile unmasked": (
         VA, "        if (8 * j + 2 * t4 + (e & 1) >= n_valid) s[j][e] = NEG_INF;\n", ""),
+    # a partitioned dp dispatch: replica 1 takes replica 0's rows of the
+    # LOCAL page table (its own tokens and positions), so it reads and
+    # writes another partition's page ids in its pool
+    "partitioned dispatch hands replica 1 replica 0's page table": (
+        ENGINE, "        return {k: t[lo:lo + n] for k, t in d.items()}\n",
+        "        return {k: t[(0 if k == 'table' and self._pooled else lo):][:n]\n"
+        "                for k, t in d.items()}\n"),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
@@ -115,6 +127,9 @@ _PHASE3 = "import chip_smoke; chip_smoke.phase_kernels()"
 # the mutants phase 16 (b)'s byte check must see too
 _WINDOW_PROBE = "import sys, chip_smoke; sys.exit(chip_smoke.window_probe_main())"
 BYTE_CHECKED = ("re-page shifts the source head window by one head",)
+# the mutants phase 17's dp probe must see (phase 3 runs no engine)
+_DP_PROBE = "import sys, chip_smoke; sys.argv[1:] = ['--dp-probe']; sys.exit(chip_smoke.main())"
+DP_CHECKED = ("partitioned dispatch hands replica 1 replica 0's page table",)
 
 
 def _copy(name: str) -> str:
@@ -149,11 +164,21 @@ def main(argv=None) -> int:
         for n in names:
             if builds[n].returncode != 0:
                 raise RuntimeError(f"mutant {n!r} did not build:\n{builds[n].stderr[-3000:]}")
+            probe = None
+            if n in DP_CHECKED:
+                p2 = _py(_DP_PROBE, dirs[n])
+                lines = [json.loads(ln) for ln in p2.stdout.splitlines()
+                         if ln.startswith('{"dp_probe"')]
+                probe = lines[-1]["dp_probe"] if lines else {"rc": p2.returncode}
+                caught = bool(probe.get("problems")) or p2.returncode != 0
+                missed += not caught
+                print(json.dumps({"mutant": n, "caught": caught,
+                                  "dp_probe": probe}), flush=True)
+                continue
             proc = _py(_PHASE3, dirs[n])  # one at a time: phase 3 times kernels
             cases = [json.loads(ln) for ln in proc.stdout.splitlines()
                      if ln.startswith('{"phase": "kernel_check"')]
             caught = proc.returncode != 0 and "kernel disagrees" in proc.stderr
-            probe = None
             if n in BYTE_CHECKED:
                 p2 = _py(_WINDOW_PROBE, dirs[n])
                 lines = [json.loads(ln) for ln in p2.stdout.splitlines()

@@ -1,7 +1,9 @@
-"""The tp group's collectives, built from ``broadcast`` and ``all_reduce``
-only: that is what gloo offers for CUDA tensors, and what NCCL offers
-everywhere.  The JAX package gets the same collectives from GSPMD (XLA
-inserts them; no Pallas kernel computes them).
+"""The dp x tp group's collectives, built from ``broadcast`` and
+``all_reduce`` only: that is what gloo offers for CUDA tensors, and what
+NCCL offers everywhere.  The JAX package gets the same collectives from
+GSPMD (XLA inserts them; no Pallas kernel computes them).  A source
+rank is always named by its GLOBAL rank (`torch.distributed`'s
+convention for subgroups).
 
 - `all_reduce_sum`: the row-parallel outputs (after ``wo`` and
   ``w_down``, and the experts' combine) summed over the ranks in place;
@@ -15,6 +17,10 @@ inserts them; no Pallas kernel computes them).
   full-head KV pages from each rank's head slice, every rank
   broadcasting its slice in turn (the KV moves of `engine/lockstep.py`:
   a parked sequence, a tier block and a disagg export hold every head);
+- `all_parts`: every rank's tensor of a group, each broadcast in turn,
+  of sizes every rank knows: the dp replicas' packed results reaching
+  the leader, and the new K/V rows of a replicated pool reaching every
+  replica (`engine/engine.py`);
 - `broadcast_plan`: the leader's plan bytes to every rank, length first
   and then the payload padded to a power of two (`dynamo_tpu/parallel/
   multihost.py` `broadcast_plan`).
@@ -74,16 +80,32 @@ def broadcast_bytes(t: torch.Tensor, src: int, group) -> torch.Tensor:
     return t
 
 
-def gather_heads(local: torch.Tensor, rank: int, tp: int, group,
-                 axis: int = 3) -> torch.Tensor:
-    """Every rank's `local` slice (the same shape on every rank) joined
-    along `axis` in rank order, on every rank: each rank broadcasts its
-    slice in turn."""
+def all_parts(own: torch.Tensor, me: int, ranks, group,
+              shapes=None) -> list:
+    """Every member's tensor, in member order, on every member: member i
+    (global rank ``ranks[i]``; this process is member `me`) broadcasts
+    its tensor in turn.  `shapes[i]` is member i's shape when the
+    members' sizes differ (every member knows them); by default each is
+    `own`'s.  Empty parts are not sent."""
     parts = []
-    for r in range(tp):
-        buf = local.contiguous() if r == rank else torch.empty_like(local)
-        parts.append(broadcast_bytes(buf, r, group))
-    return torch.cat(parts, dim=axis)
+    for i, src in enumerate(ranks):
+        shape = tuple(own.shape) if shapes is None else tuple(shapes[i])
+        if i == me:
+            buf = own.contiguous()
+        else:
+            buf = own.new_empty(shape)
+        if buf.numel():
+            broadcast_bytes(buf, src, group)
+        parts.append(buf)
+    return parts
+
+
+def gather_heads(local: torch.Tensor, rank: int, ranks, group,
+                 axis: int = 3) -> torch.Tensor:
+    """Every member's `local` slice (the same shape on every member)
+    joined along `axis` in member order, on every member (`rank`: this
+    process's index in `ranks`, the group's global ranks)."""
+    return torch.cat(all_parts(local, rank, ranks, group), dim=axis)
 
 
 def broadcast_plan(payload: bytes, group=None, src: int = 0) -> bytes:

@@ -1,5 +1,9 @@
 """Which axis of each weight splits over tp, and each rank's shard.
 
+Weights are replicated over dp and megatron-sharded over tp, as JAX's
+`shard_params` places them (`dynamo_tpu/parallel/mesh.py:72-83`): every
+replica of a dp x tp group builds the same tp shards.
+
 The port of `param_pspecs` (`dynamo_tpu/models/llama.py:146-206`),
 `quantize_pspecs` (`dynamo_tpu/models/quantization.py:106`) and
 `kv_cache_pspec` (`llama.py:209`), written as "the axis of this leaf
@@ -15,7 +19,9 @@ parameters (no leading layer axis):
 - ``embed`` and ``lm_head`` on the vocabulary;
 - an int8 ``{"q", "s"}`` leaf: ``q`` like its weight, ``s`` on the
   weight's output axis (replicated for a row-parallel weight);
-- the KV pool [L, P, page, n_kv, hd] on its kv heads (axis 3).
+- the KV pool [L, P, page, n_kv, hd] on its kv heads (axis 3) over tp,
+  and on its pages (axis 1) over dp when the pool is partitioned
+  (`kv_pool_axes`).
 
 Rank r holds the r-th of tp equal slices along that axis, so rank r's q
 heads use exactly its kv heads (a group of q heads never straddles two
@@ -42,8 +48,22 @@ _DENSE_AXES = {
 _MOE_AXES = {"router": None, "router_b": None, "w_gate": 0, "w_up": 0,
              "w_down": 0, "b_gate": 0, "b_up": 0, "b_down": 0}
 TOP_AXES = {"embed": 0, "final_norm": None, "lm_head": 1}
-# the KV pool [L, P, page, n_kv, hd] splits on kv heads
+# the KV pool [L, P, page, n_kv, hd] splits on kv heads over tp, and on
+# pages over dp when partitioned
 KV_HEAD_AXIS = 3
+KV_PAGE_AXIS = 1
+
+
+def kv_pool_axes(pooled: bool) -> Dict[int, Optional[str]]:
+    """{pool axis: the mesh axis it splits over, or None}: the port's
+    counterpart of JAX's `kv_cache_pspec(pool_axes=...)`
+    (`dynamo_tpu/models/llama.py:209`).  The kv heads split over tp; the
+    pages split over dp when the pool is partitioned (``kv_partition``:
+    replica d holds global pages ``d * num_pages`` .. ``(d + 1) *
+    num_pages - 1`` as its local 0 .., its local page 0 its trash page),
+    and are replicated over dp otherwise (every replica holds every
+    page, byte-equal)."""
+    return {KV_PAGE_AXIS: "dp" if pooled else None, KV_HEAD_AXIS: "tp"}
 
 
 def param_shard_axes(cfg) -> Dict[str, Optional[int]]:

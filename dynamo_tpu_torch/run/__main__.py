@@ -15,7 +15,8 @@
 ``tiny`` or a canned config name (``llama-3.1-8b``, ``gpt-oss-20b``, ...;
 random weights from ``--seed``); ``--quantization int8`` serves int8
 projections; ``--tp N`` (``--tp-devices``) serves on a tensor-parallel
-group of N processes; see `dynamo_tpu_torch.worker`.  Runs on CUDA unless
+group of N processes, ``--dp D`` on D replicas of it (``--kv-partition``
+partitions the pool over them); see `dynamo_tpu_torch.worker`.  Runs on CUDA unless
 given ``--device cpu``.
 
 A batch input line is a JSON object with ``token_ids`` plus optional

@@ -22,8 +22,8 @@ and object-store KV tiers through the leader/worker bootstrap; the
 leader's ``--kvbm-g4-bucket`` names the shared object-store bucket).  The
 worker publishes its KV events, load metrics and (with KVBM) its tier
 summary for a frontend in ``--router-mode kv``.  ``--quantization
-int8`` serves int8 projections (quantized at engine construction); KV
-partitioning is accepted and refused by `TorchEngine`.  ``--dp-ranks N``
+int8`` serves int8 projections (quantized at engine construction).
+``--dp-ranks N``
 serves N `TorchEngine` replicas behind the one endpoint (`DpRankEngine`),
 sharing one set of weights on the card, each with its own pool of
 ``--num-pages`` and its own KV events and metrics under the packed
@@ -38,9 +38,16 @@ under NCCL by default, or ``--tp-devices`` to name them (``cuda:0`` N
 times shares one card over gloo; ``--device cpu`` runs the group on the
 CPU).  The card and the publishers are the leader's alone; a tp group
 parks, serves KVBM tiers and takes either disagg role, with every kv head
-in what leaves the device (`TorchEngine`).  ``--dp``,
-``--sp`` and ``--pp`` above 1, multihost and mock engines are later
-slices.  Multimodal models serve image and
+in what leaves the device (`TorchEngine`).  ``--dp N`` (with ``--tp
+M``) serves N data-parallel replicas of M ranks each in one group of N *
+M processes under this one leader (`ParallelConfig(dp=N, tp=M)`;
+``--tp-devices`` then lists all N * M ranks' devices), their pool
+replicated over the replicas or, with ``--kv-partition``, partitioned
+(each replica owns its own pages, so the KV capacity grows with N); its
+``/metrics`` and KV events report the partitions as one pool.
+``--dp-ranks`` does not compose with ``--dp`` or ``--tp`` (ROADMAP
+2.2b.4).  ``--sp`` and ``--pp`` above 1, multihost and mock engines are
+later slices.  Multimodal models serve image and
 video chats: a qwen-vl checkpoint directory or ``qwen2.5-vl-7b`` brings
 its tower, ``--vision tiny`` pairs a tiny CLIP tower with ``--model
 tiny``; ``--disagg-role encode`` serves only the tower (component
@@ -168,12 +175,15 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                     help="self-speculative decoding: draft K tokens from "
                          "the sequence's own n-grams and verify them in "
                          "one forward; 0 disables")
-    # JAX engine flags the port refuses (TorchEngine names them)
     ap.add_argument("--quantization", default="none", choices=["none", "int8"])
-    ap.add_argument("--kv-partition", action="store_true")
-    # the serving mesh: tp over torch.distributed (dp, sp and pp are
+    ap.add_argument("--kv-partition", action="store_true",
+                    help="partition the KV pool over the --dp replicas "
+                         "(each owns its own pages)")
+    # the serving mesh: dp x tp over torch.distributed (sp and pp are
     # refused, each naming the roadmap item that ports it)
-    ap.add_argument("--dp", type=int, default=1, help="data-parallel degree")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel degree: replicas of the --tp group "
+                         "under one leader")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree: a group of N processes")
     ap.add_argument("--sp", type=int, default=1,
@@ -181,7 +191,8 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline-parallel degree")
     ap.add_argument("--tp-devices", default="",
-                    help="comma-separated device of each tp rank (default: "
+                    help="comma-separated device of each of the dp*tp ranks, "
+                         "rank d*tp+t for replica d's tensor rank t (default: "
                          "one card a rank, or the CPU with --device cpu); "
                          "ranks sharing a card use gloo")
 
@@ -192,12 +203,16 @@ def parallel_from_args(args):
 
     pcfg = ParallelConfig(dp=args.dp, tp=args.tp, sp=args.sp, pp=args.pp)
     check_ported(pcfg)
-    if pcfg.tp == 1:
+    if pcfg.world == 1:
         return None, None
     if args.tp_devices:
         devices = [d.strip() for d in args.tp_devices.split(",") if d.strip()]
+        if len(devices) != pcfg.world:
+            raise ValueError(
+                f"--tp-devices names {len(devices)} devices; a group of "
+                f"dp={pcfg.dp} x tp={pcfg.tp} has {pcfg.world} ranks")
     elif args.device == "cpu":
-        devices = ["cpu"] * pcfg.tp
+        devices = ["cpu"] * pcfg.world
     else:
         devices = None
     return pcfg, devices
@@ -478,18 +493,20 @@ def check_role(args) -> None:
         ]:
             if bad:
                 raise SystemExit(f"--dp-ranks > 1 is incompatible with {flag}")
-    if args.tp > 1:
-        # a tp group serves generate, embed and every KV move (parking,
-        # KVBM tiers, the disagg roles); these stack engines or put media
-        # on the plans
+    for axis in ("tp", "dp"):
+        if getattr(args, axis) <= 1:
+            continue
+        # a dp x tp group serves generate, embed and every KV move
+        # (parking, KVBM tiers, the disagg roles); these stack engines or
+        # put media on the plans
         for bad, flag, item in [
             (args.dp_ranks > 1, "--dp-ranks", "2.2b.4"),
             (bool(args.encode_component), "--encode-component", "2.2b.3"),
             (multimodal, "a vision tower", "2.2b.3"),
         ]:
             if bad:
-                raise SystemExit(f"--tp > 1 with {flag} is not served yet "
-                                 f"(ROADMAP {item})")
+                raise SystemExit(f"--{axis} > 1 with {flag} is not served "
+                                 f"yet (ROADMAP {item})")
     if args.disagg_role == "prefill" and args.device != "cpu":
         from ..disagg.device_transfer import expandable_segments
 

@@ -157,11 +157,14 @@ async def test_kill_cancels_and_pool_balanced(jax_params):
 
 @pytest.mark.parametrize("over,match", [
     ({"quantization": "int4"}, r"quantization must be none\|int8"),
-    ({"kv_partition": True}, "not ported")], ids=["other_weight_format", "kv_partition"])
+    ({"kv_partition": True}, "requires a serving mesh")],
+    ids=["other_weight_format", "kv_partition"])
 def test_unported_engine_options_refused(jax_params, over, match):
-    """A partitioned pool is refused; int8 is served (tests/
-    test_torch_quantization.py), so the other_weight_format case holds
-    that formats other than none and int8 are refused, as EngineConfig refuses them in JAX."""
+    """A partitioned pool is refused on a flat engine, as JAX refuses it
+    without a mesh (a dp group partitions it: tests/test_torch_dp*.py);
+    int8 is served (tests/test_torch_quantization.py), so the
+    other_weight_format case holds that formats other than none and int8
+    are refused, as EngineConfig refuses them in JAX."""
     with pytest.raises(ValueError, match=match):
         make_engine(jax_params, **over)
 

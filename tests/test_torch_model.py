@@ -124,7 +124,8 @@ def test_unported_model_features_refused(over):
     """What the port refuses: an M-RoPE section that does not split the
     rotary frequencies (M-RoPE itself is served since the vision slice,
     tests/test_torch_vision*.py), an unknown MoE dispatch (as JAX `_moe`
-    does) and a partitioned KV pool (the parallelism slice).  MoE,
+    does) and a partitioned KV pool on a flat engine (JAX's refusal
+    without a mesh; a dp group serves one).  MoE,
     windows, sinks and biases are served since the model-breadth slice
     (tests/test_torch_gpt_oss.py)."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
@@ -133,7 +134,7 @@ def test_unported_model_features_refused(over):
         cfg = tcfg.tiny_config()
         model = tl.init_params(cfg, torch.Generator().manual_seed(0),
                                torch.float32, "cpu")
-        with pytest.raises(ValueError, match="not ported"):
+        with pytest.raises(ValueError, match="requires a serving mesh"):
             TorchEngine(cfg, model, EngineConfig(**over), device="cpu")
         return
     with pytest.raises(ValueError):

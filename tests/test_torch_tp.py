@@ -92,7 +92,8 @@ def test_parallel_config_validation():
 
 
 @pytest.mark.parametrize("call, match", [
-    (lambda: check_ported(ParallelConfig(dp=2)), "ROADMAP 2.2b"),
+    # dp is served (tests/test_torch_dp.py); dp with sp is still refused
+    (lambda: check_ported(ParallelConfig(dp=2, sp=2)), "ROADMAP 2.4"),
     (lambda: check_ported(ParallelConfig(sp=2)), "ROADMAP 2.4"),
     (lambda: check_ported(ParallelConfig(pp=2)), "ROADMAP 2.3"),
     (lambda: check_ported(ParallelConfig(tp=0)), "tp must be"),
@@ -160,12 +161,15 @@ def test_worker_refuses_with_tp(flags, match):
         check_role(args)
 
 
-@pytest.mark.parametrize("axis", ["dp", "sp", "pp"])
-def test_worker_refuses_other_axes(axis):
+@pytest.mark.parametrize("flags", [["--dp", "2", "--sp", "2"], ["--sp", "2"],
+                                   ["--pp", "2"]], ids=["dp", "sp", "pp"])
+def test_worker_refuses_other_axes(flags):
+    """sp and pp stay refused, with dp too (``--dp`` alone is served:
+    tests/test_torch_dp_kv.py)."""
     from dynamo_tpu_torch.worker.__main__ import build_parser, parallel_from_args
 
-    args = build_parser().parse_args(["--control", "127.0.0.1:1",
-                                      f"--{axis}", "2", "--device", "cpu"])
+    args = build_parser().parse_args(["--control", "127.0.0.1:1", *flags,
+                                      "--device", "cpu"])
     with pytest.raises(ValueError, match="ROADMAP"):
         parallel_from_args(args)
 
