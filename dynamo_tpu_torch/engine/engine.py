@@ -56,6 +56,12 @@ streams), and every later position ropes at its index plus the
 sequence's delta: the per-row ``rope_off`` input of every decode, block,
 chain and verify graph, refreshed at each dispatch and splice.  Media
 prompts take the pure prefill path (not mixed plans, not chunk rows).
+In a dp x tp group the tower lives on the leader alone and runs there
+before the prefill plan goes out; the plan carries the pass's media rows
+(each run's slice in the model's dtype, its mask, the M-RoPE streams),
+and every rank splices its replica's block of them (`media.py`); decode
+plans carry each row's ``rope_off``.  A leader with ``vision=(None,
+vcfg)`` serves the embeddings an encode worker computed the same way.
 
 Tensor parallelism (``parallel=ParallelConfig(tp=N)``, ``devices``): the
 engine leads a group of N processes (`lockstep.py`): it spawns N - 1
@@ -78,9 +84,9 @@ host lane carry one layout whatever the tp, and a block written by a tp 2
 engine onboards into a flat one.  The disagg CUDA IPC lane instead lets
 every destination rank read its head window straight from the source
 ranks' pools (`import_ipc`: a ``kv_import`` plan of the ``ipc`` lane,
-one windowed `kv_repage` launch per overlapping source rank).  Vision
-and fuse_projections are refused under tp, each naming its roadmap item
-or its reason.
+one windowed `kv_repage` launch per overlapping source rank).
+fuse_projections is refused under tp (its fused output axis does not
+carry the tp splits).
 
 Meshed data parallelism (``parallel=ParallelConfig(dp=D, tp=N)``): the
 group holds D replicas of N ranks each (rank ``d * N + t``), every
@@ -110,7 +116,7 @@ them (`blocks.join_packed`).  The pool is either
 KV moves follow the pool: an export reads one partition (the owner's
 heads joined over its tp group, then sent to the leader), an import
 lands on the admitting sequence's partition, or on every replica of a
-replicated pool.  Vision is refused under dp (ROADMAP 2.2b.3).
+replicated pool.  Media rows go to their block's replica only.
 
 Not ported yet (later slices): pp, sp and multihost.
 """
@@ -201,11 +207,8 @@ _PLAN_ARRAYS = {
     "kv_import": ("pages",),
 }
 
-def _group_refusals(cfg: EngineConfig, vision, tp: int) -> List[str]:
+def _group_refusals(cfg: EngineConfig, tp: int) -> List[str]:
     bad = []
-    if vision is not None:
-        bad.append("vision (the tower on the leader, embeds on the plan: "
-                   "ROADMAP 2.2b.3)")
     if cfg.fuse_projections and tp > 1:
         bad.append("fuse_projections (the fused output axis does not carry "
                    "the megatron tp splits, as in JAX)")
@@ -270,7 +273,7 @@ class TorchEngine:
         if self.dp > 1:
             self.cfg = _dp_config(self.cfg, self.dp)
         if self.world > 1:
-            bad = _group_refusals(self.cfg, vision, self.tp)
+            bad = _group_refusals(self.cfg, self.tp)
             if bad:
                 what = "dp x tp" if self.dp > 1 else "tp"
                 raise ValueError(f"not served under {what}: {'; '.join(bad)}")
@@ -388,6 +391,10 @@ class TorchEngine:
         # every device dispatch appends {kind, n_steps, blocks, ...}; KV
         # moves (park, resume, onboard) add their pages and host ms
         self.dispatch_trace: Optional[List[dict]] = None
+        # the layout rows whose media each recent prefill spliced on this
+        # rank (`media.block_extras`), and a leader's media on its plans
+        self.media_rows: deque = deque(maxlen=256)
+        self.media_plan = {"chunks": 0, "bytes": 0, "ms": 0.0}
         if tiered is not None:
             self.attach_connector(tiered)
 
@@ -739,8 +746,17 @@ class TorchEngine:
         from ..ops._launches import LAUNCHES
 
         stats = ({} if self._lockstep is None
-                 else await self._device_op(self._lockstep.stats))
+                 else await self._device_op(lambda: self._lockstep.stats(self)))
         return {**stats, 0: dict(LAUNCHES)}
+
+    async def group_reports(self) -> Dict[int, Dict[str, Any]]:
+        """A leader's view of every rank now: its launches, the layout rows
+        its recent prefills spliced media into, and its vision tower's
+        parameter count (`lockstep._own_stats`)."""
+        if self._lockstep is None:
+            raise RuntimeError("group_reports: this engine leads no group")
+        await self._device_op(lambda: self._lockstep.stats(self))
+        return dict(self._lockstep.rank_stats)
 
     def reset_kv(self) -> None:
         """Zero the pool in place (captured graphs hold its addresses)."""
@@ -757,7 +773,11 @@ class TorchEngine:
         missing = [k for k in need if k not in desc["arrays"]]
         if missing:
             raise KeyError(f"a {kind!r} plan lacks {missing}")
-        if kind in ("prefill", "embed"):
+        if kind == "prefill":
+            mm = desc.get("media")
+            return {"arrays": self._to_device(desc["arrays"]),
+                    "media": None if mm is None else media.from_wire(self, mm)}
+        if kind == "embed":
             return self._to_device(desc["arrays"])
         if kind == "kv_export":
             return {"pages": self._page_index(desc["arrays"]["pages"]),
@@ -780,7 +800,8 @@ class TorchEngine:
         desc, d = arg
         kind = desc["kind"]
         if kind == "prefill":
-            self._prefill_block(d, Variant(*desc["variant"]))
+            self._prefill_block(d["arrays"], Variant(*desc["variant"]),
+                                mm=d["media"])
         elif kind == "decode":
             self._dispatch_decode(d, Variant(*desc["variant"]),
                                   desc["chain_len"], desc["n_steps"])
@@ -864,13 +885,20 @@ class TorchEngine:
 
     # -- the replicas of a dp group ------------------------------------------ #
 
+    def _span(self, rows: int) -> Tuple[int, int]:
+        """(first row, rows) of this replica's block of a `rows`-row
+        layout: the whole of it without dp."""
+        if self.dp == 1:
+            return 0, rows
+        n = rows // self.dp
+        return self.group.replica * n, n
+
     def _block(self, d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """This replica's rows of a dispatch's inputs (every input is
         row-major): the whole of them without dp."""
         if self.dp == 1:
             return d
-        n = next(iter(d.values())).shape[0] // self.dp
-        lo = self.group.replica * n
+        lo, n = self._span(next(iter(d.values())).shape[0])
         return {k: t[lo:lo + n] for k, t in d.items()}
 
     def _partition(self, pages) -> Tuple[Optional[int], List[int]]:
@@ -1112,24 +1140,47 @@ class TorchEngine:
         samp_arrays = {"seeds": seeds, "ctr": counters, **samp}
         if self.dp > 1:  # every replica samples its own rows
             host.update(samp_arrays)
-        self._plan("prefill", arrays=host,
-                   variant=[v.penalized, v.with_top, v.greedy])
-        d = self._to_device({**host, **samp_arrays})
+        # the tower runs here, on the leader, before the plan: what the
+        # other ranks need of it rides the plan
         media.encode_pending(self, seqs)
+        mm = media.chunk_media(self, rows, S)
+        self._plan_prefill(host, v, mm)
+        d = self._to_device({**host, **samp_arrays})
         tok_d, packed = self._prefill_block(
             d, v, held=[it.seq for it in items
-                        if it.samples and it.seq.hold_pages],
-            **media.prefill_extras(self, items, S))
+                        if it.samples and it.seq.hold_pages], mm=mm)
         return tok_d, HostFetch(packed), v.with_top, rows
 
+    def _plan_prefill(self, host: Dict[str, np.ndarray], v: Variant,
+                      mm: Optional[Dict[str, Any]]) -> None:
+        """Send a prefill plan; a pass with media carries them (the rows'
+        embeddings as bytes, masks, rope streams), its bytes and the
+        send's host ms accounted in ``media_plan``."""
+        if self._lockstep is None:
+            return
+        t0 = time.perf_counter()
+        wire = None if mm is None else media.to_wire(mm)
+        self._plan("prefill", arrays=host, media=wire,
+                   variant=[v.penalized, v.with_top, v.greedy])
+        if wire is not None:
+            mp = self.media_plan
+            mp["chunks"] += 1
+            mp["bytes"] += int(wire["embeds"].nbytes + wire["mask"].nbytes
+                               + (wire["pos"].nbytes if "pos" in wire else 0))
+            mp["ms"] += (time.perf_counter() - t0) * 1e3
+
     def _prefill_block(self, d: Dict[str, torch.Tensor], v: Variant,
-                       held=(), **extras):
+                       held=(), mm=None):
         """Every rank's device half of a prefill pass: its replica's rows
-        through the model, the replicas' pools brought level, and the
-        rows sampled where their results go (the leader; each replica's
-        tensor rank 0 under dp).  Returns (tokens, packed) on the
-        leader, (None, None) elsewhere."""
+        through the model (with their media, `media.block_extras` of the
+        pass's `media.chunk_media`), the replicas' pools brought level,
+        and the rows sampled where their results go (the leader; each
+        replica's tensor rank 0 under dp).  Returns (tokens, packed) on
+        the leader, (None, None) elsewhere."""
         blk = self._block(d)
+        extras = media.block_extras(self, mm,
+                                     self._span(d["tokens"].shape[0]),
+                                     blk["prefix"])
         logits = self.model.forward_prefill(
             self.kv, blk["tokens"], blk["table"], blk["prefix"], blk["chunk"],
             **extras)

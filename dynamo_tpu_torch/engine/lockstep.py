@@ -23,7 +23,8 @@ one host:
   recovers as above; until ``recover`` the poisoned follower refuses
   every plan, so no rank streams tokens from a diverged pool;
 - the kinds: ``prefill`` (a prefill pass, also the prefill half of a
-  mixed dispatch), ``decode`` (one-step or multi-step blocks, a chain of
+  mixed dispatch; with media, the rows' embeddings, masks and M-RoPE
+  streams the leader's tower made: followers hold no tower), ``decode`` (one-step or multi-step blocks, a chain of
   them, also a mixed dispatch's decode half), ``spec`` (a speculative
   verify), ``embed``, ``kv_export`` (pages of every rank's pool joined
   into full kv heads, JAX's plan of that name), ``kv_import`` (full-head
@@ -142,8 +143,9 @@ class Leader:
         # plan out recovers the group
         self.open: Optional[str] = None
         # per rank: its kernel launches (the followers' as of the last
-        # `stats` or `shutdown` plan)
+        # `stats` or `shutdown` plan), and all it reported (`_own_stats`)
         self.rank_launches: Dict[int, Dict[str, int]] = {}
+        self.rank_stats: Dict[int, Dict[str, Any]] = {}
 
     def _bcast(self, desc: Dict[str, Any]) -> None:
         if self.lost:
@@ -170,9 +172,11 @@ class Leader:
         self._bcast({"kind": "recover"})
         self.group.rebuild()
 
-    def stats(self) -> Dict[int, Dict[str, int]]:
+    def stats(self, engine=None) -> Dict[int, Dict[str, int]]:
+        """Every rank's launches (the leader reports its `engine` beside
+        them); the rest of each rank's report lands in `rank_stats`."""
         self._bcast({"kind": "stats"})
-        self._take_stats(_gather(_own_stats()))
+        self._take_stats(_gather(_own_stats(engine)))
         return dict(self.rank_launches)
 
     def ipc_entries(self, own: Dict[str, Any]) -> List[Dict[str, Any]]:
@@ -196,6 +200,7 @@ class Leader:
         for rank, s in enumerate(per_rank):
             if s is not None:
                 self.rank_launches[rank] = s["launches"]
+                self.rank_stats[rank] = s
 
     def abort(self) -> None:
         """The leader failed to build its engine: the followers' handshake
@@ -236,10 +241,19 @@ def _own_ipc_entry(engine) -> Optional[Dict[str, Any]]:
         return None
 
 
-def _own_stats() -> dict:
+def _own_stats(engine=None) -> dict:
+    """This rank's kernel launches and, given its engine, the layout rows
+    of its recent media splices and the parameters of its vision tower
+    (none but the leader's)."""
     from ..ops._launches import LAUNCHES
 
-    return {"rank": dist.get_rank(), "launches": dict(LAUNCHES)}
+    out = {"rank": dist.get_rank(), "launches": dict(LAUNCHES)}
+    if engine is not None:
+        tower = engine.vision[0] if engine.vision else None
+        out["media_rows"] = list(engine.media_rows)
+        out["tower_params"] = (0 if tower is None else
+                               sum(p.numel() for p in tower.parameters()))
+    return out
 
 
 def start_group(pcfg: ParallelConfig, devices: Optional[Sequence],
@@ -247,16 +261,20 @@ def start_group(pcfg: ParallelConfig, devices: Optional[Sequence],
     """Spawn the followers of a dp x tp group and join it as rank 0:
     returns (TpGroup, [processes], each rank's device).  `follower_args`
     are what each follower needs to build its engine (pickled to it): the
-    model config, the model source, the engine config and the eos ids."""
+    model config, the model source, the engine config and the eos ids
+    (never a vision tower: the leader alone runs it).  The followers run
+    torch's host ops on as many threads as the leader: ranks sharing a
+    host's cores (the CPU groups) spin less in their collectives."""
     devs = group_devices(pcfg, devices)
     backend = choose_backend(devs)
     init = f"tcp://127.0.0.1:{free_port()}"
-    ctx = mp.get_context("spawn")
+    ctx = _follower_context()
     procs = []
     for rank in range(1, pcfg.world):
         spec = dict(follower_args, rank=rank, parallel=pcfg,
                     devices=[str(d) for d in devs], backend=backend,
-                    init_method=init, parent=os.getpid())
+                    init_method=init, env=dict(os.environ),
+                    threads=torch.get_num_threads())
         p = ctx.Process(target=follower_main, args=(spec,),
                         name=f"tp-follower-{rank}", daemon=True)
         p.start()
@@ -307,7 +325,25 @@ def handshake(ok: bool, what: str) -> None:
 # -- the followers ------------------------------------------------------------ #
 
 
-def _watch_parent(parent: int) -> None:
+def _follower_context():
+    """Followers start from a fork server that has imported the port once
+    (its first group starts it; later groups of the process reuse it), so
+    each follower forks with torch and the engine already imported, where
+    a spawned one would import them anew: seconds a rank.  Importing the
+    port touches no CUDA device, so a forked follower opens its own CUDA
+    context as a spawned one does.  A forked follower inherits the fork
+    server's environment: `follower_main` takes the leader's, as it was
+    when the group started."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["dynamo_tpu_torch.engine"])
+    return ctx
+
+
+def _watch_parent() -> None:
+    """Exit when this follower's parent goes: the leader, or the fork
+    server, which exits with the leader."""
+    parent = os.getppid()
+
     def loop():
         while True:
             time.sleep(1.0)
@@ -324,7 +360,10 @@ def follower_main(spec: Dict[str, Any]) -> None:
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
-    _watch_parent(spec["parent"])
+    os.environ.clear()
+    os.environ.update(spec["env"])
+    _watch_parent()
+    torch.set_num_threads(spec["threads"])
     rank, pcfg = spec["rank"], spec["parallel"]
     devs = [torch.device(d) for d in spec["devices"]]
     group = TpGroup(rank, pcfg.world, devs[rank], spec["backend"],
@@ -351,7 +390,7 @@ def follow(engine, group: TpGroup) -> None:
         desc = plan_unpack(broadcast_plan(b""))
         kind = desc["kind"]
         if kind in ("shutdown", "stats"):
-            _gather(_own_stats())
+            _gather(_own_stats(engine))
             if kind == "shutdown":
                 return
             continue

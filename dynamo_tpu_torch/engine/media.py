@@ -9,10 +9,22 @@
   [N, P, h] blob for CLIP, or a list of [P_i, h] blobs with their grids for
   Qwen).  Errors come back as strings: the engine streams them.
 - `encode_pending` runs the tower for the sequences of a prefill on the
-  step thread (between dispatches), once per sequence.
-- `prefill_extras` builds a chunk's ``extra_embeds`` / ``extra_mask`` and,
-  for M-RoPE models, its three rope streams (a chunk may cut an image run;
-  text rows of the batch get their sequential positions).
+  step thread (between dispatches), once per sequence; in a dp x tp group
+  only the leader holds a tower and runs it (JAX `_encode_mm` on the
+  leader, `dynamo_tpu/engine/engine.py:2794-2796`).
+- `chunk_media` collects a prefill pass's media (JAX `_mm_arrays`): for
+  each row whose sequence carries media, the chunk's slice of each run
+  (the masked positions only, in the model's dtype: the model casts the
+  embeddings to its own dtype before splicing them, so this is exact),
+  its mask and, for M-RoPE models, the row's three rope streams.
+  `to_wire` / `from_wire` carry it on a group's prefill plan as raw bytes
+  (`lockstep.plan_pack`), so every rank splices the leader's bits.
+- `block_extras` puts a replica's block of those rows on its device as the
+  forward's ``extra_embeds`` / ``extra_mask`` / ``mm_positions``: rows of
+  other replicas' blocks are not its to splice (JAX shards the embeddings
+  with the per-rank batch blocks, `engine.py:1544-1548`), and a block
+  without a media row takes the text variant (its rows rope text-style,
+  which equals M-RoPE with three equal streams bit for bit).
 - `rope_offsets` is the per-row delta every decode, block, chain and
   verify graph takes as a static input.
 """
@@ -195,43 +207,131 @@ def encode_pending(engine, seqs) -> None:
             s.mm_pixels = None
 
 
-def prefill_extras(engine, items, S: int) -> Dict[str, torch.Tensor]:
-    """A chunk's forward_prefill keywords: ``extra_embeds`` [B, S, h] and
-    ``extra_mask`` [B, S] covering every media run the chunk intersects
-    and, for M-RoPE models, ``mm_positions`` [B, 3, S].  Empty when no
-    row carries media."""
-    if not any(it.seq.mm_embeds is not None for it in items):
-        return {}
-    dev = engine.device
-    B = len(items)
-    h = engine.model_cfg.hidden_size
-    extra = torch.zeros((B, S, h), dtype=torch.float32, device=dev)
-    mask = np.zeros((B, S), bool)
+def _runs(s) -> List[tuple]:
+    """(offset, [P, h] embeddings) of each medium of `s`, by offset."""
+    per = (list(s.mm_embeds) if isinstance(s.mm_embeds, list)
+           else [s.mm_embeds[n] for n in range(s.mm_embeds.shape[0])])
+    return sorted(zip(s.mm_offsets, per), key=lambda r: r[0])
+
+
+def chunk_media(engine, rows, S: int) -> Optional[Dict[str, Any]]:
+    """The media of a prefill pass whose row layout is `rows` (PrefillItem
+    or None) and chunk width `S`, or None when no row carries media:
+    ``rows`` [M] the layout's media rows, ``mask`` [M, S] the positions
+    their embeddings replace, ``embeds`` [mask.sum(), h] those embeddings
+    in row-major mask order (on the engine's device, in the model's dtype)
+    and, for an M-RoPE model, ``pos`` [M, 3, S] int32 the rows' rope
+    streams."""
+    idx = [i for i, it in enumerate(rows)
+           if it is not None and it.seq.mm_embeds is not None]
+    if not idx:
+        return None
+    dev, dtype = engine.device, engine.model.dtype
     mrope = bool(engine.model_cfg.mrope_section)
-    pos = np.zeros((B, 3, S), np.int64) if mrope else None
-    for i, it in enumerate(items):
-        s = it.seq
-        lo, hi = it.chunk_start, it.chunk_start + it.chunk_len
+    mask = np.zeros((len(idx), S), bool)
+    pos = np.zeros((len(idx), 3, S), np.int32) if mrope else None
+    parts = []
+    for j, i in enumerate(idx):
+        it = rows[i]
+        s, lo, hi = it.seq, it.chunk_start, it.chunk_start + it.chunk_len
         if mrope:
             if s.mm_positions is not None:
-                w = min(hi, s.mm_positions.shape[1]) - lo
-                pos[i, :, :max(w, 0)] = s.mm_positions[:, lo:lo + max(w, 0)]
+                w = max(min(hi, s.mm_positions.shape[1]) - lo, 0)
+                pos[j, :, :w] = s.mm_positions[:, lo:lo + w]
             else:
-                pos[i, :, :] = lo + np.arange(S)
-        if s.mm_embeds is None:
-            continue
-        per = (list(s.mm_embeds) if isinstance(s.mm_embeds, list)
-               else [s.mm_embeds[n] for n in range(s.mm_embeds.shape[0])])
-        for emb, off in zip(per, s.mm_offsets):
+                pos[j, :, :] = lo + np.arange(S)
+        for off, emb in _runs(s):
             a, b = max(off, lo), min(off + emb.shape[0], hi)
             if b > a:
-                extra[i, a - lo:b - lo] = torch.as_tensor(
-                    emb[a - off:b - off], device=dev).float()
-                mask[i, a - lo:b - lo] = True
-    out = {"extra_embeds": extra,
-           "extra_mask": torch.from_numpy(mask).to(dev)}
+                parts.append(torch.as_tensor(emb[a - off:b - off],
+                                             device=dev).to(dtype))
+                mask[j, a - lo:b - lo] = True
+    h = engine.model_cfg.hidden_size
+    out = {"rows": np.asarray(idx, np.int64), "mask": mask,
+           "embeds": (torch.cat(parts) if parts
+                      else torch.zeros((0, h), dtype=dtype, device=dev))}
     if mrope:
-        out["mm_positions"] = torch.from_numpy(pos).to(dev)
+        out["pos"] = pos
+    return out
+
+
+def to_wire(mm: Dict[str, Any]) -> Dict[str, Any]:
+    """`chunk_media`'s result as host arrays for a plan: the embeddings as
+    their raw bytes with dtype and shape (bf16 has no numpy dtype)."""
+    e = mm["embeds"].contiguous()
+    out = {"rows": mm["rows"], "mask": mm["mask"],
+           "embeds": e.view(torch.uint8).cpu().numpy(),
+           "dtype": str(e.dtype).split(".")[-1], "shape": list(e.shape)}
+    if "pos" in mm:
+        out["pos"] = mm["pos"]
+    return out
+
+
+def from_wire(engine, w: Dict[str, Any]) -> Dict[str, Any]:
+    """A plan's media back on this rank's device, checked against what
+    the plan's mask and this model need (a malformed payload raises:
+    the follower refuses the plan)."""
+    rows, mask = np.asarray(w["rows"]), np.asarray(w["mask"], bool)
+    n, h = w["shape"]
+    if w["dtype"] != str(engine.model.dtype).split(".")[-1]:
+        raise ValueError(f"media embeddings in {w['dtype']}, the model "
+                         f"computes in {engine.model.dtype}")
+    if (mask.ndim != 2 or rows.shape != (mask.shape[0],)
+            or n != int(mask.sum()) or h != engine.model_cfg.hidden_size):
+        raise ValueError("a prefill plan's media rows, mask and embeddings "
+                         "disagree")
+    raw = torch.from_numpy(np.ascontiguousarray(w["embeds"]).reshape(-1))
+    out = {"rows": rows, "mask": mask,
+           "embeds": (raw.to(engine.device).view(engine.model.dtype)
+                      .reshape(n, h) if n else
+                      torch.zeros((0, h), dtype=engine.model.dtype,
+                                  device=engine.device))}
+    if "pos" in w:
+        pos = np.asarray(w["pos"])
+        if pos.shape != (mask.shape[0], 3, mask.shape[1]):
+            raise ValueError("a prefill plan's rope streams do not match its "
+                             "media rows")
+        out["pos"] = pos
+    return out
+
+
+def block_extras(engine, mm: Optional[Dict[str, Any]], span, prefix
+                 ) -> Dict[str, torch.Tensor]:
+    """The forward_prefill keywords of one replica's block of a pass: the
+    rows ``span`` = (first row, rows) of the layout, whose chunks start at
+    ``prefix`` (the block's [n] device tensor).  ``extra_embeds`` [n, S, h]
+    and ``extra_mask`` [n, S] splice in the block's media rows, and an
+    M-RoPE model's ``mm_positions`` [n, 3, S] give them their streams
+    (other rows of the block rope text-style: their sequential positions).
+    Empty when the block holds no media row.  Records (the block's rows,
+    the layout rows spliced) in ``engine.media_rows``."""
+    if mm is None:
+        return {}
+    lo, n = span
+    rows = mm["rows"]
+    keep = (rows >= lo) & (rows < lo + n)
+    if not keep.any():
+        return {}
+    engine.media_rows.append((n, [int(r) for r in rows[keep]]))
+    S = mm["mask"].shape[1]
+    counts = mm["mask"].sum(1)
+    start = np.concatenate([[0], np.cumsum(counts)])
+    first, last = np.flatnonzero(keep)[[0, -1]]
+    dev = engine.device
+    mask = np.zeros((n, S), bool)
+    mask[rows[keep] - lo] = mm["mask"][keep]
+    mask_d = torch.from_numpy(mask).to(dev)
+    extra = torch.zeros((n, S, engine.model_cfg.hidden_size),
+                        dtype=engine.model.dtype, device=dev)
+    extra[mask_d] = mm["embeds"][start[first]:start[last + 1]]
+    out = {"extra_embeds": extra, "extra_mask": mask_d}
+    if "pos" in mm:
+        pos = (prefix.long()[:, None, None]
+               + torch.arange(S, device=dev)[None, None, :]).expand(
+                   n, 3, S).clone()
+        pos[torch.from_numpy(rows[keep] - lo).to(dev)] = torch.from_numpy(
+            mm["pos"][keep].astype(np.int64)).to(dev)
+        out["mm_positions"] = pos
     return out
 
 

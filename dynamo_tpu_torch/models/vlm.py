@@ -173,9 +173,11 @@ def load_qwen_vl_vision_params(path: str, vcfg: Qwen2VLVisionConfig,
     return tree_into(qwen_vl_tower(vcfg, torch.float32, device), tree)
 
 
-def load_qwen_vl(path: str, dtype=torch.bfloat16, device=None) -> Tuple:
-    """A Qwen2-VL-layout checkpoint directory (either layout) → (llm,
-    llm_cfg, tower, vision_cfg); the tower in f32."""
+def load_qwen_vl_tower(path: str, device=None) -> Tuple:
+    """The tower of a Qwen2-VL-layout checkpoint directory (either layout)
+    and what its LLM needs → (tower, vision_cfg, llm_cfg, the LLM's tensor
+    name prefix); the tower in f32.  A tp group's leader loads this alone
+    and its ranks read their LLM shards (`parallel.CheckpointShards`)."""
     hf, llm_cfg = _hf_config(path)
     if not llm_cfg.mrope_section:
         raise ValueError("qwen2_vl config has no mrope_section")
@@ -192,6 +194,13 @@ def load_qwen_vl(path: str, dtype=torch.bfloat16, device=None) -> Tuple:
         raise ValueError("no qwen2-vl visual tower found in checkpoint")
     tower = load_qwen_vl_vision_params(path, vcfg, reader=r, prefix=vis_prefix,
                                        device=device)
-    llm = load_params(path, llm_cfg, dtype=dtype, prefix=llm_prefix, reader=r,
+    return tower, vcfg, llm_cfg, llm_prefix
+
+
+def load_qwen_vl(path: str, dtype=torch.bfloat16, device=None) -> Tuple:
+    """A Qwen2-VL-layout checkpoint directory (either layout) → (llm,
+    llm_cfg, tower, vision_cfg); the tower in f32."""
+    tower, vcfg, llm_cfg, llm_prefix = load_qwen_vl_tower(path, device)
+    llm = load_params(path, llm_cfg, dtype=dtype, prefix=llm_prefix,
                       device=device)
     return llm, llm_cfg, tower, vcfg

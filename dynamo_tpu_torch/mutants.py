@@ -9,10 +9,19 @@ also fail phase 16 (b)'s byte check, run in its copy on a transfer made in
 process (`chip_smoke.window_probe_main`).  A mutant of the engine's
 partitioned dispatch (`engine/engine.py`) is checked by phase 17's probe
 instead (`chip_smoke.py --dp-probe`: a partitioned dp 2 group against a
-flat engine), which must report problems.  Needs a CUDA card:
+flat engine), which must report problems; a mutant of a group's media
+(`engine/media.py`) by phase 18 (b)'s (`chip_smoke.py --vl-probe`: a
+partitioned dp 2 group serving Qwen2.5-VL-7B's images and video against
+a flat engine).  The card runs need a CUDA card:
 
     python3 -m dynamo_tpu_torch.mutants            # every mutant
     python3 -m dynamo_tpu_torch.mutants NAME ...   # some of them
+
+The media mutants (`CPU_CHECKED`) are also checked on the CPU, where
+their test file must fail in a copy of the package that carries the
+fault (one whose card probe cannot see it is checked there only):
+
+    python3 -m dynamo_tpu_torch.mutants --cpu [NAME ...]
 
 Prints one JSON line per mutant (caught or not, and each case's error
 relative to its tolerance, or for the byte-exact re-page cases the count
@@ -33,8 +42,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("dynamo_tpu_torch", "csrc")
 PA, GG, KT = "paged_attention.cu", "grouped_gemm.cu", "kv_transfer.cu"
 VA = "vision_attention.cu"
-# the engine, relative to the kernel sources
+# the engine and its media, relative to the kernel sources
 ENGINE = os.path.join("..", "engine", "engine.py")
+MEDIA = os.path.join("..", "engine", "media.py")
 
 # name -> (source file, a text of it, its faulty replacement); each text
 # occurs once
@@ -120,6 +130,14 @@ MUTANTS = {
         ENGINE, "        return {k: t[lo:lo + n] for k, t in d.items()}\n",
         "        return {k: t[(0 if k == 'table' and self._pooled else lo):][:n]\n"
         "                for k, t in d.items()}\n"),
+    # a dp group's prefill with media: replica 1 splices the media rows of
+    # replica 0's block into its own rows (and none of its own)
+    "replica 1 receives replica 0's block of media rows": (
+        MEDIA, "    lo, n = span\n", "    lo, n = 0, span[1]\n"),
+    # a group's prefill plan without the rows' M-RoPE streams: the
+    # followers rope a media row text-style, the leader by its streams
+    "followers rope a media row text-style (the plan drops the M-RoPE streams)": (
+        MEDIA, '    if "pos" in mm:\n        out["pos"] = mm["pos"]\n', ""),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
@@ -130,6 +148,22 @@ BYTE_CHECKED = ("re-page shifts the source head window by one head",)
 # the mutants phase 17's dp probe must see (phase 3 runs no engine)
 _DP_PROBE = "import sys, chip_smoke; sys.argv[1:] = ['--dp-probe']; sys.exit(chip_smoke.main())"
 DP_CHECKED = ("partitioned dispatch hands replica 1 replica 0's page table",)
+# the mutants phase 18 (b)'s vision probe must see
+_VL_PROBE = "import sys, chip_smoke; sys.argv[1:] = ['--vl-probe']; sys.exit(chip_smoke.main())"
+VL_CHECKED = ("replica 1 receives replica 0's block of media rows",)
+# the engine mutants the CPU tests must see: name -> the test file that
+# fails in a copy carrying the fault.  Dropping the M-RoPE streams moved
+# phase 18 (b)'s probe rows only within a near-tie (0.44 std at 2 layers
+# on an H100), so the CPU tests, which hold a group's tokens to JAX's
+# exactly, are its check.
+CPU_CHECKED = {
+    "replica 1 receives replica 0's block of media rows":
+        os.path.join("tests", "test_torch_tp_vision.py"),
+    "followers rope a media row text-style (the plan drops the M-RoPE streams)":
+        os.path.join("tests", "test_torch_tp_vision.py"),
+}
+CARD_CHECKED = [n for n in MUTANTS
+                if n not in CPU_CHECKED or n in VL_CHECKED]
 
 
 def _copy(name: str) -> str:
@@ -154,8 +188,38 @@ def _py(code: str, cwd: str) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, timeout=900)
 
 
+def cpu_main(names) -> int:
+    """Each named mutant of `CPU_CHECKED` (all by default) in a copy of
+    the package beside links to this checkout's JAX package and tests:
+    its test file must fail there (pytest's exit code 1: tests ran and
+    some failed)."""
+    missed = 0
+    for n in names or list(CPU_CHECKED):
+        tmp = _copy(n)
+        try:
+            for link in ("dynamo_tpu", "tests"):
+                os.symlink(os.path.join(ROOT, link), os.path.join(tmp, link))
+            proc = subprocess.run(
+                [sys.executable, "-m", "pytest", CPU_CHECKED[n], "-q",
+                 "-p", "no:cacheprovider"], cwd=tmp, capture_output=True,
+                text=True, timeout=1800, env={**os.environ,
+                                              "JAX_PLATFORMS": "cpu"})
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        failed = [ln.split()[1] for ln in proc.stdout.splitlines()
+                  if ln.startswith("FAILED ")]
+        caught = proc.returncode == 1 and bool(failed)
+        missed += not caught
+        print(json.dumps({"mutant": n, "caught": caught, "rc": proc.returncode,
+                          "failed": failed}), flush=True)
+    return 1 if missed else 0
+
+
 def main(argv=None) -> int:
-    names = (argv if argv is not None else sys.argv[1:]) or list(MUTANTS)
+    argv = list(argv if argv is not None else sys.argv[1:])
+    if argv[:1] == ["--cpu"]:
+        return cpu_main(argv[1:])
+    names = argv or CARD_CHECKED
     dirs = {n: _copy(n) for n in names}
     try:
         with ThreadPoolExecutor(max_workers=len(names)) as ex:
@@ -165,15 +229,19 @@ def main(argv=None) -> int:
             if builds[n].returncode != 0:
                 raise RuntimeError(f"mutant {n!r} did not build:\n{builds[n].stderr[-3000:]}")
             probe = None
-            if n in DP_CHECKED:
-                p2 = _py(_DP_PROBE, dirs[n])
+            for checked, code, key in ((DP_CHECKED, _DP_PROBE, "dp_probe"),
+                                       (VL_CHECKED, _VL_PROBE, "vl_probe")):
+                if n not in checked:
+                    continue
+                p2 = _py(code, dirs[n])
                 lines = [json.loads(ln) for ln in p2.stdout.splitlines()
-                         if ln.startswith('{"dp_probe"')]
-                probe = lines[-1]["dp_probe"] if lines else {"rc": p2.returncode}
+                         if ln.startswith('{"%s"' % key)]
+                probe = lines[-1][key] if lines else {"rc": p2.returncode}
                 caught = bool(probe.get("problems")) or p2.returncode != 0
                 missed += not caught
                 print(json.dumps({"mutant": n, "caught": caught,
-                                  "dp_probe": probe}), flush=True)
+                                  key: probe}), flush=True)
+            if probe is not None:
                 continue
             proc = _py(_PHASE3, dirs[n])  # one at a time: phase 3 times kernels
             cases = [json.loads(ln) for ln in proc.stdout.splitlines()

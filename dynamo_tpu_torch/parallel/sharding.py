@@ -201,11 +201,14 @@ class TreeShards:
 @dataclass(frozen=True)
 class CheckpointShards:
     """A rank's shard of an HF checkpoint directory: the port's loader
-    reads it onto the CPU, then the rank keeps its slices."""
+    reads it onto the CPU, then the rank keeps its slices.  `prefix`
+    namespaces the LLM's tensor names (a re-nested Qwen-VL checkpoint's
+    ``model.language_``)."""
 
     cfg: Any
     path: str
     dtype: str = "bfloat16"
+    prefix: str = ""
 
     def __call__(self, rank: int, tp: int, device):
         import torch
@@ -214,7 +217,7 @@ class CheckpointShards:
         from ..models.loader import load_params
 
         full = load_params(self.path, self.cfg, dtype=getattr(torch, self.dtype),
-                           device="cpu")
+                           prefix=self.prefix, device="cpu")
         return shard_model(full, rank, tp, device)
 
 

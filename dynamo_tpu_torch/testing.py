@@ -1,6 +1,6 @@
 """Test data of the port: the tiny byte-level tokenizer, a seeded
-byte-level BPE tokenizer of any vocabulary size, and `sharpen` for random
-weights.
+byte-level BPE tokenizer of any vocabulary size, `sharpen` for random
+weights, and `host_threads` for CPU groups.
 
 Both are written as ``tokenizer.json`` documents, so the HF `tokenizers`
 runtime and the port's `llm.tokenizer` read the same bytes.
@@ -8,6 +8,7 @@ runtime and the port's `llm.tokenizer` read the same bytes.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 from typing import Dict, List, Optional
@@ -188,3 +189,21 @@ def sharpen(model, tower=None, probe_seed: int = 0) -> None:
     scale = (rms(model.embed) / rms(emb)).item()
     tower.p("merge_w2").mul_(scale)
     tower.p("merge_b2").mul_(scale)
+
+
+@contextlib.contextmanager
+def host_threads(n: int):
+    """Run torch's host ops on `n` intra-op threads inside the block, the
+    count before it restored after.  A dp x tp group's followers take
+    their leader's count when they start (`engine.lockstep.start_group`),
+    so a CPU group built inside ``host_threads(1)`` runs one thread a
+    rank: its ranks share the host's cores, and idle intra-op threads
+    spinning beside every gloo collective slowed each step several times
+    over.  The count is process-wide (other libraries' OpenMP work in the
+    process shares it), hence a block and not a setting."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)

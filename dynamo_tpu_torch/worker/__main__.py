@@ -50,9 +50,12 @@ replicated over the replicas or, with ``--kv-partition``, partitioned
 later slices.  Multimodal models serve image and
 video chats: a qwen-vl checkpoint directory or ``qwen2.5-vl-7b`` brings
 its tower, ``--vision tiny`` pairs a tiny CLIP tower with ``--model
-tiny``; ``--disagg-role encode`` serves only the tower (component
-``encoder``), and a serving worker with ``--encode-component encoder``
-sends its media there and carries no tower.  ``--disagg-role prefill``
+tiny`` or a checkpoint; ``--disagg-role encode`` serves only the tower
+(component ``encoder``), and a serving worker with ``--encode-component
+encoder`` sends its media there and carries no tower.  Under ``--tp`` /
+``--dp`` the tower is loaded on the leader alone (its ranks build only
+their LLM shards), and media chats and ``--encode-component`` are served
+as on one device.  ``--disagg-role prefill``
 serves a prefill-only worker (component ``prefill``, its KV layout and
 data plane registered), ``--disagg-role decode`` wraps the engine in the
 disagg decode handler (long prompts prefill remotely, through the router
@@ -288,15 +291,25 @@ def build_engine(args):
     dtype = getattr(torch, args.dtype or (
         "float32" if args.model == "tiny" else "bfloat16"))
     offload = bool(getattr(args, "encode_component", ""))
+    # a group's tower lives on its leader (rank 0) alone
+    tower_dev = torch.device(tp_devices[0]) if tp_devices else device
     tower, vcfg, media = None, None, {}
     if os.path.isdir(args.model):
         cfg = ModelConfig.from_pretrained(args.model)
         tok = HuggingFaceTokenizer.from_pretrained(args.model)
         if cfg.model_type in ("qwen2_vl", "qwen2_5_vl"):
-            from ..models.vlm import load_qwen_vl
+            from ..models.vlm import load_qwen_vl, load_qwen_vl_tower
 
-            model, cfg, tower, vcfg = load_qwen_vl(args.model, dtype=dtype,
-                                                  device=device)
+            if parallel is not None:
+                from ..parallel import CheckpointShards
+
+                tower, vcfg, cfg, prefix = load_qwen_vl_tower(
+                    args.model, device=tower_dev)
+                model = CheckpointShards(cfg, args.model,
+                                         str(dtype).split(".")[-1], prefix)
+            else:
+                model, cfg, tower, vcfg = load_qwen_vl(args.model, dtype=dtype,
+                                                      device=device)
             with open(os.path.join(args.model, "config.json")) as f:
                 img_id = json.load(f).get("image_token_id", 151655)
             # decode() skips special tokens (the placeholder is one)
@@ -312,6 +325,17 @@ def build_engine(args):
             model = CheckpointShards(cfg, args.model, str(dtype).split(".")[-1])
         else:
             model = load_params(args.model, cfg, dtype=dtype, device=device)
+        if vcfg is None and (args.vision or offload):
+            # the tiny CLIP tower (or, for an encode worker's media, its
+            # geometry) beside any checkpoint, as the JAX worker pairs it
+            image_ids = tok.encode("<image>")
+            if len(image_ids) != 1:
+                raise SystemExit("--vision tiny needs a tokenizer with a "
+                                 "single-token <image> marker")
+            vcfg = tiny_vision_config(out_hidden_size=cfg.hidden_size)
+            tower = init_vision_params(vcfg, torch.Generator(
+                device=tower_dev).manual_seed(args.seed + 1), device=tower_dev)
+            media = _media_card(vcfg, "<image>", image_ids[0])
     else:
         if args.model == "tiny":
             tok = tiny_tokenizer()
@@ -336,18 +360,30 @@ def build_engine(args):
             model = init_params(cfg, gen, dtype=dtype, device=device)
         # the tower draws from a generator of its own, so cutting the
         # LLM's depth (an encode worker's) leaves it unchanged
-        vgen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        vgen = torch.Generator(device=tower_dev).manual_seed(args.seed + 1)
         if args.model in MEDIA_TOKENS:
             vcfg = vision_config(args.model)
-            tower = init_qwen_vl_vision_params(vcfg, vgen, device=device)
+            tower = init_qwen_vl_vision_params(vcfg, vgen, device=tower_dev)
             img_id = MEDIA_TOKENS[args.model]["image_token_id"]
             media = _media_card(vcfg, MEDIA_SPECIALS[args.model][img_id], img_id)
         elif args.vision or (offload and args.model == "tiny"):
             vcfg = tiny_vision_config(out_hidden_size=cfg.hidden_size)
-            tower = init_vision_params(vcfg, vgen, device=device)
+            tower = init_vision_params(vcfg, vgen, device=tower_dev)
             media = _media_card(vcfg, "<image>", tok.encode("<image>")[0])
+        qwen_tower = tower if media.get("mm_arch") == "qwen2_vl" else None
         if args.sharpen and parallel is None:
-            sharpen(model, tower if media.get("mm_arch") == "qwen2_vl" else None)
+            sharpen(model, qwen_tower)
+        elif args.sharpen and qwen_tower is not None:
+            # the tower's scale reads the whole sharpened embedding, which
+            # no rank holds: draw the flat model once on the leader's
+            # device, as the ranks draw it, then let it go
+            flat = init_params(cfg, torch.Generator(device=tower_dev)
+                               .manual_seed(args.seed), dtype=dtype,
+                               device=tower_dev)
+            sharpen(flat, qwen_tower)
+            del flat
+            if tower_dev.type == "cuda":
+                torch.cuda.empty_cache()
     if offload:
         tower = None  # media go to the encode worker; keep the geometry
     eos = list(tok.eos_token_ids)
@@ -494,19 +530,13 @@ def check_role(args) -> None:
             if bad:
                 raise SystemExit(f"--dp-ranks > 1 is incompatible with {flag}")
     for axis in ("tp", "dp"):
-        if getattr(args, axis) <= 1:
-            continue
-        # a dp x tp group serves generate, embed and every KV move
-        # (parking, KVBM tiers, the disagg roles); these stack engines or
-        # put media on the plans
-        for bad, flag, item in [
-            (args.dp_ranks > 1, "--dp-ranks", "2.2b.4"),
-            (bool(args.encode_component), "--encode-component", "2.2b.3"),
-            (multimodal, "a vision tower", "2.2b.3"),
-        ]:
-            if bad:
-                raise SystemExit(f"--{axis} > 1 with {flag} is not served "
-                                 f"yet (ROADMAP {item})")
+        # a dp x tp group serves generate, embed, media (the tower on the
+        # leader, or an encode worker's embeddings) and every KV move
+        # (parking, KVBM tiers, the disagg roles); --dp-ranks would stack
+        # engines on it
+        if getattr(args, axis) > 1 and args.dp_ranks > 1:
+            raise SystemExit(f"--{axis} > 1 with --dp-ranks is not served "
+                             f"yet (ROADMAP 2.2b.4)")
     if args.disagg_role == "prefill" and args.device != "cpu":
         from ..disagg.device_transfer import expandable_segments
 

@@ -34,6 +34,7 @@ from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.models import config as tcfg
 from dynamo_tpu_torch.parallel import ParallelConfig, TreeShards, check_ported
 from dynamo_tpu_torch.parallel.sharding import save_tree
+from dynamo_tpu_torch.testing import host_threads
 from dynamo_tpu_torch.worker.__main__ import (
     build_parser,
     check_role,
@@ -167,10 +168,11 @@ def port_runs(weights):
             return done[layout]
         _, _, cfg_t, source = weights
         dp, tp, part = LAYOUTS[layout]
-        engine = TorchEngine(cfg_t, source,
-                             EngineConfig(**ECFG, kv_partition=part),
-                             parallel=ParallelConfig(dp=dp, tp=tp),
-                             devices=["cpu"] * (dp * tp))
+        with host_threads(1):  # the followers take the leader's count
+            engine = TorchEngine(cfg_t, source,
+                                 EngineConfig(**ECFG, kv_partition=part),
+                                 parallel=ParallelConfig(dp=dp, tp=tp),
+                                 devices=["cpu"] * (dp * tp))
         pages = {}
         _record_pages(engine.scheduler, pages)
         prompts = _prompts(cfg_t)
@@ -189,7 +191,8 @@ def port_runs(weights):
             finally:
                 await engine.shutdown()
 
-        tokens, reads, whole, m = asyncio.run(run())
+        with host_threads(1):
+            tokens, reads, whole, m = asyncio.run(run())
         done[layout] = {"tokens": tokens,
                         "pages": [pages[tuple(p)] for p in prompts],
                         "reads": reads, "whole": whole, "metrics": m}
@@ -348,15 +351,39 @@ def _worker_args(*flags):
     return build_parser().parse_args(["--control", "127.0.0.1:1", *flags])
 
 
+def _vision_group():
+    """A dp 2 group with a tiny CLIP tower builds, the tower on its leader
+    alone (vision under dp is served: tests/test_torch_tp_vision.py)."""
+    from dynamo_tpu_torch.models import vision as tv
+    from dynamo_tpu_torch.parallel import SeededShards
+    from dynamo_tpu_torch.testing import host_threads
+
+    cfg = tcfg.tiny_config()
+    vcfg = tv.tiny_vision_config(out_hidden_size=cfg.hidden_size)
+    tower = tv.init_vision_params(vcfg, torch.Generator().manual_seed(1),
+                                  device="cpu")
+
+    async def reports(eng):
+        try:
+            return await eng.group_reports()
+        finally:
+            await eng.shutdown()
+
+    with host_threads(1):
+        eng = TorchEngine(cfg, SeededShards(cfg, 0, "float32"),
+                          EngineConfig(**ECFG), parallel=ParallelConfig(dp=2),
+                          devices=["cpu"] * 2, vision=(tower, vcfg))
+        got = asyncio.run(reports(eng))
+    assert [got[r]["tower_params"] > 0 for r in (0, 1)] == [True, False]
+
+
 @pytest.mark.parametrize("call, error, match", [
     # a partitioned pool needs replicas to partition over (JAX's message)
     (lambda: TorchEngine(tcfg.tiny_config(), None,
                          EngineConfig(**ECFG, kv_partition=True), device="cpu"),
      ValueError, r"kv_partition requires a serving mesh"),
-    (lambda: TorchEngine(tcfg.tiny_config(), None, EngineConfig(**ECFG),
-                         parallel=ParallelConfig(dp=2), devices=["cpu"] * 2,
-                         vision=(None, object())),
-     ValueError, "ROADMAP 2.2b.3"),
+    # served since the tower moved to the leader (no error: it builds)
+    (_vision_group, None, None),
     (lambda: check_role(_worker_args("--dp", "2", "--dp-ranks", "2")),
      SystemExit, r"--dp > 1 with --dp-ranks .*ROADMAP 2.2b.4"),
     (lambda: parallel_from_args(_worker_args("--dp", "2", "--tp", "2",
@@ -366,7 +393,11 @@ def _worker_args(*flags):
 ], ids=["kv_partition_without_dp", "vision_under_dp", "dp_ranks_with_dp",
         "devices_of_another_group", "dp_with_pp"])
 def test_dp_refusals(call, error, match):
-    """What a dp group still refuses, each before a follower is spawned."""
+    """What a dp group still refuses, each before a follower is spawned;
+    a case without an error is served now and must build."""
+    if error is None:
+        call()
+        return
     with pytest.raises(error, match=match):
         call()
 

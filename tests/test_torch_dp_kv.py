@@ -51,6 +51,7 @@ from dynamo_tpu_torch.models import config as tcfg
 from dynamo_tpu_torch.models import params_from_jax
 from dynamo_tpu_torch.parallel import ParallelConfig, TreeShards
 from dynamo_tpu_torch.parallel.sharding import save_tree
+from dynamo_tpu_torch.testing import host_threads
 
 DP = 2
 # JAX's pooled tests' engine (`tests/test_pooled_engine.py` make_engine)
@@ -349,8 +350,10 @@ def scenarios(weights):
         finally:
             await eng.shutdown()
 
-    for step in (capacity, prefix_and_prefill, decode_side, mixed, moves):
-        asyncio.run(step())
+    # one thread a rank (the followers take the leader's count)
+    with host_threads(1):
+        for step in (capacity, prefix_and_prefill, decode_side, mixed, moves):
+            asyncio.run(step())
     return out
 
 
@@ -460,10 +463,11 @@ def test_moe_on_a_partitioned_dp_tp_group_matches_jax(weights):
             await eng.shutdown()
 
     want = asyncio.run(run(jeng))
-    eng = TorchEngine(tcfg.tiny_moe_config(), source, EngineConfig(**ecfg),
-                      eos_token_ids=[], parallel=ParallelConfig(dp=DP, tp=2),
-                      devices=["cpu"] * 4)
-    assert asyncio.run(run(eng)) == want
+    with host_threads(1):
+        eng = TorchEngine(tcfg.tiny_moe_config(), source, EngineConfig(**ecfg),
+                          eos_token_ids=[], parallel=ParallelConfig(dp=DP, tp=2),
+                          devices=["cpu"] * 4)
+        assert asyncio.run(run(eng)) == want
 
 
 # -- the pool and the scheduler over it, op for op ------------------------------ #
@@ -619,7 +623,6 @@ def test_worker_serves_a_partitioned_dp_tp_group(tmp_path):
         "--dp", "2", "--tp", "2", "--kv-partition", "--device", "cpu",
         "--num-pages", "32", "--max-model-len", "128"])
     check_role(args)
-    engine, _ = build_engine(args)
 
     async def run():
         try:
@@ -628,7 +631,9 @@ def test_worker_serves_a_partitioned_dp_tp_group(tmp_path):
         finally:
             await engine.shutdown()
 
-    toks, m = asyncio.run(run())
+    with host_threads(1):
+        engine, _ = build_engine(args)
+        toks, m = asyncio.run(run())
     assert len(toks) == 4
     assert (m.dp, m.tp, m.kv_partition, m.kv_total_pages) == (2, 2, True, 62)
     text = engine_stats_exposition(vars(m), "dynamo", "backend").decode()

@@ -20,3 +20,14 @@ def test_mutant_text_occurs_once(name):
         src = f.read()
     assert src.count(old) == 1
     assert old != new
+
+
+def test_cpu_checked_mutants_name_their_test_files():
+    """Each mutant the CPU tests must see is a mutant of the table, its
+    test file exists, and the card runner takes every other mutant and
+    those its probes see."""
+    for name, test in mutants.CPU_CHECKED.items():
+        assert name in mutants.MUTANTS
+        assert os.path.exists(os.path.join(mutants.ROOT, test))
+    assert set(mutants.CARD_CHECKED) == (
+        set(mutants.MUTANTS) - set(mutants.CPU_CHECKED)) | set(mutants.VL_CHECKED)

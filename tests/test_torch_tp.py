@@ -138,25 +138,55 @@ def test_engine_refusals(over, tp_cfg, match):
 
 
 @pytest.mark.parametrize("kw, match", [
-    ({"vision": (None, object())}, "vision"),
+    ({"vision": "tiny"}, "vision"),
 ])
 def test_engine_refuses_vision(kw, match):
+    """Vision is served under tp since the tower moved to the leader (the
+    refusal this case held is gone): a tp group with a tiny CLIP tower
+    builds, the tower on the leader alone.  Its media chats against JAX's
+    meshed engine: tests/test_torch_tp_vision.py."""
+    import asyncio
+
+    from dynamo_tpu_torch.models import vision as tv
+    from dynamo_tpu_torch.testing import host_threads
+
     cfg = tcfg.tiny_config()
-    with pytest.raises(ValueError, match=match):
-        TorchEngine(cfg, SeededShards(cfg, 0, "float32"),
-                    EngineConfig(page_size=8, num_pages=32, max_model_len=64),
-                    parallel=ParallelConfig(tp=TP), devices=["cpu"] * TP, **kw)
+    vcfg = tv.tiny_vision_config(out_hidden_size=cfg.hidden_size)
+    tower = tv.init_vision_params(vcfg, torch.Generator().manual_seed(1),
+                                  device="cpu")
+    assert kw["vision"] == "tiny" and match == "vision"
+
+    async def reports(eng):
+        try:
+            return await eng.group_reports()
+        finally:
+            await eng.shutdown()
+
+    with host_threads(1):
+        eng = TorchEngine(cfg, SeededShards(cfg, 0, "float32"),
+                          EngineConfig(page_size=8, num_pages=32, max_model_len=64),
+                          parallel=ParallelConfig(tp=TP), devices=["cpu"] * TP,
+                          vision=(tower, vcfg))
+        got = asyncio.run(reports(eng))
+    assert got[0]["tower_params"] == sum(p.numel() for p in tower.parameters())
+    assert got[1]["tower_params"] == 0
 
 
 @pytest.mark.parametrize("flags, match", [
     (["--tp", "2", "--dp-ranks", "2"], "--dp-ranks"),
-    (["--tp", "2", "--encode-component", "encoder"], "--encode-component"),
-    (["--tp", "2", "--vision", "tiny"], "vision"),
+    (["--tp", "2", "--encode-component", "encoder"], None),
+    (["--tp", "2", "--vision", "tiny"], None),
 ], ids=["dp_ranks", "encode_component", "vision"])
 def test_worker_refuses_with_tp(flags, match):
+    """--dp-ranks stays refused with --tp (ROADMAP 2.2b.4); media under tp
+    (a tower on the leader, or an encode worker's embeddings) are taken
+    since vision moved to the leader (match None: no refusal)."""
     from dynamo_tpu_torch.worker.__main__ import build_parser, check_role
 
     args = build_parser().parse_args(["--control", "127.0.0.1:1", *flags])
+    if match is None:
+        check_role(args)
+        return
     with pytest.raises(SystemExit, match=match):
         check_role(args)
 

@@ -215,6 +215,27 @@ def _tp_engine(**over):
                        **over)
 
 
+def _vision_group():
+    """A tp group with a tiny CLIP tower builds, the tower on its leader
+    alone (vision under tp is served: tests/test_torch_tp_vision.py)."""
+    from dynamo_tpu_torch.models import vision as tv
+    from dynamo_tpu_torch.testing import host_threads
+
+    vcfg = tv.tiny_vision_config(out_hidden_size=tiny_config().hidden_size)
+    tower = tv.init_vision_params(vcfg, torch.Generator().manual_seed(1),
+                                  device="cpu")
+
+    async def reports(eng):
+        try:
+            return await eng.group_reports()
+        finally:
+            await eng.shutdown()
+
+    with host_threads(1):
+        got = asyncio.run(reports(_tp_engine(vision=(tower, vcfg))))
+    assert [got[r]["tower_params"] > 0 for r in (0, 1)] == [True, False]
+
+
 def _worker_check(*flags):
     from dynamo_tpu_torch.worker.__main__ import build_parser, check_role
 
@@ -222,7 +243,8 @@ def _worker_check(*flags):
 
 
 @pytest.mark.parametrize("call, error, match", [
-    (lambda: _tp_engine(vision=(None, object())), ValueError, "ROADMAP 2.2b.3"),
+    # served since the tower moved to the leader (no error: it builds)
+    (_vision_group, None, None),
     (lambda: _worker_check("--tp", "2", "--dp-ranks", "2"), SystemExit,
      "ROADMAP 2.2b.4"),
     # meshed dp is served (tests/test_torch_dp.py): dp x tp with sp is not
@@ -233,6 +255,11 @@ def _worker_check(*flags):
      r"kv_partition requires a serving mesh \(ParallelConfig with dp\*sp > 1\)"),
 ], ids=["vision", "dp_ranks", "meshed_dp", "kv_partition"])
 def test_what_stays_refused_names_its_item(call, error, match):
+    """Each refusal names its roadmap item; a case without an error is
+    served now and must build."""
+    if error is None:
+        call()
+        return
     with pytest.raises(error, match=match):
         call()
 
