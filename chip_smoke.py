@@ -389,6 +389,31 @@ final line):
    a flat engine alone: the mutation check runs it in copies whose
    replica 1 splices replica 0's media rows, or whose plan drops the
    M-RoPE streams.
+19. Pipeline parallelism (after 17, phase 4's 8B drawn again from its
+   seed; the ranks sharing the card over gloo, eagerly; 4-step decode
+   blocks, so each decode dispatch is a ring whose last stage hands
+   tokens back to stage 0).  Every reference row comes from a flat
+   engine's own decode path.  (a) Phase 4's engine serves a penalized
+   and a top-logprobs (3) request; the same model through the pipeline
+   path at one stage serves phase 4's wave, bit-equal to phase 4's rows;
+   then phase 4's 8B at full width and all 32 layers on a pp 2 group (16
+   layers a stage) serves all seven at once, against phase 4's rows and
+   the flat engine's two up to near-ties (the penalized row's margin
+   with its penalties); tokens/s and TTFT beside phase 4's and the one
+   stage's, each stage's launches of both attention kernels, the
+   handoffs' count and bytes per dispatch.
+   (b) Llama-3-70B's published widths at PP_70B_LAYERS (4) layers on pp
+   2 x tp 2 (4 ranks) against its flat twin's engine at that depth.  (c) dp 2 x
+   pp 2, the pool partitioned (phase 17's 160 pages a partition), the 8B
+   at CUT_LAYERS layers: phase 17 (b)'s wave against phase 15 (a)'s twin,
+   phase 17 (c)'s parked victim and host-tier onboard, the onboarded
+   pages (every layer, exported from the group) byte-equal to the flat
+   twin's pages of the same prompt.  (d) ``python -m
+   dynamo_tpu_torch.worker --pp 2 --tp 2`` (built while (a)-(c) run)
+   behind a frontend answers phase 4's A_64 over HTTP, the twin's tokens
+   up to a near-tie.  ``python3 chip_smoke.py --pp-probe`` runs (a) at
+   PP_PROBE_LAYERS layers: the mutation check runs it in a copy whose
+   ring hands stage 0 the previous step's token.
 
 On the card every decode block is a replayed CUDA graph (a group's
 blocks run eagerly: gloo's collectives cannot be captured); the wrappers
@@ -397,7 +422,8 @@ launches at every replay.  Every JSON line is also written to
 ``chip_smoke.jsonl`` in the output directory below, for the lines a
 terminal's scrollback loses.  Launch counts are read per path (phases 4, 6
 and 7, each arm of 8, 9, 10, 11, 12 and 13, 14 (a) and (c), 16 (a) and
-each case of (b), 17 (a)-(c), 18 (a)-(b), each zeroed just before it): the
+each case of (b), 17 (a)-(c), 18 (a)-(b), 19 (a)-(c), each zeroed just
+before it): the
 kernel summary line's ``launches`` are those of the HTTP traffic, the
 main path, for the attention kernels, of phase 11's one-step gpt-oss
 serving for the grouped GEMM and the fused gate||up, of phase 12
@@ -406,8 +432,9 @@ after the measured round) for the KV re-page, and of phase 13 (c)'s
 one-step Qwen2.5-VL-7B engine, this slice's path, for the segment
 attention; the prefill entry adds its launches on phase 14 (a)'s
 embeddings path, and ``launches_by_path`` each rank's of phases 15,
-16, 17 and 18 (the followers' read from their own registries at the
-group's stats plan).  Then the timing line (each phase's seconds, the helpers'
+16, 17, 18 and 19 (the followers' read from their own registries at the
+group's stats plan).  After phases 17 and 19 a ``children`` line lists
+the child processes still there.  Then the timing line (each phase's seconds, the helpers'
 inside them, and the total: what each path costs of the 1200 s limit),
 the kernel summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Long compiler output goes to
@@ -421,6 +448,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -2058,7 +2086,11 @@ def _stream_wave(port, bodies):
 
 def stream_client_main(argv) -> int:
     """``chip_smoke.py --stream-client PORT BODIES.json``: phase 7's SSE
-    wave from a client process of its own, printed as one JSON line."""
+    wave from a client process of its own, printed as one JSON line.
+    With ``-`` for both, the client reads ``PORT BODIES.json`` from a line
+    of its standard input (started early: its imports take seconds)."""
+    if argv[:1] == ["-"]:
+        argv = sys.stdin.readline().split()
     port, path = int(argv[0]), argv[1]
     with open(path) as f:
         bodies = json.load(f)
@@ -2088,13 +2120,16 @@ def phase_http(model, cfg, direct):
     from dynamo_tpu_torch.llm import ModelDeploymentCard, StreamPostprocessor
     from dynamo_tpu_torch.ops import cuda_attention as ca
     from dynamo_tpu_torch.runtime import DistributedRuntime
-    from dynamo_tpu_torch.testing import synthetic_tokenizer
     from dynamo_tpu_torch.worker import serve_engine
 
+    # the stream clients of the two HTTP waves start now: their imports
+    # take seconds, and they wait for their port on standard input
+    clients = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--stream-client", "-"], cwd=ROOT,
+                                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                text=True) for _ in range(2)]
     t_tok = time.perf_counter()
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    tok_path = os.path.join(ROOT, "build", "llama3_synthetic_tokenizer.json")
-    tok = synthetic_tokenizer(cfg.vocab_size, SEED, path=tok_path)
+    tok = llama_tokenizer(cfg)
     t_tok = time.perf_counter() - t_tok
     if tok.vocab_size != cfg.vocab_size:
         fail(f"synthetic tokenizer has {tok.vocab_size} ids, not {cfg.vocab_size}")
@@ -2156,14 +2191,15 @@ def phase_http(model, cfg, direct):
         async def client_wave(port):
             """The SSE wave from a client process of its own, as users
             connect (client threads here would contend for this
-            process's GIL with the engine's step thread)."""
-            client = await asyncio.create_subprocess_exec(
-                sys.executable, os.path.abspath(__file__), "--stream-client",
-                str(port), bodies_path, stdout=asyncio.subprocess.PIPE)
-            stdout, _ = await asyncio.wait_for(client.communicate(), 600)
+            process's GIL with the engine's step thread); the client was
+            started with the phase and is told its port now."""
+            client = clients.pop(0)
+            stdout, _ = await loop.run_in_executor(
+                pool, lambda: client.communicate(f"{port} {bodies_path}\n",
+                                                 timeout=600))
             if client.returncode != 0:
                 fail(f"http: the stream client exited {client.returncode}")
-            return json.loads(stdout.decode().strip().splitlines()[-1])
+            return json.loads(stdout.strip().splitlines()[-1])
 
         async def direct_wave():
             """The same wave straight into `generate()`, as phase 4 runs
@@ -3207,6 +3243,11 @@ def phase_kv_router(model, cfg):
     return {cp: kv_router_arm(model, cfg, cp) for cp in ("embedded", "process")}
 
 
+# vocabulary size -> (the synthetic tokenizer's JSON, its eos ids), made
+# once for phase 10's two arms
+_ROUTER_TOKENIZER = {}
+
+
 def kv_router_arm(model, cfg, control):
     """One arm of phase 10 (see there) with the control plane `control`:
     ``"embedded"`` in this process, or ``"process"``."""
@@ -3224,7 +3265,6 @@ def kv_router_arm(model, cfg, control):
     from dynamo_tpu_torch.router import KvRouter
     from dynamo_tpu_torch.router.worker_key import pack_worker
     from dynamo_tpu_torch.runtime import DistributedRuntime
-    from dynamo_tpu_torch.testing import synthetic_tokenizer
     from dynamo_tpu_torch.tokens import compute_block_hash_for_seq
     from dynamo_tpu_torch.worker import serve_engine
 
@@ -3232,11 +3272,15 @@ def kv_router_arm(model, cfg, control):
     device = model.embed.device
     # only the frontends tokenize: this process keeps the card's JSON and
     # drops the tokenizer's millions of objects, whose traversal by a full
-    # garbage collection would otherwise stall the step threads
-    tok = synthetic_tokenizer(cfg.vocab_size, SEED)
-    tok_json, eos = tok.to_json_str(), list(tok.eos_token_ids)
-    del tok
-    gc.collect()
+    # garbage collection would otherwise stall the step threads; both arms
+    # take the one JSON
+    if cfg.vocab_size not in _ROUTER_TOKENIZER:
+        tok = llama_tokenizer(cfg)
+        _ROUTER_TOKENIZER[cfg.vocab_size] = (tok.to_json_str(),
+                                             list(tok.eos_token_ids))
+        del tok
+        gc.collect()
+    tok_json, eos = _ROUTER_TOKENIZER[cfg.vocab_size]
     pauses = []  # full collections during the rounds: (start, ms)
 
     def on_gc(phase, info):
@@ -5048,6 +5092,26 @@ def _stop_all(procs) -> None:
             p.wait()
 
 
+def live_children() -> list:
+    """This process's children that are still there (pid, state, command),
+    read from /proc: what the phases before left behind.  Reported, not
+    judged: a multiprocessing helper may rightly outlive a phase."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(ppid) == me:
+            out.append({"pid": int(d), "state": state, "cmd": cmd[:160]})
+    return out
+
+
 def vl_spawn(procs):
     """(d)'s processes, started at the phase's start so their builds run
     beside (a)-(c): the control plane, an encode worker (`--disagg-role
@@ -5521,20 +5585,39 @@ class _NoEmbedEngine:
         yield {"token_ids": [], "finish_reason": "stop"}
 
 
-def llama_tokenizer(cfg):
-    """(tokenizer JSON, eos ids) of the seeded 128256-id tokenizer phase 7
-    writes to ``build/`` (made here when that phase did not run)."""
-    from dynamo_tpu_torch.llm import HuggingFaceTokenizer
-    from dynamo_tpu_torch.testing import synthetic_tokenizer
+TOKENIZER_PATH = os.path.join(ROOT, "build", "llama3_synthetic_tokenizer.json")
+# the thread `main` starts beside the kernels' build to write the tokenizer
+_TOKENIZER_WRITER = []
 
-    path = os.path.join(ROOT, "build", "llama3_synthetic_tokenizer.json")
-    if os.path.exists(path):
-        with open(path, encoding="utf-8") as f:
-            tok = HuggingFaceTokenizer(f.read())
-        tok.eos_token_ids = [tok.token_to_id("<|end_of_text|>")]
-    else:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tok = synthetic_tokenizer(cfg.vocab_size, SEED, path=path)
+
+def write_tokenizer(cfg) -> None:
+    """Write the seeded tokenizer of `cfg`'s vocabulary to TOKENIZER_PATH."""
+    from dynamo_tpu_torch.testing import synthetic_tokenizer_json
+
+    os.makedirs(os.path.dirname(TOKENIZER_PATH), exist_ok=True)
+    data = synthetic_tokenizer_json(cfg.vocab_size, SEED)
+    with open(TOKENIZER_PATH + ".tmp", "w", encoding="utf-8") as f:
+        f.write(data)
+    os.replace(TOKENIZER_PATH + ".tmp", TOKENIZER_PATH)
+
+
+def llama_tokenizer(cfg):
+    """The seeded 128256-id tokenizer (`testing.synthetic_tokenizer`'s,
+    with its eos and bos ids) from TOKENIZER_PATH, written first when no
+    run of this script wrote it (`write_tokenizer`, which `main` starts
+    beside the kernels' build)."""
+    from dynamo_tpu_torch.llm import HuggingFaceTokenizer
+
+    for t in _TOKENIZER_WRITER:
+        t.join()
+    if not os.path.exists(TOKENIZER_PATH):
+        write_tokenizer(cfg)
+    with open(TOKENIZER_PATH, encoding="utf-8") as f:
+        tok = HuggingFaceTokenizer(f.read())
+    if tok.vocab_size != cfg.vocab_size:
+        fail(f"{TOKENIZER_PATH} has {tok.vocab_size} ids, not {cfg.vocab_size}")
+    tok.eos_token_ids = [tok.token_to_id("<|end_of_text|>")]
+    tok.bos_token_id = tok.token_to_id("<|begin_of_text|>")
     return tok
 
 
@@ -6241,6 +6324,11 @@ TP_COLLECTIVES = {"decode [8, 4096] f32": (8, 4096),
                   "prefill chunk [512, 4096] f32": (512, 4096),
                   "decode logits [8, 128256] f32": (8, 128256)}
 TP_GREEDY = ("A_64", "B_shared+200", "C_2048", "E_300")
+# the stage handoffs of phase 19 (a) as broadcasts between two ranks on the
+# card (`collectives.stage_handoff`): a decode tick's activations of one
+# microbatch (4 rows), a 512-token prefill tick's of one row, bf16
+PP_HANDOFFS = {"decode tick [4, 4096] bf16": (4, 4096),
+               "prefill tick [1, 512, 4096] bf16": (1, 512, 4096)}
 
 
 def tp_serve(cfg, source, tp, reqs, warm, trace=()):
@@ -6312,16 +6400,20 @@ def allreduce_host(prof) -> dict:
                                                 "broadcast", "gloo"))}}
 
 
-def _tp_bench_rank(rank, init, q):
-    """One rank of `tp_collective_costs`."""
+def _tp_bench_rank(rank, init, q, go):
+    """One rank of `tp_collective_costs`: it joins the group, then waits
+    for `go` before it measures."""
     import torch.distributed as dist
 
     from dynamo_tpu_torch.parallel import ParallelConfig, make_mesh
+    from dynamo_tpu_torch.parallel.collectives import broadcast_bytes
 
     group = make_mesh(ParallelConfig(tp=2), ["cuda:0"] * 2, rank=rank,
                       init_method=init)
     out = {}
     try:
+        if not go.wait(900):
+            return
         for name, shape in TP_COLLECTIVES.items():
             t = torch.randn(shape, device="cuda")
             for _ in range(3):
@@ -6334,26 +6426,52 @@ def _tp_bench_rank(rank, init, q):
             ms = (time.perf_counter() - t0) * 1e3 / 20
             out[name] = {"ms": ms, "bytes": t.numel() * 4,
                          "gb_per_s": t.numel() * 4 / ms / 1e6}
+        for name, shape in PP_HANDOFFS.items():
+            # as `stage_handoff` moves it: the tensor's bytes
+            t = torch.randn(shape, device="cuda").to(torch.bfloat16)
+            nbytes = t.numel() * t.element_size()
+            for _ in range(3):
+                broadcast_bytes(t, 0, group.dev_group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                broadcast_bytes(t, 0, group.dev_group)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / 20
+            out[f"broadcast {name}"] = {"ms": ms, "bytes": nbytes,
+                                        "gb_per_s": nbytes / ms / 1e6}
     finally:
         group.close()
     if rank == 0:
         q.put(out)
 
 
-def tp_collective_costs():
-    """Host-clock ms of one gloo all-reduce of a CUDA tensor between two
-    ranks sharing the card (spawned processes), at TP_COLLECTIVES' shapes:
-    what a tp step pays on one card for each collective."""
+def tp_collective_ranks():
+    """Start `tp_collective_costs`' two ranks (spawned processes, which
+    import and join their group while the caller goes on); returns what
+    `tp_collective_costs` takes."""
     import multiprocessing as mp
 
     from dynamo_tpu_torch.parallel.mesh import free_port
 
     ctx = mp.get_context("spawn")
-    q = ctx.Queue()
+    q, go = ctx.Queue(), ctx.Event()
     init = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=_tp_bench_rank, args=(r, init, q)) for r in range(2)]
+    procs = [ctx.Process(target=_tp_bench_rank, args=(r, init, q, go),
+                         daemon=True) for r in range(2)]
     for p in procs:
         p.start()
+    return procs, q, go
+
+
+def tp_collective_costs(ranks):
+    """Host-clock ms of one gloo all-reduce of a CUDA tensor between two
+    ranks sharing the card (`tp_collective_ranks`, told to measure now,
+    with the card otherwise idle), at TP_COLLECTIVES' shapes: what a tp
+    step pays on one card for each collective; and of one broadcast at
+    PP_HANDOFFS' shapes, a pipeline's stage handoff (phase 19)."""
+    procs, q, go = ranks
+    go.set()
     try:
         out = q.get(timeout=300)
     finally:
@@ -6362,7 +6480,11 @@ def tp_collective_costs():
             if p.is_alive():
                 p.terminate()
     emit({"phase": "tp", "case": "collectives", "backend": "gloo",
-          "ranks": 2, "devices": ["cuda:0"] * 2, "all_reduce": out,
+          "ranks": 2, "devices": ["cuda:0"] * 2,
+          "all_reduce": {k: v for k, v in out.items()
+                         if not k.startswith("broadcast ")},
+          "broadcast": {k[len("broadcast "):]: v for k, v in out.items()
+                        if k.startswith("broadcast ")},
           "card": card_line()})
     return out
 
@@ -6716,7 +6838,8 @@ def tp_http(arms, spawned):
     each answer's tokens (their strings, from its logprobs) must be the
     flat tokens up to a near-tie measured on the flat model."""
     outs = []
-    arms = [(*a, 1) if len(a) == 4 else a for a in arms]
+    # (get_model, cfg, tp, want[, dp[, pp]])
+    arms = [tuple(a) + (1,) * (6 - len(a)) for a in arms]
     workers, front, t0 = spawned
     port = int(_ready(front, "READY http://", "tp http: the frontend")
                .rsplit(":", 1)[1])
@@ -6732,7 +6855,7 @@ def tp_http(arms, spawned):
         time.sleep(0.1)
     else:
         fail("tp http: the frontend never listed every model")
-    for (_, cfg, tp, _, _), stat in zip(arms, status):
+    for (_, cfg, tp, _, _, _), stat in zip(arms, status):
         _, prompts = serving_prompts(cfg)
         # logprobs 0: each token's string comes back beside the text
         body = {"model": cfg.name, "prompt": prompts["A_64"][0],
@@ -6748,9 +6871,9 @@ def tp_http(arms, spawned):
         outs.append({"status": st, "finish": choice.get("finish_reason"),
                      "got": got, "ms": ms,
                      "worker": {k: stats.get(k) for k in (
-                         "tp", "dp", "kv_partition", "kv_total_pages",
+                         "tp", "dp", "pp", "kv_partition", "kv_total_pages",
                          "tp_backend", "tp_plans_total")}})
-    for (get_model, cfg, tp, want, dp), out in zip(arms, outs):
+    for (get_model, cfg, tp, want, dp, pp), out in zip(arms, outs):
         _, prompts = serving_prompts(cfg)
         tok = llama_tokenizer(cfg)
         got = out.pop("got")
@@ -6763,9 +6886,10 @@ def tp_http(arms, spawned):
               "ready_s": ready_s, **out, "card": card_line()})
         if out["status"] != 200 or out["finish"] != "length" or len(got) != 32:
             fail(f"tp http ({cfg.name}, tp {tp}): {out}")
-        if out["worker"]["tp"] != tp or (out["worker"]["dp"] or 1) != dp:
+        if (out["worker"]["tp"] != tp or (out["worker"]["dp"] or 1) != dp
+                or (out["worker"]["pp"] or 1) != pp):
             fail(f"tp http: the worker reports {out['worker']}, want tp {tp} "
-                 f"dp {dp}")
+                 f"dp {dp} pp {pp}")
         if not out["equal"]:
             f = out["flip"]
             if f["margin_std"] is None or abs(f["margin_std"]) > LOGIT_TOL:
@@ -7542,9 +7666,9 @@ async def mesh_wave(engine, reqs, ref, twin, cfg):
     for n in ("A_64", "E_300"):
         pages, rank = seqs[n]
         reads = await engine._device_op(lambda p=pages: engine.rank_pages(p))
-        tp = engine.tp
-        mine = reads[rank * tp:(rank + 1) * tp]
-        other = reads[(1 - rank) * tp:(2 - rank) * tp]
+        per = engine.tp * engine.pp  # a replica's ranks
+        mine = reads[rank * per:(rank + 1) * per]
+        other = reads[(1 - rank) * per:(2 - rank) * per]
         presence[n] = {
             "partition": rank, "pages": len(pages),
             "owner_nonzero": all(bool(k.abs().sum() > 0) for k, _ in mine),
@@ -7565,27 +7689,20 @@ async def mesh_wave(engine, reqs, ref, twin, cfg):
             "launches_by_rank": _launch_delta(before, after)}, problems
 
 
-async def mesh_moves(engine, cfg, reqs, twin, addr, prefill_worker):
-    """(c) On (b)'s group: the storm (a 1224-token batch victim admitted
-    beside a 2048-token interactive anchor that holds partition 0, parked
-    for a 64-token arrival on its partition and resumed) against the same
-    run without the arrival, bit for bit; a host tier: a 1088-token
-    prompt's blocks onboarded into the partition that admits it again,
-    against its cold tokens; one remote prefill of the same prompt from
-    the flat prefill worker over the CUDA IPC lane, the imported pages
-    byte-equal to the source's on the admitting replica's ranks only, its
-    tokens against the same cold run.  (A 2048-token import would leave
-    its partition fewer free pages than the admission check asks of a
-    first chunk, a check the copied scheduler makes of imported
-    sequences too: the adopted request would wait.)"""
-    from dynamo_tpu_torch.disagg import DisaggDecodeHandler
+async def mesh_park_tier(engine, cfg, reqs, twin, what="(c)", keep_tier=False):
+    """On a partitioned group: the storm (a 1224-token batch victim
+    admitted beside a 2048-token interactive anchor that holds partition
+    0, parked for a 64-token arrival on its partition and resumed) against
+    the same run without the arrival, bit for bit; a host tier: a
+    1088-token prompt's blocks onboarded into the partition that admits
+    it again, against its cold tokens.  Returns (out, problems, the
+    prompt, its cold run); with `keep_tier`, out["tier_pages"] holds the
+    onboarded request's pages."""
     from dynamo_tpu_torch.kvbm import HostBlockPool, TieredKvCache
-    from dynamo_tpu_torch.runtime import Context, DistributedRuntime
 
     victim, inter, dprompts = tpkv_prompts(cfg)
     anchor = _req(reqs["C_2048"]["token_ids"], max_tokens=96)
     out, problems = {}, []
-    before = await engine.group_stats()
     # park and resume on the victim's partition
     parked = []
     park = engine.scheduler.park_fn
@@ -7599,14 +7716,14 @@ async def mesh_moves(engine, cfg, reqs, twin, addr, prefill_worker):
     engine.scheduler.park_fn = spy_park
     engine.clear_kv_blocks()
     alone = await _with_anchor(engine, anchor, lambda: _collect(engine, victim))
-    _mesh_note("(c) the victim beside the anchor")
+    _mesh_note(f"{what} the victim beside the anchor")
     engine.clear_kv_blocks()
     m0 = engine.metrics()
     engine.dispatch_trace = trace = []
     got, _, order = await _with_anchor(
         engine, anchor, lambda: _storm(engine, victim, inter, 2))
     engine.dispatch_trace = None
-    _mesh_note("(c) the storm")
+    _mesh_note(f"{what} the storm")
     m1 = engine.metrics()
     out["park"] = {
         "victim_tokens_equal_alone": got["tokens"] == alone["tokens"],
@@ -7620,7 +7737,7 @@ async def mesh_moves(engine, cfg, reqs, twin, addr, prefill_worker):
     if not (p["victim_tokens_equal_alone"] and p["preempted"] >= 1
             and p["preempted"] == p["resumed"] and p["lot_after"] == [0, 0]
             and order == ["interactive", "victim"] and parked == [1]):
-        problems.append(f"(c) park: {p}")
+        problems.append(f"{what} park: {p}")
     # a host tier: blocks onboarded into the admitting partition
     tier = TieredKvCache(HostBlockPool(capacity_bytes=TPKV_HOST_BYTES))
     engine.attach_connector(tier)
@@ -7638,10 +7755,10 @@ async def mesh_moves(engine, cfg, reqs, twin, addr, prefill_worker):
     b0 = tier.onboarded_blocks
     again = await _collect_as(engine, _req(prompt, max_tokens=MESH_TOKENS), "again")
     engine.dispatch_trace = None
-    _mesh_note("(c) the tier")
+    _mesh_note(f"{what} the tier")
     onboard = [e for e in trace if e["kind"] == "onboard"]
     bad, flip = tpkv_flip_problems(twin(), cfg, prompt, cold["tokens"],
-                                   again["tokens"], "(c) onboarded") \
+                                   again["tokens"], f"{what} onboarded") \
         if again["tokens"] != cold["tokens"] else ([], None)
     problems += bad
     pages, rank = seqs["again"]
@@ -7655,7 +7772,25 @@ async def mesh_moves(engine, cfg, reqs, twin, addr, prefill_worker):
                     "flip": flip}
     if (out["tiers"]["onboarded_blocks"] < full - 1
             or {q // engine.cfg.num_pages for q in pages} != {rank}):
-        problems.append(f"(c) tiers: {out['tiers']}")
+        problems.append(f"{what} tiers: {out['tiers']}")
+    if keep_tier:
+        out["tier_pages"] = pages
+    return out, problems, prompt, cold
+
+
+async def mesh_moves(engine, cfg, reqs, twin, addr, prefill_worker):
+    """(c) On (b)'s group: `mesh_park_tier`, then one remote prefill of
+    its 1088-token prompt from the flat prefill worker over the CUDA IPC
+    lane, the imported pages byte-equal to the source's on the admitting
+    replica's ranks only, its tokens against the same cold run.  (A
+    2048-token import would leave its partition fewer free pages than the
+    admission check asks of a first chunk, a check the copied scheduler
+    makes of imported sequences too: the adopted request would wait.)"""
+    from dynamo_tpu_torch.disagg import DisaggDecodeHandler
+    from dynamo_tpu_torch.runtime import Context, DistributedRuntime
+
+    before = await engine.group_stats()
+    out, problems, prompt, cold = await mesh_park_tier(engine, cfg, reqs, twin)
     # one remote prefill over the CUDA IPC lane into the admitting partition
     loop = asyncio.get_running_loop()
     rt = await DistributedRuntime.connect(addr)
@@ -7874,6 +8009,457 @@ def dp_probe_main() -> int:
     return 0
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: pipeline parallelism
+# --------------------------------------------------------------------------- #
+
+# phase 15's engine with 4-step decode blocks: each decode dispatch is a
+# ring of 4 steps, the last stage handing 3 tokens a row back to stage 0
+PP_ECFG = dict(TP_ECFG, decode_steps=4)
+# (b): Llama-3-70B's published widths at this many layers, 2 a stage
+PP_70B_LAYERS = 4
+PP_PENALTY = {"frequency_penalty": 0.5, "presence_penalty": 0.25}
+PP_MODEL = "pp2"  # (d)'s worker serves the cut 8B under this name's suffix
+
+
+def _pp_note(what: str) -> None:
+    """A progress line of phase 19 on stderr."""
+    print(f"pipeline {time.perf_counter() - _T0:.1f}s {what}", file=sys.stderr,
+          flush=True)
+
+
+def pp_requests(cfg):
+    """Phase 4's five requests and its warm-up, plus a penalized and a
+    top-logprobs (3) request on prompts of their own."""
+    reqs, warm = mesh_requests(cfg)
+    g = torch.Generator().manual_seed(SEED + 19)
+    pen, top = (torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+                for n in (200, 96))
+    reqs["F_penalized"] = _req(pen)
+    reqs["F_penalized"]["sampling_options"].update(PP_PENALTY)
+    reqs["G_top3"] = _req(top)
+    reqs["G_top3"]["sampling_options"].update(logprobs=True, top_logprobs=3)
+    return reqs, warm
+
+
+async def _collect_tops(engine, req):
+    """`_collect` with each token's top logprobs."""
+    t0 = time.perf_counter()
+    toks, tops, reason, t_first, t_last = [], [], None, None, None
+    async for d in engine.generate(req):
+        now = time.perf_counter()
+        if d["token_ids"]:
+            t_first = t_first or now
+            t_last = now
+        toks.extend(d["token_ids"])
+        tops += d.get("top_logprobs") or []
+        reason = d["finish_reason"]
+    return {"tokens": toks, "tops": tops, "finish_reason": reason,
+            "ttft_ms": (t_first - t0) * 1e3 if t_first else None,
+            "t_first": t_first, "t_last": t_last}
+
+
+def pp_wave(engine, reqs, warm, stats=True):
+    """The warm-up, then every request at once (each with its top
+    logprobs); returns (results, wall s, each rank's report before and
+    after the wave (None without `stats`), the leader's dispatches)."""
+
+    async def run():
+        try:
+            await _collect(engine, warm)
+            before = await engine.group_reports() if stats else None
+            engine.dispatch_trace = trace = []
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(*[_collect_tops(engine, r)
+                                          for r in reqs.values()])
+            wall = time.perf_counter() - t0
+            engine.dispatch_trace = None
+            after = await engine.group_reports() if stats else None
+            return outs, wall, before, after, trace
+        finally:
+            await engine.shutdown()
+
+    outs, wall, before, after, trace = asyncio.run(run())
+    return dict(zip(reqs, outs)), wall, before, after, trace
+
+
+def pp_penalized_flip(model, cfg, req, ref, got):
+    """`first_flip` of a penalized row: the margin on the reference logits
+    less the penalties of the tokens before the flip."""
+    if got == ref:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+             min(len(ref), len(got)))
+    if j >= min(len(ref), len(got)):
+        return {"index": j, "margin_std": None}
+    lg = reference_logits(model, cfg, req["token_ids"] + ref[:j]).float()
+    counts = torch.zeros_like(lg)
+    for t in ref[:j]:
+        counts[t] += 1
+    so = req["sampling_options"]
+    lg = (lg - so["frequency_penalty"] * counts
+          - so["presence_penalty"] * (counts > 0).float())
+    return {"index": j, "ref_token": ref[j], "arm_token": got[j],
+            "margin_std": ((lg[ref[j]] - lg[got[j]]) / lg.std()).item()}
+
+
+def pp_check(get_model, cfg, reqs, ref, res, n_tokens=32):
+    """(problems, flips): every request ended with its `n_tokens`; the
+    greedy rows (the top-logprobs row among them) equal `ref` up to
+    near-ties (phase 15's rule), the penalized row too with the
+    penalties in its margin; the seeded row is reported."""
+    greedy = [n for n in TP_GREEDY + ("G_top3",) if n in res]
+    problems, flips = tp_check(get_model, cfg, reqs, ref, res, greedy, n_tokens)
+    n = "F_penalized"
+    if n in res and not problems and res[n]["tokens"] != ref[n]:
+        flips[n] = f = pp_penalized_flip(get_model(), cfg, reqs[n], ref[n],
+                                         res[n]["tokens"])
+        if f["margin_std"] is None or abs(f["margin_std"]) > LOGIT_TOL:
+            problems.append(f"{n} flips beyond a near-tie: {f}")
+    return problems, flips
+
+
+def pp_top_diff(ref, got):
+    """The G_top3 row against the reference's: whether its top ids agree at
+    every token before the first flip, and the largest logprob gap
+    there."""
+    agree, gap = True, 0.0
+    for t, (a, b) in enumerate(zip(ref["tops"], got["tops"])):
+        if ref["tokens"][t] != got["tokens"][t]:
+            break
+        agree &= [i for i, _ in a] == [i for i, _ in b]
+        gap = max([gap] + [abs(x - y) for (_, x), (_, y) in zip(a, b)])
+    return {"ids_agree_before_flip": agree, "max_logprob_gap": gap,
+            "tokens_with_tops": len(got["tops"])}
+
+
+def pp_report(what, res, wall, before, after, trace, ref_rows):
+    """The per-stage line of a group's wave: tokens/s and TTFT beside the
+    reference's, each rank's stage, launches of the attention kernels and
+    handoffs (sends, bytes) over the wave, and per dispatch."""
+    dispatches = sum(1 for e in trace if e["kind"] in ("prefill", "decode"))
+    ranks = {}
+    for r in sorted(after):
+        a, b = after[r], before[r]
+        sends = a["handoffs"]["sends"] - b["handoffs"]["sends"]
+        nbytes = a["handoffs"]["bytes"] - b["handoffs"]["bytes"]
+        ranks[r] = {"stage": a["stage"],
+                    "launches": {k: a["launches"].get(k, 0)
+                                 - b["launches"].get(k, 0)
+                                 for k in ATTENTION_KERNELS},
+                    "handoffs": sends, "handoff_bytes": nbytes,
+                    "handoffs_per_dispatch": sends / max(dispatches, 1),
+                    "handoff_bytes_per_dispatch": nbytes / max(dispatches, 1)}
+    return {**tp_rows(res), "wall_s": wall, "dispatches": dispatches,
+            "reference": ref_rows, "ranks": ranks, "what": what}
+
+
+def pp_spawn(procs, cfg):
+    """(d)'s processes, built while (a)-(c) run: a control plane, ``python
+    -m dynamo_tpu_torch.worker --pp 2 --tp 2`` (4 ranks sharing the card,
+    the 8B at CUT_LAYERS layers, served as ``<name>-pp2``) and a
+    frontend."""
+    t0 = time.perf_counter()
+    cp = _spawn(procs, "dynamo_tpu_torch.runtime", "--host", "127.0.0.1",
+                "--port", "0", "--log-level", "warning")
+    addr = _ready(cp, "READY ", "pipeline: the control plane").split()[1]
+    worker = _spawn(procs, "dynamo_tpu_torch.worker", "--control", addr,
+                    "--model", cfg.name, "--model-name",
+                    f"{cfg.name}-{PP_MODEL}", "--seed", str(SEED), "--sharpen",
+                    "--num-layers", str(CUT_LAYERS), "--pp", "2", "--tp", "2",
+                    "--tp-devices", ",".join(["cuda:0"] * 4), "--num-pages",
+                    "256", "--decode-steps", "4", "--status-port", "0",
+                    "--log-level", "warning")
+    front = _spawn(procs, "dynamo_tpu_torch.frontend", "--control", addr,
+                   "--host", "127.0.0.1", "--port", "0", "--log-level",
+                   "warning")
+    return [worker], front, t0
+
+
+def pp_llama8b(model, cfg, direct=None):
+    """(a) Phase 4's 8B at full width and depth (32 layers).  The
+    reference rows come from the flat engine's own decode path (TP_ECFG,
+    its graphs): the penalized and top-logprobs requests, and phase 4's
+    wave too when `direct` (phase 4's rows of it) is None.  A second
+    engine on the same model, through the pipeline path at one stage
+    (`_staged`, eager), serves phase 4's wave (the warm-up, then the
+    five at once), bit-equal to the reference's five.  Then a pp 2 x tp 1 group (16 layers a stage,
+    the ranks sharing the card over gloo, PP_ECFG's 4-step rings) on all
+    seven at once against the reference up to near-ties.  Returns
+    (problems, each rank's launches)."""
+    import gc
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards
+
+    reqs, warm = pp_requests(cfg)
+    five = {n: r for n, r in reqs.items() if n in serving_prompts(cfg)[1]}
+    extra = {n: r for n, r in reqs.items() if n not in five}
+    problems = []
+
+    async def run(engine, wave, first=None):
+        """`first` (the warm-up, then each request of `first` at once,
+        timed), then each request of `wave` at once."""
+        try:
+            a, wall = {}, None
+            if first:
+                await _collect(engine, warm)
+                t0 = time.perf_counter()
+                a = await asyncio.gather(*[_collect_tops(engine, r)
+                                           for r in first.values()])
+                wall = time.perf_counter() - t0
+            b = await asyncio.gather(*[_collect_tops(engine, r)
+                                       for r in wave.values()])
+            return dict(zip(first or {}, a)), wall, dict(zip(wave, b))
+        finally:
+            await engine.shutdown()
+
+    flat = TorchEngine(cfg, model, EngineConfig(**TP_ECFG), device="cuda")
+    flat_five, _, res_flat = asyncio.run(
+        run(flat, extra, five if direct is None else None))
+    del flat
+    _pp_note("(a) flat")
+    ref = {**({n: direct["tokens"][n] for n in five} if direct is not None
+              else {n: r["tokens"] for n, r in flat_five.items()}),
+           **{n: r["tokens"] for n, r in res_flat.items()}}
+    one = TorchEngine(cfg, model, EngineConfig(**TP_ECFG), device="cuda")
+    one._staged = True  # noqa: SLF001 -- the pipeline path at one stage
+    res_five, wall_one, _ = asyncio.run(run(one, {}, five))
+    del one
+    _pp_note("(a) one stage")
+    one_stage = {n: r["tokens"] == ref[n] for n, r in res_five.items()}
+    if not all(one_stage.values()):
+        problems.append(f"(a) one stage differs from the flat rows: "
+                        f"{one_stage}")
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, SeededShards(cfg, SEED, "bfloat16", sharpen=True),
+                         EngineConfig(**PP_ECFG), parallel=ParallelConfig(pp=2),
+                         devices=["cuda:0"] * 2)
+    build_s = time.perf_counter() - t0
+    res, wall, before, after, trace = pp_wave(engine, reqs, warm)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _pp_note("(a) pp 2")
+    bad, flips = pp_check(lambda: model, cfg, reqs, ref, res)
+    problems += bad
+    flat_rows = ({"phase4_graphs": {k: direct[k] for k in
+                                    ("ttft_ms", "decode_tokens_per_s")}}
+                 if direct is not None else {})
+    rep = pp_report("pp 2 x tp 1", res, wall, before, after, trace,
+                    {**flat_rows, "one_stage_eager": {**tp_rows(res_five),
+                                                      "wall_s": wall_one}})
+    emit({"phase": "pipeline", "case": "a", "model": cfg.name,
+          "layers": cfg.num_hidden_layers, "pp": 2, "tp": 1,
+          "decode_steps": PP_ECFG["decode_steps"], "build_s": build_s,
+          "one_stage_bit_equal_flat": one_stage,
+          "greedy_equal": {n: res[n]["tokens"] == ref[n] for n in res},
+          "flips": flips, "tol_in_std": LOGIT_TOL,
+          "top3": pp_top_diff(res_flat["G_top3"], res["G_top3"]),
+          **rep, "card": card_line()})
+    return problems, {r: v["launches"] for r, v in rep["ranks"].items()}
+
+
+def pp_llama70b():
+    """(b) Llama-3-70B's published widths at PP_70B_LAYERS layers on a pp 2
+    x tp 2 group (4 ranks sharing the card) against its flat twin at the
+    same depth (the flat engine's own decode path; the model is kept for
+    the flips' margins), phase 4's five requests."""
+    import gc
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models.config import LLAMA_3_70B
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards
+
+    twin, cfg = tp_flat_twin(LLAMA_3_70B, PP_70B_LAYERS)
+    reqs, warm = mesh_requests(cfg)
+    flat = TorchEngine(cfg, twin, EngineConfig(**PP_ECFG), device="cuda")
+    res_flat, _, _, _, _ = pp_wave(flat, reqs, warm, stats=False)
+    del flat
+    _pp_note("(b) flat twin")
+    ref = {n: r["tokens"] for n, r in res_flat.items()}
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, SeededShards(cfg, SEED, "bfloat16", sharpen=True),
+                         EngineConfig(**PP_ECFG),
+                         parallel=ParallelConfig(pp=2, tp=2),
+                         devices=["cuda:0"] * 4)
+    build_s = time.perf_counter() - t0
+    res, wall, before, after, trace = pp_wave(engine, reqs, warm)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _pp_note("(b) pp 2 x tp 2")
+    bad, flips = pp_check(lambda: twin, cfg, reqs, ref, res)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = pp_report("pp 2 x tp 2", res, wall, before, after, trace,
+                    tp_rows(res_flat))
+    emit({"phase": "pipeline", "case": "b", "model": cfg.name,
+          "layers": cfg.num_hidden_layers, "pp": 2, "tp": 2,
+          "build_s": build_s,
+          "greedy_equal": {n: res[n]["tokens"] == ref[n] for n in TP_GREEDY},
+          "flips": flips, "tol_in_std": LOGIT_TOL, **rep, "card": card_line()})
+    return bad, {r: v["launches"] for r, v in rep["ranks"].items()}
+
+
+async def pp_flat_pages(engine, prompt, n_tokens):
+    """The pages (every layer, every head) holding `prompt`'s first
+    `n_tokens` positions after a cold run of it alone on `engine`."""
+    seqs = {}
+    _finish_spy(engine, seqs)
+    engine.clear_kv_blocks()
+    await _collect_as(engine, _req(prompt, max_tokens=1), "pages")
+    pages, _ = seqs["pages"]
+    return await engine.export_pages(pages[:n_tokens // engine.cfg.page_size])
+
+
+def pp_partitioned(cut, ref, twin):
+    """(c) dp 2 x pp 2, the pool partitioned (phase 17's 160 pages a
+    partition, two decode slots), the 8B at CUT_LAYERS layers: phase 17
+    (b)'s wave (each request sent once the previous one streams), then
+    `mesh_park_tier` (a batch victim parked and resumed on partition 1, a
+    host tier's blocks onboarded into the admitting partition); the
+    onboarded pages (every layer of every stage, exported from the group)
+    byte-equal to the flat twin's pages of the same prompt."""
+    import gc
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards
+
+    cfg = cut
+    reqs, warm = mesh_requests(cfg)
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, SeededShards(cfg, SEED, "bfloat16", sharpen=True),
+                         EngineConfig(**MESH_PART_ECFG, kv_partition=True),
+                         parallel=ParallelConfig(dp=2, pp=2),
+                         devices=["cuda:0"] * 4)
+    build_s = time.perf_counter() - t0
+
+    async def run():
+        try:
+            await _collect(engine, warm)
+            b, b_bad = await mesh_wave(engine, reqs, ref, twin, cfg)
+            _pp_note("(c) wave")
+            before = await engine.group_stats()
+            c, c_bad, prompt, _ = await mesh_park_tier(
+                engine, cfg, reqs, twin, what="pipeline (c)", keep_tier=True)
+            c["launches_by_rank"] = _launch_delta(before,
+                                                  await engine.group_stats())
+            n = (len(prompt) // engine.cfg.page_size - 1) * engine.cfg.page_size
+            pages = c.pop("tier_pages")
+            got = await engine.export_pages(pages[:n // engine.cfg.page_size])
+            return b, c, b_bad + c_bad, prompt, n, got, vars(engine.metrics())
+        finally:
+            await engine.shutdown()
+
+    b, c, problems, prompt, n, got, m = asyncio.run(run())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _pp_note("(c) park and tier")
+    flat = TorchEngine(cfg, twin(), EngineConfig(**TP_ECFG), device="cuda")
+
+    async def flat_pages():
+        try:
+            return await pp_flat_pages(flat, prompt, n)
+        finally:
+            await flat.shutdown()
+
+    want = asyncio.run(flat_pages())
+    del flat
+    differ = sum(int((_bits(a) != _bits(b_)).sum()) for a, b_ in zip(got, want))
+    c["onboarded_pages_vs_flat_twin"] = {
+        "tokens": n, "layers": int(got[0].shape[0]),
+        "differing_elements": differ}
+    if differ or got[0].shape != want[0].shape:
+        problems.append(f"(c) the onboarded pages differ from the flat twin's "
+                        f"on {differ} elements")
+    emit({"phase": "pipeline", "case": "c", "model": cfg.name,
+          "layers": cfg.num_hidden_layers, "dp": 2, "pp": 2, "tp": 1,
+          "kv_partition": True, "build_s": build_s,
+          "kv_total_pages": m["kv_total_pages"], "plans": m["tp_plans_total"],
+          **b, "moves": c, "card": card_line()})
+    return problems, b["launches_by_rank"], c["launches_by_rank"]
+
+
+def phase_pipeline(cfg, direct, cut, ref):
+    """Phase 19 (see the module docstring).  `cfg`, `direct`: phase 4's
+    8B at full depth (drawn again here from the script's seed) and its
+    rows; `cut`, `ref`: phase 15 (a)'s flat twin's config (the 8B at
+    CUT_LAYERS layers) and its greedy tokens of phase 4's requests.
+    Returns each group's launches per rank."""
+    procs = []
+    try:
+        spawned = pp_spawn(procs, cut)
+        return _pipeline_arms(cfg, direct, cut, ref, spawned)
+    finally:
+        _stop_all(procs)
+
+
+def _pipeline_arms(cfg, direct, cut, ref, spawned):
+    """Phase 19's (a)-(d), `spawned` being (d)'s processes."""
+    import dataclasses
+    import gc
+
+    from dynamo_tpu_torch.models import init_params
+
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    problems, launches = [], {}
+    bad, launches["a"] = pp_llama8b(model, cfg, direct)
+    problems += bad
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad, launches["b"] = pp_llama70b()
+    problems += bad
+    twin_cache = []
+
+    def twin():
+        if not twin_cache:
+            twin_cache.append(tp_flat_twin(cut, CUT_LAYERS)[0])
+        return twin_cache[0]
+
+    bad, launches["c_wave"], launches["c_moves"] = pp_partitioned(cut, ref, twin)
+    problems += bad
+    # (d) the worker CLI's pp 2 x tp 2 group over HTTP
+    named = dataclasses.replace(cut, name=f"{cut.name}-{PP_MODEL}")
+    tp_http([(twin, named, 2, ref["A_64"], 1, 2)], spawned)
+    _pp_note("(d) done")
+    del twin_cache[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        fail(f"pipeline: {problems}")
+    for case, got in launches.items():
+        tp_launch_gate(f"pipeline ({case})", got, ATTENTION_KERNELS)
+    return launches
+
+
+PP_PROBE_LAYERS = 4
+
+
+def pp_probe_main() -> int:
+    """The mutation check's probe of the decode ring: phase 19 (a) on the
+    8B's full width at PP_PROBE_LAYERS layers (the flat engine's rows,
+    one stage, a pp 2 group); prints one JSON line with the problems it
+    finds (none on the port as it is)."""
+    from dynamo_tpu_torch.models import LLAMA_3_1_8B, init_params
+    from dynamo_tpu_torch.ops import _build
+
+    _build.build_all()
+    cfg = LLAMA_3_1_8B.with_depth(PP_PROBE_LAYERS)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    problems, _ = pp_llama8b(model, cfg)
+    print(json.dumps({"pp_probe": {"layers": PP_PROBE_LAYERS,
+                                   "problems": problems}}), flush=True)
+    return 0
+
+
 def time_ms_host(fn, iters: int = 3) -> float:
     """Host-clock ms of fn() to a synchronize, after one warm-up."""
     fn()
@@ -7898,6 +8484,10 @@ def main() -> int:
         if not torch.cuda.is_available():
             fail("no CUDA device: the vision probe runs on a GPU")
         return vl_probe_main()
+    if sys.argv[1:2] == ["--pp-probe"]:
+        if not torch.cuda.is_available():
+            fail("no CUDA device: the pipeline probe runs on a GPU")
+        return pp_probe_main()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     global _JSONL
@@ -7914,6 +8504,14 @@ def main() -> int:
           "count": torch.cuda.device_count(), "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
+    # the tokenizer of phases 7, 10 and 14-19 is written beside the build
+    # (a fresh one: a file left by another configuration would not do)
+    if os.path.exists(TOKENIZER_PATH):
+        os.remove(TOKENIZER_PATH)
+    writer = threading.Thread(target=write_tokenizer, args=(LLAMA_3_1_8B,),
+                              name="tokenizer-writer", daemon=True)
+    writer.start()
+    _TOKENIZER_WRITER.append(writer)
     _build.build_all()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
@@ -7961,8 +8559,10 @@ def main() -> int:
     # (its HTTP arm runs beside (b)'s, behind one frontend)
     tp_a, (cut8, ref8, flat8) = clocked("15a tp_llama8b", tp_llama8b, model,
                                         cfg, direct)
-    clocked("15a tp_collective_costs", tp_collective_costs)
+    # the collectives' ranks start while the faults run, then measure alone
+    bench = tp_collective_ranks()
     clocked("15a tp_faults", tp_faults)
+    clocked("15a tp_collective_costs", tp_collective_costs, bench)
     # phase 11 needs the card to itself: gpt-oss-20b's 42 GB of weights
     del model
     gc.collect()
@@ -8006,6 +8606,11 @@ def main() -> int:
     tpkv = clocked("16 tp_kv_moves", phase_tp_kv_moves)
     # phase 17: meshed dp (replicated and partitioned pools, KV moves)
     mesh = clocked("17 mesh_dp", phase_mesh_dp, cut8, ref8, flat8)
+    emit({"phase": "children", "after": "17 mesh_dp", "alive": live_children()})
+    # phase 19: pipeline parallelism; (a) on phase 4's flat model (drawn
+    # again from its seed), (c) and (d) against phase 15 (a)'s flat twin
+    pipe = clocked("19 pipeline", phase_pipeline, cfg, direct, cut8, ref8)
+    emit({"phase": "children", "after": "19 pipeline", "alive": live_children()})
     by_path = {"serving (phase 4, generate)": serving_launches,
                "golden (phase 6)": golden_launches,
                "http (phase 7, the main path)": http_launches,
@@ -8042,7 +8647,15 @@ def main() -> int:
                   f"{case}, this slice's path)": n
                   for case, what in (("a", "tp 2"),
                                      ("b", "dp 2 x tp 1 partitioned"))
-                  for r, n in vgroups[case].items()}}
+                  for r, n in vgroups[case].items()},
+               **{f"pipeline {what} rank {r} (phase 19 {case}, this slice's "
+                  f"path)": n
+                  for case, what in (
+                      ("a", "llama-3.1-8b pp 2 x tp 1"),
+                      ("b", f"llama-3-70b {PP_70B_LAYERS} layers pp 2 x tp 2"),
+                      ("c_wave", "dp 2 x pp 2 partitioned wave"),
+                      ("c_moves", "dp 2 x pp 2 partitioned kv moves"))
+                  for r, n in pipe[case].items()}}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),
@@ -8166,7 +8779,8 @@ _CLOCKED = ("kv_transfers", "park_resume", "kv_tier_runs", "kv_router_arm",
             "dp_ranks_serving", "migration_processes", "spec_accepting",
             "breadth_model", "breadth_paths", "breadth_serving",
             "breadth_worker", "breadth_int8", "vl_serving", "vl_processes",
-            "tp_serve", "forced_record", "tp_forced_routing")
+            "tp_serve", "forced_record", "tp_forced_routing", "pp_llama8b",
+            "pp_llama70b", "pp_partitioned")
 for _name in _CLOCKED:
     globals()[_name] = _clock_helper(_name, globals()[_name])
 

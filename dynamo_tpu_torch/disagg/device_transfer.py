@@ -132,8 +132,10 @@ async def _colocated_tp(src_engine, dst_engine, held, dest_pages) -> None:
             kv_repage(sk, sv, dst_engine.kv.k, dst_engine.kv.v, range(n),
                       dest_pages, held.prompt_len)
             return
-        L, _, ps_d = dst_engine.kv.k.shape[:3]
-        stage = [torch.empty((L, len(dest_pages), ps_d, *sk.shape[3:]),
+        # every layer of every head (a pipeline's pool holds its stage's)
+        ps_d = dst_engine.kv.k.shape[2]
+        stage = [torch.empty((sk.shape[0], len(dest_pages), ps_d,
+                              *sk.shape[3:]),
                              dtype=dst_engine.kv.k.dtype, device=dev)
                  for _ in range(2)]
         kv_repage(sk, sv, stage[0], stage[1], range(n),
@@ -194,6 +196,7 @@ def ipc_export(engine) -> Dict[str, Any]:
         "uuid": device_uuid(k.device), "shape": list(k.shape),
         "stride": list(k.stride()),
         "dtype": str(k.dtype).removeprefix("torch."), "lease": 0,
+        "pp": getattr(engine, "pp", 1),
     }
     for name, t in (("k", engine.kv.k), ("v", engine.kv.v)):
         entry[name] = {"share": list(t.untyped_storage()._share_cuda_()),
@@ -250,8 +253,12 @@ class IpcLane:
     tensor over it) when the lease goes.  `opener` / `event_opener`
     replace the CUDA mapping (tests on the CPU inject them)."""
 
-    def __init__(self, device: torch.device, opener=None, event_opener=None):
+    def __init__(self, device: torch.device, opener=None, event_opener=None,
+                 stages: int = 1):
         self.device = device
+        # the destination's pipeline stages: each rank would need a window
+        # of the source's layers as well as of its heads (ROADMAP 2.3b)
+        self.stages = stages
         self.injected = opener is not None
         self._open = opener or open_ipc_pools
         self._open_event = event_opener or open_ipc_event
@@ -263,8 +270,10 @@ class IpcLane:
 
     def usable(self, entry: Optional[Dict[str, Any]]) -> bool:
         """True when this lane serves the entry: every source rank's pools
-        lie on this engine's card (or an opener was injected)."""
-        if not entry:
+        lie on this engine's card (or an opener was injected), and neither
+        side is a pipeline (ROADMAP 2.3b: its pages then move on the host
+        lane, as a dp source's do)."""
+        if not entry or self.stages > 1 or entry.get("pp", 1) > 1:
             return False
         if self.injected:
             return True

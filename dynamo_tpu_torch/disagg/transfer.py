@@ -165,8 +165,11 @@ class KvTransferSource:
         # a dp group's pages sit on one replica's ranks (or on every
         # replica): it serves them through its exports, on the host lane
         # (an entry naming one replica's ranks is not ported: ROADMAP
-        # 2.2b.6)
-        if self.engine.device.type == "cuda" and getattr(self.engine, "dp", 1) == 1:
+        # 2.2b.6); so does a pipeline, whose ranks hold a window of the
+        # layers (ROADMAP 2.3b)
+        if (self.engine.device.type == "cuda"
+                and getattr(self.engine, "dp", 1) == 1
+                and getattr(self.engine, "pp", 1) == 1):
             if getattr(self.engine, "tp", 1) > 1:
                 # every rank's pools (an ``ipc_export`` plan, between steps)
                 self.ipc = group_entry(await self.engine._device_op(  # noqa: SLF001
@@ -351,7 +354,8 @@ class KvTransferClient:
         self.dest_layout = KvLayout.of_engine(engine)
         self.lanes = lanes
         self.ipc = IpcLane(engine.device, opener=ipc_opener,
-                           event_opener=ipc_event_opener)
+                           event_opener=ipc_event_opener,
+                           stages=getattr(engine, "pp", 1))
 
     async def fetch(self, descriptor: Dict[str, Any],
                     timeout: Optional[float] = 60.0,

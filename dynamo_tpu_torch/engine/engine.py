@@ -118,7 +118,27 @@ heads joined over its tp group, then sent to the leader), an import
 lands on the admitting sequence's partition, or on every replica of a
 replicated pool.  Media rows go to their block's replica only.
 
-Not ported yet (later slices): pp, sp and multihost.
+Pipeline parallelism (``parallel=ParallelConfig(pp=S, dp=D, tp=N)``):
+the group's D x S x N ranks are laid out as JAX's ``(dp, pp, tp)`` mesh
+(rank ``(d * S + s) * N + t``); each stage holds L/S contiguous layers
+(every rank of a stage its tp shard of them) and only those layers' KV
+pages.  A prefill pass runs the GPipe schedule and a decode dispatch the
+full ring (`parallel/pipeline.py`; a chain of blocks is one ring of all
+its steps); the last stage samples, and on each replica its tensor rank
+0 returns the packed results to the leader (over the dp group at the
+last stage, then the pp group).  A replicated pool swaps each stage's
+new rows over that stage's dp group; a partitioned pool is unchanged
+(the page axis and the layer axis are orthogonal, as JAX's
+`kv_pspec_pp`).  KV moves join every stage's layers in stage order over
+the pp group after the heads (export) and give each rank its layers'
+heads of the leader's full pages (import), so parked sequences, KVBM
+blocks and the disagg host lane carry the flat layout; the CUDA IPC
+lane does not serve a pipeline (ROADMAP 2.3b).  As in JAX, pp refuses
+vision towers and M-RoPE models (ROADMAP 2.8), turns the fused prefill,
+mixed dispatches and speculative decoding off, and rounds the decode
+rows to dp x pp (a partitioned pool's blocks to pp).
+
+Not ported yet (later slices): sp and multihost.
 """
 
 from __future__ import annotations
@@ -215,6 +235,24 @@ def _group_refusals(cfg: EngineConfig, tp: int) -> List[str]:
     return bad
 
 
+def _pp_config(cfg: EngineConfig, model_cfg: ModelConfig, pp: int,
+               vision) -> EngineConfig:
+    """The engine config of a pipeline (JAX `engine.py:1381-1422`): pp
+    divides the layers (`models.llama._check_supported`), a vision tower
+    or an M-RoPE model is refused (ROADMAP 2.8, as JAX refuses it), and
+    the fused prefill and mixed dispatches are off (the decode ring
+    splits the rows into pp microbatches; its row layouts round to them,
+    `_decode_rows`)."""
+    import dataclasses
+
+    if vision is not None or model_cfg.mrope_section:
+        raise ValueError(
+            f"pp={pp} does not serve a vision tower or M-RoPE yet "
+            f"(ROADMAP 2.8, as the JAX engine refuses it)")
+    return dataclasses.replace(cfg, fuse_prefill_decode=False,
+                               mixed_prefill_tokens=0)
+
+
 def _dp_config(cfg: EngineConfig, dp: int) -> EngineConfig:
     """The engine config of a dp group (JAX `engine.py:1483-1516`): a
     partitioned pool turns the fused prefill off and refuses decode
@@ -256,7 +294,13 @@ class TorchEngine:
         self.cfg = engine_cfg or EngineConfig()
         self.tp = parallel.tp if parallel is not None else 1
         self.dp = parallel.dp if parallel is not None else 1
-        self.world = self.tp * self.dp
+        self.pp = parallel.pp if parallel is not None else 1
+        self.world = self.tp * self.dp * self.pp
+        # a pipeline runs its dispatches through `parallel/pipeline.py`.
+        # A check hook besides: set on a flat engine before its first
+        # request, it runs that path at one stage (eagerly), which must be
+        # bit-equal to the flat rows (chip_smoke.py phase 19 (a))
+        self._staged = self.pp > 1
         self.group = group
         self._lockstep: Optional[lockstep.Leader] = None
         if parallel is not None:
@@ -264,7 +308,9 @@ class TorchEngine:
             from ..parallel import check_ported
 
             check_ported(parallel)
-            _check_supported(model_cfg, self.tp)
+            _check_supported(model_cfg, self.tp, self.pp)
+        if self.pp > 1:
+            self.cfg = _pp_config(self.cfg, model_cfg, self.pp, vision)
         if self.cfg.kv_partition and self.dp == 1:
             raise ValueError("kv_partition requires a serving mesh "
                              "(ParallelConfig with dp*sp > 1)")
@@ -286,8 +332,9 @@ class TorchEngine:
                         "eos": list(eos_token_ids or [])})
                 self._lockstep = lockstep.Leader(self.group, procs)
                 try:
-                    shard = lockstep.build_in_turn(0, devs, lambda: model(
-                        0, self.tp, self.group.device))
+                    shard = lockstep.build_in_turn(
+                        0, devs, lambda: lockstep.build_shard(model,
+                                                              self.group))
                     self._setup(model_cfg, shard, eos_token_ids, event_sink,
                                 self.group.device, tiered, vision)
                 except BaseException:
@@ -399,11 +446,12 @@ class TorchEngine:
             self.attach_connector(tiered)
 
     def _make_kv(self) -> KVCache:
-        """This rank's pool: ``num_pages`` pages of its heads (a replica of
-        a partitioned pool holds its partition's pages, local ids)."""
+        """This rank's pool: ``num_pages`` pages of its heads and its
+        stage's layers (a replica of a partitioned pool holds its
+        partition's pages, local ids)."""
         return KVCache.create(self.model_cfg, self.cfg.num_pages,
                               self.cfg.page_size, dtype=self.model.dtype,
-                              device=self.device, tp=self.tp)
+                              device=self.device, tp=self.tp, pp=self.pp)
 
     def _make_pool(self):
         if self._pooled:
@@ -477,6 +525,7 @@ class TorchEngine:
 
             m.tp = self.tp
             m.dp = self.dp
+            m.pp = self.pp
             m.kv_partition = self._pooled
             m.tp_backend = self.group.backend
             m.tp_plans_total = self._lockstep.plans
@@ -809,7 +858,7 @@ class TorchEngine:
             self._spec_block(d, desc["k"], desc["greedy"])
         elif kind == "embed":
             if self.group.replica == 0:  # replica 0 embeds (`_embed_rows`)
-                self.model.forward_embed(d["tokens"], d["lens"])
+                self._embed_dev(d["tokens"], d["lens"])
         elif kind == "kv_export":
             self._export_replay(d["pages"], d["src"])
         elif kind == "kv_import":
@@ -845,11 +894,15 @@ class TorchEngine:
         uniform blocks, one a replica: a replicated pool pads to the next
         multiple of dp and splits the rows in order; a partitioned pool
         gives each partition's sequences a block of `max_num_seqs` rows
-        (JAX `_decode_rows`)."""
+        (JAX `_decode_rows`).  A pipeline rounds the rows up to dp x pp
+        (a partitioned pool's blocks to pp): each replica's block splits
+        into pp microbatches (JAX rounds its decode buckets so)."""
         n = self.cfg.max_num_seqs
         if not self._pooled:
-            n = -(-n // self.dp) * self.dp
+            unit = self.dp * self.pp
+            n = -(-n // unit) * unit
             return list(seqs) + [None] * (n - len(seqs))
+        n = -(-n // self.pp) * self.pp
         return self._rank_blocks(seqs, lambda s: s.kv_rank, n)
 
     def _rank_blocks(self, items, rank_of, width: int) -> list:
@@ -964,12 +1017,31 @@ class TorchEngine:
                 self.kv.k[:, pg, sl] = part[0]
                 self.kv.v[:, pg, sl] = part[1]
 
-    def _gather_results(self, packed: List[torch.Tensor], widths
-                        ) -> Optional[List[torch.Tensor]]:
+    def _gather_results(self, packed: List[torch.Tensor], widths,
+                        shapes=None) -> Optional[List[torch.Tensor]]:
         """Each replica's packed results (one tensor a block) joined over
         every row, on the leader; None on the other ranks.  Without dp
         the leader's own.  Under dp every replica's tensor rank 0 sends
-        its block's over its dp group."""
+        its block's over its dp group.  Under pp the results are the last
+        stage's: its replicas' tensor ranks 0 join them over their dp
+        group, then replica 0's sends them to the leader over its pp group
+        (`shapes`: each joined tensor's shape, for the other stages'
+        buffers)."""
+        if self.pp > 1:
+            g = self.group
+            if g.tp_rank != 0:
+                return None
+            if g.last_stage and self.dp > 1:
+                from ..parallel.collectives import all_parts
+
+                packed = [blocks.join_packed(all_parts(
+                    p, g.replica, g.dp_ranks(), g.dp_group), widths)
+                          for p in packed]
+            if g.replica != 0:
+                return None
+            out = [self._from_last_stage(p, shape)
+                   for p, shape in zip(packed, shapes)]
+            return out if g.rank == 0 else None
         if self.dp == 1:
             return packed if self._lockstep is not None or self.group is None \
                 else None
@@ -982,6 +1054,18 @@ class TorchEngine:
                                                g.dp_group), widths)
                   for p in packed]
         return joined if g.rank == 0 else None
+
+    def _from_last_stage(self, t: Optional[torch.Tensor], shape) -> torch.Tensor:
+        """The last stage's f32 tensor `t` of `shape` on every stage of
+        this (replica, tensor rank)'s pp group (a broadcast over it; the
+        other stages pass None and get the bytes)."""
+        from ..parallel.collectives import broadcast_bytes
+
+        g = self.group
+        if not g.last_stage:
+            t = torch.empty(shape, dtype=torch.float32, device=self.device)
+        return broadcast_bytes(t.contiguous(), g.rank_of(
+            g.replica, self.pp - 1, g.tp_rank), g.pp_group)
 
     def _seed_arrays(self, rows: List[Optional[Sequence]]):
         seeds = [s.seed & 0xFFFFFFFF if s else 0 for s in rows]
@@ -1138,7 +1222,8 @@ class TorchEngine:
             "chunk": np.asarray([it.chunk_len if it else 1 for it in rows],
                                 np.int32)}
         samp_arrays = {"seeds": seeds, "ctr": counters, **samp}
-        if self.dp > 1:  # every replica samples its own rows
+        if self.dp > 1 or self.pp > 1:
+            # every replica samples its own rows, on its last stage
             host.update(samp_arrays)
         # the tower runs here, on the leader, before the plan: what the
         # other ranks need of it rides the plan
@@ -1178,6 +1263,8 @@ class TorchEngine:
         replica's tensor rank 0 under dp).  Returns (tokens, packed) on
         the leader, (None, None) elsewhere."""
         blk = self._block(d)
+        if self._staged:
+            return self._prefill_stages(d, blk, v)
         extras = media.block_extras(self, mm,
                                      self._span(d["tokens"].shape[0]),
                                      blk["prefix"])
@@ -1198,6 +1285,29 @@ class TorchEngine:
         tok, packed = blocks.sample_pack(logits, blk, blk["ctr"], v)
         joined = self._gather_results([packed], blocks.out_widths(v.with_top))
         return (tok, joined[0]) if joined is not None else (None, None)
+
+    def _prefill_stages(self, d: Dict[str, torch.Tensor],
+                        blk: Dict[str, torch.Tensor], v: Variant):
+        """`_prefill_block` through the pipeline (`parallel.pipeline.
+        forward_prefill_pp`): every stage writes its layers' KV, the
+        replicas level a replicated pool stage by stage, and the last
+        stage samples its replica's rows."""
+        from ..parallel.pipeline import forward_prefill_pp
+
+        logits = forward_prefill_pp(self.model, self.group, self.kv,
+                                    blk["tokens"], blk["table"], blk["prefix"],
+                                    blk["chunk"])
+        self._sync_replicas(d["table"], d["prefix"], d["chunk"])
+        tok = packed = None
+        if logits is not None and (self.group is None
+                                   or self.group.tp_rank == 0):
+            tok, packed = blocks.sample_pack(logits, blk, blk["ctr"], v)
+        widths = blocks.out_widths(v.with_top)
+        joined = self._gather_results(
+            [packed], widths, [(d["tokens"].shape[0] * sum(widths),)])
+        if joined is None:
+            return None, None
+        return (tok if self.group is None else None), joined[0]
 
     def _consume_prefill(self, rows: List[Optional[PrefillItem]],
                          fetch: HostFetch, with_top: bool) -> None:
@@ -1299,6 +1409,8 @@ class TorchEngine:
                        counts=self._sparse_counts(d.get("counts")),
                        variant=[v.penalized, v.with_top, v.greedy],
                        chain_len=chain_len, n_steps=T)
+        if self._staged:
+            return self._decode_stages(d, v, chain_len, T)
         key = ("decode", T, v.greedy, v.penalized, v.with_top,
                d["table"].shape[1])
         fn = self._block_fn("decode", T, v)
@@ -1314,6 +1426,29 @@ class TorchEngine:
         self._sync_replicas(d["table"], d["pos"], chain_len * T)
         joined = self._gather_results(fetches, blocks.out_widths(v.with_top))
         return None if joined is None else [HostFetch(p) for p in joined]
+
+    def _decode_stages(self, d: Dict[str, torch.Tensor], v: Variant,
+                       chain_len: int, T: int) -> Optional[List[HostFetch]]:
+        """`_dispatch_decode` through the pipeline: a chain of `chain_len`
+        blocks of T steps is one ring of chain_len x T steps
+        (`parallel.pipeline.forward_decode_pp`; a block's carries are its
+        last step's, so the steps are the same), its packed results cut
+        back into one fetch a block."""
+        from ..parallel.pipeline import forward_decode_pp
+
+        steps = chain_len * T
+        blk = self._block({k: t.to(self.device, non_blocking=True)
+                           for k, t in d.items()})
+        packed = forward_decode_pp(self.model, self.group, self.kv, blk, steps,
+                                   self.cfg.hard_cap, v, TOPLP)
+        self._sync_replicas(d["table"], d["pos"], steps)
+        widths = blocks.out_widths(v.with_top)
+        joined = self._gather_results(
+            [packed], widths, [(steps, d["tok"].shape[0] * sum(widths))])
+        if joined is None:
+            return None
+        return [HostFetch(joined[0][k * T:(k + 1) * T])
+                for k in range(chain_len)]
 
     def _decode_inputs(self, rows, v: Variant) -> Dict[str, torch.Tensor]:
         tokens, positions = self._decode_arrays(rows)
@@ -1439,7 +1574,8 @@ class TorchEngine:
         k+1 tokens of the context cap would write drafts past their
         page-table horizon."""
         k = self.cfg.speculative_ngram_k
-        if k <= 0 or self._pooled:  # JAX runs no verify on a partition
+        # JAX runs no verify on a partition, nor under pp (`engine.py:3497`)
+        if k <= 0 or self._pooled or self._staged:
             return False
         if any(s.opts.penalized or s.opts.top_logprobs > 0 for s in seqs):
             return False
@@ -1888,10 +2024,12 @@ class TorchEngine:
         """Gather of page ids → fresh device tensors k, v [L, n, page, n_kv,
         hd] (exactly n pages: no padding width to bound recompiles).  Under
         tp every rank gathers its head slice and the slices join in rank
-        order: the model's full kv heads (a ``kv_export`` plan).  Under dp
-        the pages are read on one replica (the partition holding them, or
-        replica 0 of a replicated pool) and reach the leader over its dp
-        group (JAX `_build_export_fn_pooled`)."""
+        order: the model's full kv heads (a ``kv_export`` plan).  Under pp
+        the stages' layers then join in stage order over the pp group: the
+        model's every layer.  Under dp the pages are read on one replica
+        (the partition holding them, or replica 0 of a replicated pool)
+        and reach the leader over its dp group (JAX
+        `_build_export_fn_pooled`, `_build_export_fn_pp_pooled`)."""
         src, local = self._partition(pages)
         src = src or 0
         self._plan("kv_export", arrays={"pages": np.asarray(local, np.int64)},
@@ -1908,7 +2046,7 @@ class TorchEngine:
         from ..parallel.collectives import broadcast_bytes, gather_heads
 
         L, _, ps, h, hd = self.kv.k.shape
-        full = (L, len(idx), ps, h * self.tp, hd)
+        full = (L * self.pp, len(idx), ps, h * self.tp, hd)
         k = v = None
         if g.replica == src:
             k, v = self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
@@ -1916,12 +2054,19 @@ class TorchEngine:
                 ranks = g.tp_ranks()
                 k = gather_heads(k, g.tp_rank, ranks, g.dev_group)
                 v = gather_heads(v, g.tp_rank, ranks, g.dev_group)
-        if src != 0 and g.tp_rank == 0:
-            # the owner's tensor rank 0 sends the pages to the leader
+            if self.pp > 1 and g.tp_rank == 0:
+                # every stage's layers, in stage order (JAX
+                # `_build_export_fn_pp_pooled`'s all_gather over pp)
+                ranks = g.pp_ranks()
+                k = gather_heads(k, g.stage, ranks, g.pp_group, axis=0)
+                v = gather_heads(v, g.stage, ranks, g.pp_group, axis=0)
+        if src != 0 and g.tp_rank == 0 and g.stage == 0:
+            # the owner's stage 0, tensor rank 0 sends the pages to the
+            # leader
             if g.replica != src:
                 k = self.kv.k.new_empty(full)
                 v = self.kv.v.new_empty(full)
-            owner = src * self.tp
+            owner = g.rank_of(src, 0, 0)
             broadcast_bytes(k, owner, g.dp_group)
             broadcast_bytes(v, owner, g.dp_group)
         return k, v
@@ -1979,26 +2124,31 @@ class TorchEngine:
 
     def _import_replay(self, desc: Dict[str, Any], d: Dict[str, Any]) -> None:
         """Every rank's device half of a group's ``kv_import``: the
-        leader's full-head pages reach the destination replicas' tensor
-        rank 0 over the dp group (when the destination is not replica 0
-        alone), then each destination replica's ranks over its tp group,
-        and each rank scatters its own heads."""
+        leader's full pages (every layer, every head) reach the
+        destination replicas' stage 0, tensor rank 0 over the dp group
+        (when the destination is not replica 0 alone), then every stage's
+        tensor rank 0 over the pp group, then each stage's ranks over its
+        tp group, and each rank scatters its own layers' own heads (JAX
+        `_build_import_fn_pp_pooled`)."""
         if desc["lane"] == "ipc":
             return self._ipc_import_replay(desc, d)
         from ..parallel.collectives import broadcast_bytes
 
         g = self.group
         dst = desc.get("dst")
-        h = self.kv.k.shape[3]
+        L, _, _, h, _ = self.kv.k.shape
         for name, pool in (("k", self.kv.k), ("v", self.kv.v)):
             full = d[name]
-            if self.dp > 1 and dst != 0 and g.tp_rank == 0:
+            if self.dp > 1 and dst != 0 and g.tp_rank == 0 and g.stage == 0:
                 broadcast_bytes(full, 0, g.dp_group)
             if not self._lands_here(dst):
                 continue
+            if self.pp > 1 and g.tp_rank == 0:
+                broadcast_bytes(full, g.rank_of(g.replica, 0, 0), g.pp_group)
             if self.tp > 1:
                 broadcast_bytes(full, g.tp_ranks()[0], g.dev_group)
-            pool.index_copy_(1, d["pages"], full.narrow(3, g.tp_rank * h, h))
+            pool.index_copy_(1, d["pages"], full.narrow(0, g.stage * L, L)
+                             .narrow(3, g.tp_rank * h, h))
 
     def rank_pages(self, pages) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Each rank's own heads of `pages` as host tensors [L, n, page,
@@ -2346,10 +2496,26 @@ class TorchEngine:
                 lens[r] = len(rows[j])
             self._plan("embed", arrays={"tokens": tokens, "lens": lens})
             d = self._to_device({"tokens": tokens, "lens": lens})
-            vec = self.model.forward_embed(d["tokens"], d["lens"])
+            vec = self._embed_dev(d["tokens"], d["lens"])
             out[group] = vec.cpu().numpy()
             i += n
         return out
+
+    def _embed_dev(self, tokens: torch.Tensor, lens: torch.Tensor):
+        """`Llama.forward_embed` on this rank: through the stages under pp
+        (`parallel.pipeline.forward_embed_pp`), the vectors then sent from
+        the last stage to the leader; f32 [B, h] on the leader."""
+        if not self._staged:
+            return self.model.forward_embed(tokens, lens)
+        from ..parallel.pipeline import forward_embed_pp
+
+        vec = forward_embed_pp(self.model, self.group, tokens, lens)
+        if self.group is None:
+            return vec
+        if self.group.tp_rank != 0:
+            return None
+        return self._from_last_stage(
+            vec, (tokens.shape[0], self.model_cfg.hidden_size))
 
     # -- disaggregated serving: page ops, remote prefill, adoption ---------- #
 

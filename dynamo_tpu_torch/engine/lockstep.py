@@ -242,13 +242,16 @@ def _own_ipc_entry(engine) -> Optional[Dict[str, Any]]:
 
 
 def _own_stats(engine=None) -> dict:
-    """This rank's kernel launches and, given its engine, the layout rows
-    of its recent media splices and the parameters of its vision tower
-    (none but the leader's)."""
+    """This rank's kernel launches, its stage handoffs (sends and bytes)
+    and, given its engine, its pipeline stage, the layout rows of its
+    recent media splices and the parameters of its vision tower (none but
+    the leader's)."""
     from ..ops._launches import LAUNCHES
 
     out = {"rank": dist.get_rank(), "launches": dict(LAUNCHES)}
     if engine is not None:
+        out["stage"] = engine.group.stage
+        out["handoffs"] = dict(engine.group.handoffs)
         tower = engine.vision[0] if engine.vision else None
         out["media_rows"] = list(engine.media_rows)
         out["tower_params"] = (0 if tower is None else
@@ -258,7 +261,7 @@ def _own_stats(engine=None) -> dict:
 
 def start_group(pcfg: ParallelConfig, devices: Optional[Sequence],
                 follower_args: Dict[str, Any]):
-    """Spawn the followers of a dp x tp group and join it as rank 0:
+    """Spawn the followers of a dp x pp x tp group and join it as rank 0:
     returns (TpGroup, [processes], each rank's device).  `follower_args`
     are what each follower needs to build its engine (pickled to it): the
     model config, the model source, the engine config and the eos ids
@@ -280,13 +283,23 @@ def start_group(pcfg: ParallelConfig, devices: Optional[Sequence],
         p.start()
         procs.append(p)
     try:
-        group = TpGroup(0, pcfg.world, devs[0], backend, init, dp=pcfg.dp)
+        group = TpGroup(0, pcfg.world, devs[0], backend, init, dp=pcfg.dp,
+                        pp=pcfg.pp)
     except BaseException:
         for p in procs:
             p.terminate()
             p.join(JOIN_TIMEOUT_S)
         raise
     return group, procs, devs
+
+
+def build_shard(source, group: TpGroup):
+    """This rank's model from its source (`parallel.SeededShards` and
+    its kin): its tensor rank's shard of its stage's layers."""
+    if group.pp > 1:
+        return source(group.tp_rank, group.tp, group.device,
+                      stage=group.stage, pp=group.pp)
+    return source(group.tp_rank, group.tp, group.device)
 
 
 def build_in_turn(rank: int, devices: Sequence, build):
@@ -367,12 +380,12 @@ def follower_main(spec: Dict[str, Any]) -> None:
     rank, pcfg = spec["rank"], spec["parallel"]
     devs = [torch.device(d) for d in spec["devices"]]
     group = TpGroup(rank, pcfg.world, devs[rank], spec["backend"],
-                    spec["init_method"], dp=pcfg.dp)
+                    spec["init_method"], dp=pcfg.dp, pp=pcfg.pp)
     engine = None
     try:
-        # every replica builds the same tp shards
-        model = build_in_turn(rank, devs, lambda: spec["model"](
-            group.tp_rank, pcfg.tp, group.device))
+        # every replica builds the same shards
+        model = build_in_turn(rank, devs,
+                              lambda: build_shard(spec["model"], group))
         engine = TorchEngine(spec["model_cfg"], model, spec["engine_cfg"],
                              eos_token_ids=spec["eos"], parallel=pcfg,
                              devices=devs, group=group)

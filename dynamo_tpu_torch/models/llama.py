@@ -37,6 +37,16 @@ the JAX package's `models/llama.py`.
   The embedding is vocab-parallel and the logits are gathered over the
   full vocabulary (both exact), so every rank samples the same token.
   At tp 1 none of this runs: the flat path is unchanged.
+- Pipeline stages (``Llama(..., stage=s, pp=S)``, `parallel/pipeline.py`):
+  a stage holds the decoder layers ``[s * L / S, (s + 1) * L / S)`` of
+  the flat model, each tp-sharded as above, with their windows (JAX
+  `_local_wins`); the embedding lives on stage 0, the final norm and the
+  LM head on the last stage (and a tied head's embedding there too), and
+  its pool holds L / S layers.  `stage_prefill`, `stage_decode` and
+  `stage_embed` take hidden states in (stage 0 embeds token ids) and give
+  hidden states out; the last stage's caller applies `lm_logits` or
+  `embed_pool`.  The flat `forward_*` are a one-stage model's entry
+  points followed by the head.
 """
 
 from __future__ import annotations
@@ -85,16 +95,21 @@ class KVCache:
 
     @staticmethod
     def create(cfg: ModelConfig, num_pages: int, page_size: int,
-               dtype=torch.bfloat16, device=None, tp: int = 1) -> "KVCache":
-        """A zeroed pool; at ``tp`` > 1 one rank's: nkv/tp kv heads."""
+               dtype=torch.bfloat16, device=None, tp: int = 1,
+               pp: int = 1) -> "KVCache":
+        """A zeroed pool; at ``tp`` > 1 one rank's: nkv/tp kv heads; at
+        ``pp`` > 1 one stage's: L/pp layers."""
         device = resolve_device(device)
-        shape = (cfg.num_hidden_layers, num_pages, page_size,
+        shape = (cfg.num_hidden_layers // pp, num_pages, page_size,
                  cfg.num_key_value_heads // tp, cfg.head_dim_)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _check_supported(cfg: ModelConfig, tp: int = 1) -> None:
+def _check_supported(cfg: ModelConfig, tp: int = 1, pp: int = 1) -> None:
+    if pp > 1 and cfg.num_hidden_layers % pp:
+        raise ValueError(f"pp={pp} must divide num_hidden_layers="
+                         f"{cfg.num_hidden_layers} ({cfg.name})")
     if cfg.mrope_section and sum(cfg.mrope_section) != cfg.head_dim_ // 2:
         raise ValueError(f"{cfg.name}: mrope_section {cfg.mrope_section} does "
                          f"not split the {cfg.head_dim_ // 2} rotary frequencies")
@@ -468,28 +483,36 @@ class Llama(nn.Module):
     entry point of the port it lives on the CUDA device unless the caller
     passes ``device="cpu"``; `KVCache.create`, `init_params` and
     `params_from_jax` resolve their device the same way.  The MoE path
-    runs the grouped GEMM kernel on the card, which takes bf16 only."""
+    runs the grouped GEMM kernel on the card, which takes bf16 only.
+    ``stage`` / ``pp``: a pipeline stage's model (the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
-                 rank: int = 0, tp: int = 1):
+                 rank: int = 0, tp: int = 1, stage: int = 0, pp: int = 1):
         super().__init__()
-        _check_supported(cfg, tp)
+        _check_supported(cfg, tp, pp)
         self.cfg = cfg
         self.dtype = dtype
         self.device = device = resolve_device(device)
         self.comm = TpComm(rank, tp)
+        self.stage, self.pp = stage, pp
+        n = cfg.num_hidden_layers // pp
+        # the global indices of this stage's layers
+        self.layer_range = range(stage * n, (stage + 1) * n)
         h, V = cfg.hidden_size, cfg.vocab_size // tp
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                                 requires_grad=False)
 
-        self.embed = p(V, h)
-        self.final_norm = p(h)
+        self.embed = (p(V, h) if self.first_stage or (
+            self.last_stage and cfg.tie_word_embeddings) else None)
+        self.final_norm = p(h) if self.last_stage else None
+        windows = cfg.layer_windows()
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype, device, window, self.comm)
-            for window in cfg.layer_windows())
-        self.lm_head = None if cfg.tie_word_embeddings else p(h, V)
+            DecoderLayer(cfg, dtype, device, windows[i], self.comm)
+            for i in self.layer_range)
+        self.lm_head = (p(h, V) if self.last_stage
+                        and not cfg.tie_word_embeddings else None)
         self.inv_freq = rope_frequencies(cfg.head_dim_, cfg.rope_theta,
                                          cfg.rope_scaling, device=device)
         self.rope_scale = rope_attention_scale(cfg.rope_scaling)
@@ -500,14 +523,25 @@ class Llama(nn.Module):
     def tp(self) -> int:
         return self.comm.tp
 
+    @property
+    def first_stage(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last_stage(self) -> bool:
+        return self.stage == self.pp - 1
+
     def attach_group(self, group) -> None:
         """Run this shard's collectives on `group` (a `parallel.TpGroup`:
-        its replica's tp group of ``tp`` ranks, this model's rank among
-        them; the replicas of a dp x tp group hold the same shards)."""
+        its (replica, stage)'s tp group of ``tp`` ranks, this model's rank
+        among them; the replicas of a group hold the same shards)."""
         if (group.tp, group.tp_rank) != (self.comm.tp, self.comm.rank):
             raise ValueError(f"a shard of rank {self.comm.rank} of "
                              f"{self.comm.tp} on tensor rank {group.tp_rank} "
                              f"of {group.tp}")
+        if (group.pp, group.stage) != (self.pp, self.stage):
+            raise ValueError(f"a model of stage {self.stage} of {self.pp} on "
+                             f"stage {group.stage} of {group.pp}")
         self.comm.group = group
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -529,13 +563,15 @@ class Llama(nn.Module):
 
     def _prefill_layers(self, kv: KVCache, tokens, page_table, prefix_lens,
                         chunk_lens, extra_embeds=None, extra_mask=None,
-                        mm_positions=None, rope_offset=None) -> torch.Tensor:
+                        mm_positions=None, rope_offset=None,
+                        x=None) -> torch.Tensor:
         """Embed a chunk (tokens [B, S]; rows of ``extra_embeds`` [B, S, h]
-        replace the embedding where ``extra_mask`` [B, S] is set) and run
-        every layer's prefill over it; returns the last hidden states
-        [B, S, h].  An M-RoPE model ropes by ``mm_positions`` [B, 3, S]
-        when given, else text-style; ``rope_offset`` [B] shifts the rope
-        positions (verify), never the KV slots."""
+        replace the embedding where ``extra_mask`` [B, S] is set), or take
+        the previous stage's hidden states `x` [B, S, h], and run every
+        layer's prefill over it; returns the last hidden states [B, S, h].
+        An M-RoPE model ropes by ``mm_positions`` [B, 3, S] when given,
+        else text-style; ``rope_offset`` [B] shifts the rope positions
+        (verify), never the KV slots."""
         S = tokens.shape[1]
         positions = prefix_lens.long()[:, None] + torch.arange(
             S, device=tokens.device)[None, :]
@@ -547,13 +583,24 @@ class Llama(nn.Module):
         else:
             rope = (*rope_cos_sin(positions, self.inv_freq), self.rope_scale)
         slot = kv_slots(page_table, prefix_lens, chunk_lens, S, kv.page_size)
-        x = self._embed(tokens)
-        if extra_embeds is not None:
-            x = torch.where(extra_mask[..., None], extra_embeds.to(x.dtype), x)
+        if x is None:
+            x = self._embed(tokens)
+            if extra_embeds is not None:
+                x = torch.where(extra_mask[..., None], extra_embeds.to(x.dtype), x)
         for i, layer in enumerate(self.layers):
             x = layer.prefill(x, (kv.k[i], kv.v[i]), rope, page_table,
                               prefix_lens, chunk_lens, slot)
         return x
+
+    @torch.no_grad()
+    def stage_prefill(self, kv: KVCache, tokens, page_table, prefix_lens,
+                      chunk_lens, x=None) -> torch.Tensor:
+        """This stage's layers over a prefill chunk: stage 0 embeds
+        `tokens` [B, S], a later stage takes the previous stage's hidden
+        states `x` [B, S, h] (`tokens` then gives only the chunk's
+        width); returns the hidden states [B, S, h] after its layers."""
+        return self._prefill_layers(kv, tokens, page_table, prefix_lens,
+                                    chunk_lens, x=x)
 
     @torch.no_grad()
     def forward_prefill(self, kv: KVCache, tokens, page_table, prefix_lens,
@@ -566,9 +613,7 @@ class Llama(nn.Module):
         exact for text-only prompts)."""
         x = self._prefill_layers(kv, tokens, page_table, prefix_lens, chunk_lens,
                                  extra_embeds, extra_mask, mm_positions)
-        last = torch.clamp(chunk_lens.long() - 1, min=0)
-        x_last = x[torch.arange(tokens.shape[0], device=x.device), last]
-        return self.lm_logits(x_last)
+        return self.lm_logits(last_positions(x, chunk_lens))
 
     @torch.no_grad()
     def forward_verify(self, kv: KVCache, tokens, page_table, prefix_lens,
@@ -586,16 +631,15 @@ class Llama(nn.Module):
         return self.lm_logits(x)
 
     @torch.no_grad()
-    def forward_embed(self, tokens: torch.Tensor,
-                      lens: torch.Tensor) -> torch.Tensor:
-        """Sequence embeddings (tokens [B, S], valid lengths ``lens`` [B]):
-        every layer's prefill body at prefix 0 with chunk_lens = lens, the
-        final norm, the f32 mean over valid positions (divisor floored at
-        1), unit-normalised (norm floored at 1e-9); f32 [B, h].  Positions
-        are 0..S-1 with 1-D rope, an M-RoPE model's too.  Cache-free: with
-        no prefix the attention reads no page, so a one-slot page in the
-        model's dtype and a zero table stand in for the pool, and no KV is
-        written."""
+    def stage_embed(self, tokens: torch.Tensor, lens: torch.Tensor,
+                    x=None) -> torch.Tensor:
+        """This stage's layers of `forward_embed` (stage 0 embeds `tokens`
+        [B, S], a later stage takes the previous stage's hidden states
+        `x`): every layer's prefill body at prefix 0 with chunk_lens =
+        lens.  Cache-free: with no prefix the attention reads no page, so
+        a one-slot page in the model's dtype and a zero table stand in for
+        the pool, and no KV is written.  Returns the hidden states [B, S,
+        h]."""
         B, S = tokens.shape
         dev = tokens.device
         c = self.cfg
@@ -606,15 +650,54 @@ class Llama(nn.Module):
         table = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         page = torch.zeros((1, 1, c.num_key_value_heads // self.tp, c.head_dim_),
                            dtype=self.dtype, device=dev)
-        x = self._embed(tokens)
+        if x is None:
+            x = self._embed(tokens)
         for layer in self.layers:
             x = layer.prefill(x, (page, page), rope, table, prefix, lens, None)
-        x = rms_norm(x, self.final_norm, c.rms_norm_eps)
-        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).float()
+        return x
+
+    @torch.no_grad()
+    def embed_pool(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """The last stage's tail of `forward_embed`: the final norm, the
+        f32 mean over valid positions (divisor floored at 1),
+        unit-normalised (norm floored at 1e-9); f32 [B, h]."""
+        S = x.shape[1]
+        lens = lens.to(device=x.device, dtype=torch.int32)
+        x = rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
+        mask = (torch.arange(S, device=x.device)[None, :]
+                < lens[:, None]).float()
         pooled = (x.float() * mask[..., None]).sum(1)
         pooled = pooled / lens.float().clamp_min(1.0)[:, None]
         return pooled / torch.linalg.vector_norm(
             pooled, dim=-1, keepdim=True).clamp_min(1e-9)
+
+    @torch.no_grad()
+    def forward_embed(self, tokens: torch.Tensor,
+                      lens: torch.Tensor) -> torch.Tensor:
+        """Sequence embeddings (tokens [B, S], valid lengths ``lens`` [B]):
+        every layer's prefill body at prefix 0 with chunk_lens = lens
+        (`stage_embed`), then `embed_pool`; f32 [B, h].  Positions are
+        0..S-1 with 1-D rope, an M-RoPE model's too.  No KV is written."""
+        return self.embed_pool(self.stage_embed(tokens, lens), lens)
+
+    @torch.no_grad()
+    def stage_decode(self, kv: KVCache, tokens, positions, page_table,
+                     rope_offset=None, x=None) -> torch.Tensor:
+        """This stage's layers over one decode step (positions [B]):
+        stage 0 embeds `tokens` [B], a later stage takes the previous
+        stage's hidden states `x` [B, h]; returns [B, h] after its
+        layers."""
+        rp = positions if rope_offset is None else positions + rope_offset
+        rope = (*rope_cos_sin(rp[:, None], self.inv_freq), self.rope_scale)
+        slot = kv_slots(page_table, positions, torch.ones_like(positions), 1,
+                        kv.page_size)
+        seq_lens = (positions + 1).to(torch.int32)
+        if x is None:
+            x = self._embed(tokens)
+        for i, layer in enumerate(self.layers):
+            x = layer.decode(x, (kv.k[i], kv.v[i]), rope, page_table,
+                             seq_lens, slot)
+        return x
 
     @torch.no_grad()
     def forward_decode(self, kv: KVCache, tokens, positions, page_table,
@@ -623,16 +706,15 @@ class Llama(nn.Module):
         f32 logits [B, V].  ``rope_offset`` [B] (an M-RoPE model's
         per-row delta) shifts the rope position; the KV slot stays the
         token's index."""
-        rp = positions if rope_offset is None else positions + rope_offset
-        rope = (*rope_cos_sin(rp[:, None], self.inv_freq), self.rope_scale)
-        slot = kv_slots(page_table, positions, torch.ones_like(positions), 1,
-                        kv.page_size)
-        seq_lens = (positions + 1).to(torch.int32)
-        x = self._embed(tokens)
-        for i, layer in enumerate(self.layers):
-            x = layer.decode(x, (kv.k[i], kv.v[i]), rope, page_table,
-                             seq_lens, slot)
-        return self.lm_logits(x)
+        return self.lm_logits(self.stage_decode(kv, tokens, positions,
+                                                page_table, rope_offset))
+
+
+def last_positions(x: torch.Tensor, chunk_lens: torch.Tensor) -> torch.Tensor:
+    """Each row's hidden state at its last valid position: x [B, S, h] ->
+    [B, h]."""
+    last = torch.clamp(chunk_lens.long() - 1, min=0)
+    return x[torch.arange(x.shape[0], device=x.device), last]
 
 
 def _init_scale(name: str, t: torch.Tensor) -> float:
@@ -646,7 +728,7 @@ def _init_scale(name: str, t: torch.Tensor) -> float:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None, rank: int = 0,
-                tp: int = 1) -> Llama:
+                tp: int = 1, stage: int = 0, pp: int = 1) -> Llama:
     """Random weights from `generator` (drawn on the generator's device),
     with the JAX package's scales: normal / sqrt(fan_in) (expert stacks
     too), biases 0.02, sinks 1, embedding 0.02, norms 1.  Drawn one tensor
@@ -654,29 +736,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     one f32 tensor at once.  With ``tp`` > 1 the model is rank `rank`'s
     shard: every tensor is still drawn whole, in the flat model's order,
     and the rank keeps its slice, so the shards of one seed are the flat
-    model's values."""
-    model = Llama(cfg, dtype=dtype, device=device, rank=rank, tp=tp)
+    model's values.  With ``pp`` > 1 the model is stage `stage`'s: every
+    layer is drawn, and the stage keeps its own."""
+    model = Llama(cfg, dtype=dtype, device=device, rank=rank, tp=tp,
+                  stage=stage, pp=pp)
     full = _param_shapes(cfg)
     axes = param_shard_axes(cfg)
 
     def fill(t: torch.Tensor, shape, scale: float, axis=None) -> None:
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
+        if t is None:  # another stage's: drawn to keep the stream's order
+            return
         t.copy_((shard(w, axis, rank, tp) * scale).to(dtype))
 
     with torch.no_grad():
-        for layer in model.layers:
+        for i in range(cfg.num_hidden_layers):
+            layer = (model.layers[i - model.layer_range.start]
+                     if i in model.layer_range else None)
             for name in layer_keys(cfg):
-                t = getattr(layer, name)
+                t = None if layer is None else getattr(layer, name)
                 if name.endswith("norm"):
-                    t.fill_(1.0)
+                    if t is not None:
+                        t.fill_(1.0)
                 else:
                     w = torch.empty(full[name], device="meta")
                     fill(t, full[name], _init_scale(name, w), axes[name])
         h, V = cfg.hidden_size, cfg.vocab_size
         fill(model.embed, (V, h), 0.02, TOP_AXES["embed"])
-        model.final_norm.fill_(1.0)
-        if model.lm_head is not None:
+        if model.final_norm is not None:
+            model.final_norm.fill_(1.0)
+        if not cfg.tie_word_embeddings:
             fill(model.lm_head, (h, V), 1.0 / math.sqrt(h), TOP_AXES["lm_head"])
     return model
 
@@ -689,7 +779,8 @@ def _from_numpy(a) -> torch.Tensor:
 
 
 def params_from_jax(cfg: ModelConfig, tree: Dict, dtype=None,
-                    device=None, rank: int = 0, tp: int = 1) -> Llama:
+                    device=None, rank: int = 0, tp: int = 1, stage: int = 0,
+                    pp: int = 1) -> Llama:
     """The port's model from a JAX `init_params` / `load_params` tree
     already converted to numpy (``jax.tree.map(np.asarray, params)``):
     layer stacks [L, ...] become per-layer parameters, and int8
@@ -698,12 +789,14 @@ def params_from_jax(cfg: ModelConfig, tree: Dict, dtype=None,
     own (bf16 arrays arrive as ml_dtypes and go through f32).  With
     ``tp`` > 1, rank `rank`'s shard: the numpy leaves are sliced as JAX's
     `param_pspecs` / `quantize_pspecs` place them (`parallel.
-    shard_params`) before anything reaches the device."""
-    if tp > 1:
-        tree = shard_params(tree, cfg, rank, tp)
-    embed = _from_numpy(tree["embed"])
-    model = Llama(cfg, dtype=dtype or embed.dtype, device=device, rank=rank,
-                  tp=tp)
+    shard_params`) before anything reaches the device; with ``pp`` > 1,
+    stage `stage`'s layers, the stacked layer axis split over pp as JAX's
+    `param_pspecs_pp` splits it."""
+    if tp > 1 or pp > 1:
+        tree = shard_params(tree, cfg, rank, tp, stage, pp)
+    embed = _from_numpy(tree["embed"]) if "embed" in tree else None
+    model = Llama(cfg, dtype=dtype or _tree_dtype(tree, embed), device=device,
+                  rank=rank, tp=tp, stage=stage, pp=pp)
     dev = model.device
     layers = tree["layers"]
     unknown = set(layers) - set(layer_keys(cfg))
@@ -719,8 +812,10 @@ def params_from_jax(cfg: ModelConfig, tree: Dict, dtype=None,
         return {"q": q.to(dev), "s": s.float().to(dev)}
 
     with torch.no_grad():
-        model.embed.copy_(embed)
-        model.final_norm.copy_(_from_numpy(tree["final_norm"]))
+        if model.embed is not None:
+            model.embed.copy_(embed)
+        if model.final_norm is not None:
+            model.final_norm.copy_(_from_numpy(tree["final_norm"]))
         head = tree.get("lm_head")
         if is_quantized(head):
             _swap(model, "lm_head", quant(head))
@@ -737,19 +832,36 @@ def params_from_jax(cfg: ModelConfig, tree: Dict, dtype=None,
     return model
 
 
+def _tree_dtype(tree: Dict, embed) -> torch.dtype:
+    """A tree's own dtype: its embedding's, or on a stage without one its
+    first unquantized layer leaf's."""
+    if embed is not None:
+        return embed.dtype
+    for name in ("attn_norm", "wq"):
+        leaf = tree["layers"][name]
+        if not is_quantized(leaf):
+            return _from_numpy(leaf).dtype
+    raise ValueError("a stage tree without an unquantized leaf")
+
+
 @torch.no_grad()
-def shard_model(full: Llama, rank: int, tp: int, device=None) -> Llama:
-    """Rank `rank`'s shard of an unquantized flat model (one the loader
-    read onto the CPU), on `device`."""
+def shard_model(full: Llama, rank: int, tp: int, device=None, stage: int = 0,
+                pp: int = 1) -> Llama:
+    """Rank `rank`'s shard of stage `stage`'s layers of an unquantized
+    flat model (one the loader read onto the CPU), on `device`."""
     cfg = full.cfg
-    model = Llama(cfg, dtype=full.dtype, device=device, rank=rank, tp=tp)
+    model = Llama(cfg, dtype=full.dtype, device=device, rank=rank, tp=tp,
+                  stage=stage, pp=pp)
     axes = param_shard_axes(cfg)
-    for src, dst in zip(full.layers, model.layers):
+    for i, dst in zip(model.layer_range, model.layers):
+        src = full.layers[i]
         for name in layer_keys(cfg):
             getattr(dst, name).copy_(shard(getattr(src, name), axes[name],
                                            rank, tp))
-    model.embed.copy_(shard(full.embed, TOP_AXES["embed"], rank, tp))
-    model.final_norm.copy_(full.final_norm)
+    if model.embed is not None:
+        model.embed.copy_(shard(full.embed, TOP_AXES["embed"], rank, tp))
+    if model.final_norm is not None:
+        model.final_norm.copy_(full.final_norm)
     if model.lm_head is not None:
         model.lm_head.copy_(shard(full.lm_head, TOP_AXES["lm_head"], rank, tp))
     return model

@@ -117,6 +117,8 @@ def quantize_params(model) -> Any:
                 rows = comm.tp > 1 and axes[key] == 0
                 _swap(layer, key, quantize_tensor(
                     w, group=comm.pg() if rows else None))
+    if not model.last_stage:
+        return model  # the head lives on the last pipeline stage
     head = model.lm_head
     if head is not None and not is_quantized(head):
         _swap(model, "lm_head", quantize_tensor(head))

@@ -12,14 +12,16 @@ instead (`chip_smoke.py --dp-probe`: a partitioned dp 2 group against a
 flat engine), which must report problems; a mutant of a group's media
 (`engine/media.py`) by phase 18 (b)'s (`chip_smoke.py --vl-probe`: a
 partitioned dp 2 group serving Qwen2.5-VL-7B's images and video against
-a flat engine).  The card runs need a CUDA card:
+a flat engine), and a mutant of the decode ring (`parallel/pipeline.py`)
+by phase 19 (a)'s (`chip_smoke.py --pp-probe`: a pp 2 group against the
+flat engine).  The card runs need a CUDA card:
 
     python3 -m dynamo_tpu_torch.mutants            # every mutant
     python3 -m dynamo_tpu_torch.mutants NAME ...   # some of them
 
-The media mutants (`CPU_CHECKED`) are also checked on the CPU, where
-their test file must fail in a copy of the package that carries the
-fault (one whose card probe cannot see it is checked there only):
+The media and ring mutants (`CPU_CHECKED`) are also checked on the CPU,
+where their test file must fail in a copy of the package that carries
+the fault (one whose card probe cannot see it is checked there only):
 
     python3 -m dynamo_tpu_torch.mutants --cpu [NAME ...]
 
@@ -45,6 +47,7 @@ VA = "vision_attention.cu"
 # the engine and its media, relative to the kernel sources
 ENGINE = os.path.join("..", "engine", "engine.py")
 MEDIA = os.path.join("..", "engine", "media.py")
+PIPELINE = os.path.join("..", "parallel", "pipeline.py")
 
 # name -> (source file, a text of it, its faulty replacement); each text
 # occurs once
@@ -138,6 +141,11 @@ MUTANTS = {
     # followers rope a media row text-style, the leader by its streams
     "followers rope a media row text-style (the plan drops the M-RoPE streams)": (
         MEDIA, '    if "pos" in mm:\n        out["pos"] = mm["pos"]\n', ""),
+    # the decode ring: stage 0 drops the token the last stage hands back
+    # and feeds each microbatch its previous step's token again
+    "the ring hands stage 0 the previous step's token": (
+        PIPELINE, "                feed[gp % M] = recv\n",
+        "                feed[gp % M] = feed[gp % M]\n"),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
@@ -151,6 +159,9 @@ DP_CHECKED = ("partitioned dispatch hands replica 1 replica 0's page table",)
 # the mutants phase 18 (b)'s vision probe must see
 _VL_PROBE = "import sys, chip_smoke; sys.argv[1:] = ['--vl-probe']; sys.exit(chip_smoke.main())"
 VL_CHECKED = ("replica 1 receives replica 0's block of media rows",)
+# the mutants phase 19 (a)'s pipeline probe must see
+_PP_PROBE = "import sys, chip_smoke; sys.argv[1:] = ['--pp-probe']; sys.exit(chip_smoke.main())"
+PP_CHECKED = ("the ring hands stage 0 the previous step's token",)
 # the engine mutants the CPU tests must see: name -> the test file that
 # fails in a copy carrying the fault.  Dropping the M-RoPE streams moved
 # phase 18 (b)'s probe rows only within a near-tie (0.44 std at 2 layers
@@ -161,9 +172,11 @@ CPU_CHECKED = {
         os.path.join("tests", "test_torch_tp_vision.py"),
     "followers rope a media row text-style (the plan drops the M-RoPE streams)":
         os.path.join("tests", "test_torch_tp_vision.py"),
+    "the ring hands stage 0 the previous step's token":
+        os.path.join("tests", "test_torch_pp.py"),
 }
 CARD_CHECKED = [n for n in MUTANTS
-                if n not in CPU_CHECKED or n in VL_CHECKED]
+                if n not in CPU_CHECKED or n in VL_CHECKED or n in PP_CHECKED]
 
 
 def _copy(name: str) -> str:
@@ -215,6 +228,19 @@ def cpu_main(names) -> int:
     return 1 if missed else 0
 
 
+def probe_verdict(stdout: str, key: str, rc: int):
+    """(caught, report) of a card probe's run: caught only when the probe
+    printed its JSON line and that line names problems.  A probe that
+    crashed, or ended without its line, missed the mutant: a crash is no
+    proof that the probe's comparison saw the fault."""
+    lines = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith('{"%s"' % key)]
+    if not lines:
+        return False, {"rc": rc, "printed": False}
+    probe = lines[-1][key]
+    return rc == 0 and bool(probe.get("problems")), probe
+
+
 def main(argv=None) -> int:
     argv = list(argv if argv is not None else sys.argv[1:])
     if argv[:1] == ["--cpu"]:
@@ -230,14 +256,12 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"mutant {n!r} did not build:\n{builds[n].stderr[-3000:]}")
             probe = None
             for checked, code, key in ((DP_CHECKED, _DP_PROBE, "dp_probe"),
-                                       (VL_CHECKED, _VL_PROBE, "vl_probe")):
+                                       (VL_CHECKED, _VL_PROBE, "vl_probe"),
+                                       (PP_CHECKED, _PP_PROBE, "pp_probe")):
                 if n not in checked:
                     continue
                 p2 = _py(code, dirs[n])
-                lines = [json.loads(ln) for ln in p2.stdout.splitlines()
-                         if ln.startswith('{"%s"' % key)]
-                probe = lines[-1][key] if lines else {"rc": p2.returncode}
-                caught = bool(probe.get("problems")) or p2.returncode != 0
+                caught, probe = probe_verdict(p2.stdout, key, p2.returncode)
                 missed += not caught
                 print(json.dumps({"mutant": n, "caught": caught,
                                   key: probe}), flush=True)

@@ -1,8 +1,10 @@
-"""Tensor parallelism of the port over `torch.distributed`: the group
-(`mesh.py`), the shard axes and each rank's shard (`sharding.py`), and
-the collectives (`collectives.py`).  `TorchEngine(parallel=
-ParallelConfig(tp=N))` serves on such a group, its leader replaying every
-device step on the followers (`engine/lockstep.py`)."""
+"""Data, pipeline and tensor parallelism of the port over
+`torch.distributed`: the group (`mesh.py`), the shard axes and each
+rank's shard of its stage's layers (`sharding.py`), the collectives and
+the stage handoffs (`collectives.py`), and the pipeline's tick loops
+(`pipeline.py`).  `TorchEngine(parallel=ParallelConfig(dp, pp, tp))`
+serves on such a group, its leader replaying every device step on the
+followers (`engine/lockstep.py`)."""
 
 from .mesh import ParallelConfig, TpGroup, check_ported, make_mesh
 from .sharding import (

@@ -1,4 +1,4 @@
-"""The dp x tp group's collectives, built from ``broadcast`` and
+"""The dp x pp x tp group's collectives, built from ``broadcast`` and
 ``all_reduce`` only: that is what gloo offers for CUDA tensors, and what
 NCCL offers everywhere.  The JAX package gets the same collectives from
 GSPMD (XLA inserts them; no Pallas kernel computes them).  A source
@@ -21,6 +21,12 @@ convention for subgroups).
   of sizes every rank knows: the dp replicas' packed results reaching
   the leader, and the new K/V rows of a replicated pool reaching every
   replica (`engine/engine.py`);
+- `stage_handoff`: a stage's output to the next stage (an activation, or
+  the last stage's sampled token ids to stage 0), as a broadcast inside
+  the two ranks of the adjacent stages (`parallel.mesh.TpGroup`'s
+  `next_group` / `prev_group`): gloo refuses ``send`` / ``recv`` of CUDA
+  tensors but broadcasts them, and on the one card every group is gloo;
+  a broadcast inside a pair is a send under NCCL too;
 - `broadcast_plan`: the leader's plan bytes to every rank, length first
   and then the payload padded to a power of two (`dynamo_tpu/parallel/
   multihost.py` `broadcast_plan`).
@@ -106,6 +112,39 @@ def gather_heads(local: torch.Tensor, rank: int, ranks, group,
     joined along `axis` in member order, on every member (`rank`: this
     process's index in `ranks`, the group's global ranks)."""
     return torch.cat(all_parts(local, rank, ranks, group), dim=axis)
+
+
+def stage_handoff(group, send=None, recv=None) -> None:
+    """One tick's handoffs of this rank's stage (`group`: its `TpGroup`):
+    `send` (a tensor or None) goes to the next stage (stage 0 after the
+    last); `recv` (a buffer of the size the previous stage sends, or
+    None) is filled from the previous stage.  Each is a broadcast inside
+    the two ranks of the adjacent stages, of the same tensor rank and
+    replica.
+
+    Every stage may both send and receive in a tick (the decode ring), so
+    blocking pair operations could wait on each other all around the
+    ring: even stages send first and then receive, odd stages receive
+    first and then send.  Every send of an even stage meets an odd stage
+    that receives first, and each of the second operations then meets a
+    stage whose first has returned (at an odd pp the last stage, even,
+    sends to stage 0, which has sent to stage 1 first), so no cycle of
+    waits can form.  At pp 2 the two directions share one pair group,
+    whose broadcasts both ranks issue in the same order (stage 0's,
+    then stage 1's)."""
+    prev = group.rank_of(group.replica, (group.stage - 1) % group.pp,
+                         group.tp_rank)
+    ops = []
+    if send is not None:
+        ops.append((send.contiguous(), group.rank, group.next_group))
+        group.handoffs["sends"] += 1
+        group.handoffs["bytes"] += send.numel() * send.element_size()
+    if recv is not None:
+        ops.append((recv, prev, group.prev_group))
+    if group.stage % 2:
+        ops.reverse()
+    for t, src, pg in ops:
+        broadcast_bytes(t, src, pg)
 
 
 def broadcast_plan(payload: bytes, group=None, src: int = 0) -> bytes:

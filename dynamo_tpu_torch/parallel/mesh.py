@@ -1,29 +1,36 @@
-"""`ParallelConfig` and the dp x tp group of the port.
+"""`ParallelConfig` and the dp x pp x tp group of the port.
 
-The JAX package lays its local devices out as a ``(dp, tp)`` mesh in one
-process and lets GSPMD insert the collectives (`dynamo_tpu/parallel/
-mesh.py`).  PyTorch's idiom is one process per rank and explicit
-collectives, so here `make_mesh` joins THIS process to a group of
-``dp * tp`` processes over `torch.distributed`.  Rank ``r = d * tp + t``
-is tensor rank ``t`` of data-parallel replica ``d`` (tp innermost, as
-JAX's ``np.array(devices).reshape(dp, tp)``):
+The JAX package lays its local devices out as a ``(dp, pp, tp)`` mesh in
+one process and lets GSPMD insert the collectives (`dynamo_tpu/parallel/
+mesh.py`, `pp_engine.py`).  PyTorch's idiom is one process per rank and
+explicit collectives, so here `make_mesh` joins THIS process to a group
+of ``dp * pp * tp`` processes over `torch.distributed`.  Rank ``r = (d *
+pp + s) * tp + t`` is tensor rank ``t`` of pipeline stage ``s`` of
+data-parallel replica ``d`` (tp innermost, as JAX's
+``np.array(devices).reshape(dp, pp, tp)``; at pp 1 it is ``d * tp +
+t``).  The leader, rank 0, is stage 0 of replica 0.
 
 - the default process group is ``gloo`` on the CPU and spans every rank;
   it carries the leader's plans (`engine/lockstep.py`) and the
   followers' answers;
-- one tp device group per replica carries that replica's model
-  collectives (`collectives.py`), and one dp device group per tensor
-  rank carries the replicas' result and KV gathers (the ranks that hold
-  the same heads): ``nccl`` when every rank has a card of its own,
-  ``gloo`` on the CPU and when ranks share a card (gloo takes CUDA
-  tensors for ``broadcast`` and ``all_reduce``, which is all the port
-  needs).  Two ranks on one device under ``nccl`` are refused, and so
-  are fewer distinct cards than ranks when the caller did not name the
-  devices: nothing puts the group onto the CPU or onto one card unless
-  the caller asks for it.
+- device groups: one tp group per (replica, stage) carries that stage's
+  model collectives (`collectives.py`); one dp group per (stage, tensor
+  rank) carries the replicas' result and KV gathers (the ranks that hold
+  the same layers and heads); one pp group per (replica, tensor rank)
+  carries the KV moves' layer gathers and the results' way from the
+  last stage to the leader; and one two-rank group per pair of adjacent
+  stages of a (replica, tensor rank) carries the stage handoffs
+  (`collectives.stage_handoff`: a broadcast inside the pair, which gloo
+  takes for CUDA tensors where it refuses ``send`` / ``recv``).  Device
+  groups are ``nccl`` when every rank has a card of its own, ``gloo`` on
+  the CPU and when ranks share a card (gloo takes CUDA tensors for
+  ``broadcast`` and ``all_reduce``, which is all the port needs).  Two
+  ranks on one device under ``nccl`` are refused, and so are fewer
+  distinct cards than ranks when the caller did not name the devices:
+  nothing puts the group onto the CPU or onto one card unless the caller
+  asks for it.
 
-``sp`` and ``pp`` above 1 are refused with the roadmap item that ports
-them.
+``sp`` above 1 is refused with the roadmap item that ports it.
 """
 
 from __future__ import annotations
@@ -37,8 +44,8 @@ from typing import List, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
-# the later slices that bring the other axes (ROADMAP.md queue 1)
-_LATER = {"sp": "ROADMAP 2.4 (sp prefill)", "pp": "ROADMAP 2.3 (pipeline stages)"}
+# the later slice that brings the sequence axis (ROADMAP.md queue 1)
+_LATER = {"sp": "ROADMAP 2.4 (sp prefill)"}
 
 # seconds a rank waits inside one model collective for the others before
 # the collective raises (a rank that skipped or failed a dispatch); the
@@ -75,16 +82,18 @@ class ParallelConfig:
 
 
 def check_ported(pcfg: ParallelConfig) -> None:
-    """Refuse the degrees the port does not serve (dp x tp is served)."""
+    """Refuse the degrees the port does not serve (dp x pp x tp is
+    served)."""
     for axis in ("dp", "tp", "sp", "pp"):
         n = getattr(pcfg, axis)
         if n < 1:
             raise ValueError(f"{axis} must be >= 1, got {n}")
-    for axis in ("sp", "pp"):
+    for axis in ("sp",):
         n = getattr(pcfg, axis)
         if n > 1:
             raise ValueError(f"{axis}={n} is not ported to dynamo_tpu_torch "
-                             f"yet: {_LATER[axis]}; the port serves dp x tp")
+                             f"yet: {_LATER[axis]}; the port serves dp x pp "
+                             f"x tp")
 
 
 def tp_timeout_s() -> float:
@@ -96,21 +105,21 @@ def tp_timeout_s() -> float:
 def group_devices(pcfg: ParallelConfig,
                   devices: Optional[Sequence[Union[str, torch.device]]] = None
                   ) -> List[torch.device]:
-    """The device of each of the ``dp * tp`` ranks, in rank order.
+    """The device of each of the ``dp * pp * tp`` ranks, in rank order.
     Without `devices`: one distinct card per rank (``cuda:0`` ..
-    ``cuda:dp*tp-1``), refused when the machine has fewer; a caller who
+    ``cuda:world-1``), refused when the machine has fewer; a caller who
     wants the CPU or one shared card names them."""
     check_ported(pcfg)
     world = pcfg.world
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"a dp x tp group runs on CUDA cards and none is available; "
+                f"a parallel group runs on CUDA cards and none is available; "
                 f"pass devices=['cpu'] * {world} to run the group on the CPU")
         n = torch.cuda.device_count()
         if n < world:
             raise RuntimeError(
-                f"dp*tp={world} needs {world} distinct cards, this machine "
+                f"dp*pp*tp={world} needs {world} distinct cards, this machine "
                 f"has {n}; name the devices (e.g. ['cuda:0'] * {world}, "
                 f"which shares one card over gloo) to run it anyway")
         return [torch.device("cuda", i) for i in range(world)]
@@ -153,31 +162,40 @@ def free_port() -> int:
 
 
 class TpGroup:
-    """This process's rank in a dp x tp group: its global rank and the
-    group's size, its replica ``d`` and tensor rank ``t``, its device,
-    the device backend, and the process groups (the default gloo group
-    for plans; its replica's tp device group for the model's
-    collectives, `dev_group`; its tensor rank's dp device group for the
-    replicas' gathers, `dp_group`, None when dp is 1).  One per process:
-    `torch.distributed` keeps the default group per process, so a second
-    live group in one process is refused."""
+    """This process's rank in a dp x pp x tp group: its global rank and
+    the group's size, its replica ``d``, stage ``s`` and tensor rank
+    ``t``, its device, the device backend, and the process groups (the
+    default gloo group for plans; its (replica, stage)'s tp device group
+    for the model's collectives, `dev_group`; its (stage, tensor rank)'s
+    dp device group for the replicas' gathers, `dp_group`; its (replica,
+    tensor rank)'s pp device group, `pp_group`, and the two-rank groups
+    to its neighbouring stages, `prev_group` and `next_group`; each None
+    when its axis is 1).  One per process: `torch.distributed` keeps the
+    default group per process, so a second live group in one process is
+    refused."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
-                 backend: str, init_method: str, dp: int = 1):
+                 backend: str, init_method: str, dp: int = 1, pp: int = 1):
         if dist.is_initialized():
             raise RuntimeError(
                 "this process already belongs to a torch.distributed group; "
                 "shut the other group's engine down first")
-        if world % dp:
-            raise ValueError(f"dp={dp} does not divide the world {world}")
+        if world % (dp * pp):
+            raise ValueError(f"dp={dp} x pp={pp} does not divide the world "
+                             f"{world}")
         self.rank = rank
         self.world = world
         self.dp = dp
-        self.tp = world // dp
-        self.replica, self.tp_rank = divmod(rank, self.tp)
+        self.pp = pp
+        self.tp = world // (dp * pp)
+        self.replica, rest = divmod(rank, pp * self.tp)
+        self.stage, self.tp_rank = divmod(rest, self.tp)
         self.device = device
         self.backend = backend
         self.timeout_s = tp_timeout_s()
+        # this rank's stage handoffs: sends and their bytes
+        # (`collectives.stage_handoff`; a rank's stats report)
+        self.handoffs = {"sends": 0, "bytes": 0}
         if device.type == "cuda":
             torch.cuda.set_device(device)
         dist.init_process_group(
@@ -186,44 +204,90 @@ class TpGroup:
         self._new_device_groups()
         self.closed = False
 
+    def rank_of(self, replica: int, stage: int, tp_rank: int) -> int:
+        """The global rank of (replica, stage, tensor rank)."""
+        return (replica * self.pp + stage) * self.tp + tp_rank
+
     def tp_ranks(self, replica: Optional[int] = None) -> List[int]:
-        """The global ranks of a replica's tp group (this rank's)."""
+        """The global ranks of a replica's tp group at this rank's stage
+        (this rank's)."""
         d = self.replica if replica is None else replica
-        return [d * self.tp + t for t in range(self.tp)]
+        return [self.rank_of(d, self.stage, t) for t in range(self.tp)]
 
     def dp_ranks(self) -> List[int]:
-        """The global ranks of this tensor rank's dp group (one a
+        """The global ranks of this (stage, tensor rank)'s dp group (one a
         replica, in replica order)."""
-        return [d * self.tp + self.tp_rank for d in range(self.dp)]
+        return [self.rank_of(d, self.stage, self.tp_rank)
+                for d in range(self.dp)]
+
+    def pp_ranks(self) -> List[int]:
+        """The global ranks of this (replica, tensor rank)'s pp group (one
+        a stage, in stage order)."""
+        return [self.rank_of(self.replica, s, self.tp_rank)
+                for s in range(self.pp)]
+
+    @property
+    def last_stage(self) -> bool:
+        return self.stage == self.pp - 1
 
     def _new_device_groups(self) -> None:
         """Every rank creates every device group, in the same order: the
-        tp groups of the replicas, then the dp groups of the tensor ranks
-        (`new_group` is collective over the default group).  A one-rank
-        axis has no group."""
+        tp groups of the (replica, stage) pairs, the dp groups of the
+        (stage, tensor rank) pairs, the pp groups of the (replica, tensor
+        rank) pairs, then the stage pairs' handoff groups (`new_group` is
+        collective over the default group).  A one-rank axis has no
+        group."""
         timeout = datetime.timedelta(seconds=self.timeout_s)
-        self.dev_group = self.dp_group = None
-        if self.tp > 1:
-            for d in range(self.dp):
-                g = dist.new_group(ranks=self.tp_ranks(d), backend=self.backend,
-                                   timeout=timeout)
-                if d == self.replica:
-                    self.dev_group = g
-        if self.dp > 1:
-            for t in range(self.tp):
-                g = dist.new_group(ranks=[d * self.tp + t
-                                          for d in range(self.dp)],
-                                   backend=self.backend, timeout=timeout)
-                if t == self.tp_rank:
-                    self.dp_group = g
+        self.dev_group = self.dp_group = self.pp_group = None
+        self.prev_group = self.next_group = None
+
+        def make(ranks):
+            return dist.new_group(ranks=ranks, backend=self.backend,
+                                  timeout=timeout)
+
+        D, S, T = self.dp, self.pp, self.tp
+        if T > 1:
+            for d in range(D):
+                for s in range(S):
+                    g = make([self.rank_of(d, s, t) for t in range(T)])
+                    if (d, s) == (self.replica, self.stage):
+                        self.dev_group = g
+        if D > 1:
+            for s in range(S):
+                for t in range(T):
+                    g = make([self.rank_of(d, s, t) for d in range(D)])
+                    if (s, t) == (self.stage, self.tp_rank):
+                        self.dp_group = g
+        if S > 1:
+            for d in range(D):
+                for t in range(T):
+                    g = make([self.rank_of(d, s, t) for s in range(S)])
+                    if (d, t) == (self.replica, self.tp_rank):
+                        self.pp_group = g
+            # one handoff group per pair of adjacent stages (s, s + 1 mod
+            # S); at pp 2 the two directions share the one pair
+            pairs = [(s, (s + 1) % S) for s in range(S if S > 2 else 1)]
+            for d in range(D):
+                for t in range(T):
+                    for a, b in pairs:
+                        g = make(sorted([self.rank_of(d, a, t),
+                                         self.rank_of(d, b, t)]))
+                        if (d, t) != (self.replica, self.tp_rank):
+                            continue
+                        if a == self.stage or (S == 2 and b == self.stage):
+                            self.next_group = g
+                        if b == self.stage or (S == 2 and a == self.stage):
+                            self.prev_group = g
 
     def rebuild(self) -> None:
         """Fresh device groups on every rank (collective over the plan
         group): after a collective timed out, the old groups' sequence
         numbers differ between ranks."""
-        old = [g for g in (self.dev_group, self.dp_group) if g is not None]
+        old = {id(g): g for g in (self.dev_group, self.dp_group, self.pp_group,
+                                  self.prev_group, self.next_group)
+               if g is not None}
         self._new_device_groups()
-        for g in old:
+        for g in old.values():
             dist.destroy_process_group(g)
 
     def close(self) -> None:
@@ -235,10 +299,11 @@ class TpGroup:
 def make_mesh(pcfg: ParallelConfig, devices=None, *, rank: int = 0,
               init_method: Optional[str] = None,
               backend: Optional[str] = None) -> TpGroup:
-    """Join this process to the dp x tp group of `pcfg` as `rank` (the JAX
-    `make_mesh` for the dp and tp axes).  Every rank calls it with the
+    """Join this process to the dp x pp x tp group of `pcfg` as `rank`
+    (the JAX `make_mesh` for the dp, pp and tp axes).  Every rank calls it with the
     same devices and `init_method` (``tcp://127.0.0.1:<port>``); the
     engine's leader spawns the other ranks (`engine/lockstep.py`)."""
     devs = group_devices(pcfg, devices)
     return TpGroup(rank, pcfg.world, devs[rank], choose_backend(devs, backend),
-                   init_method or f"tcp://127.0.0.1:{free_port()}", dp=pcfg.dp)
+                   init_method or f"tcp://127.0.0.1:{free_port()}", dp=pcfg.dp,
+                   pp=pcfg.pp)

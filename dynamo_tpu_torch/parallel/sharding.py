@@ -2,7 +2,10 @@
 
 Weights are replicated over dp and megatron-sharded over tp, as JAX's
 `shard_params` places them (`dynamo_tpu/parallel/mesh.py:72-83`): every
-replica of a dp x tp group builds the same tp shards.
+replica of a dp x tp group builds the same tp shards.  Under pp a stage
+holds its contiguous range of the stacked layers (JAX
+`param_pspecs_pp`), each tp-sharded as above, and the top-level leaves
+`stage_keys` names.
 
 The port of `param_pspecs` (`dynamo_tpu/models/llama.py:146-206`),
 `quantize_pspecs` (`dynamo_tpu/models/quantization.py:106`) and
@@ -28,8 +31,9 @@ heads use exactly its kv heads (a group of q heads never straddles two
 ranks).
 
 The model sources (`SeededShards`, `TreeShards`, `CheckpointShards`)
-say how each rank of an engine's group gets its shard; they are
-picklable, so a follower process builds its own.
+say how each rank of an engine's group gets its shard (``source(rank,
+tp, device, stage=0, pp=1)``); they are picklable, so a follower process
+builds its own.
 """
 
 from __future__ import annotations
@@ -121,26 +125,50 @@ def _is_quant(leaf) -> bool:
     return isinstance(leaf, dict) and "q" in leaf
 
 
-def shard_params(tree: Dict[str, Any], cfg, rank: int, tp: int) -> Dict[str, Any]:
+def stage_keys(cfg, stage: int, pp: int) -> set:
+    """The top-level (non-layer) keys a pipeline stage holds: the
+    embedding on stage 0 (and on the last stage for a tied head), the
+    final norm and the LM head on the last stage."""
+    keys = set()
+    if stage == 0:
+        keys.add("embed")
+    if stage == pp - 1:
+        keys |= {"final_norm", "lm_head"}
+        if cfg.tie_word_embeddings:
+            keys.add("embed")
+    return keys
+
+
+def shard_params(tree: Dict[str, Any], cfg, rank: int, tp: int,
+                 stage: int = 0, pp: int = 1) -> Dict[str, Any]:
     """Rank `rank`'s shard of a JAX-layout tree (``layers`` leaves stacked
     [L, ...]; int8 ``{"q", "s"}`` leaves, a tied model's quantized
-    ``lm_head`` included, as JAX `quantize_pspecs` places them)."""
+    ``lm_head`` included, as JAX `quantize_pspecs` places them); with
+    ``pp`` > 1 stage `stage`'s part: the stacked layer axis split over pp
+    (JAX `param_pspecs_pp`, `dynamo_tpu/parallel/pp_engine.py:54-80`) and
+    the top-level leaves of `stage_keys`."""
     check_divisible(cfg, tp)
     axes = param_shard_axes(cfg)
+    n = cfg.num_hidden_layers // pp
+    lo = stage * n
 
     def leaf(a, axis, stacked):
         off = 1 if stacked else 0
         if _is_quant(a):
             q = np.asarray(a["q"])
             qa = quant_shard_axes(axis, q.ndim - off)
-            return {k: shard(np.asarray(a[k]),
+            return {k: shard(_stage(np.asarray(a[k]), stacked),
                              None if qa[k] is None else qa[k] + off, rank, tp)
                     for k in ("q", "s")}
-        return shard(np.asarray(a), None if axis is None else axis + off,
-                     rank, tp)
+        return shard(_stage(np.asarray(a), stacked),
+                     None if axis is None else axis + off, rank, tp)
 
+    def _stage(a, stacked):
+        return a[lo:lo + n] if stacked else a
+
+    keep = stage_keys(cfg, stage, pp)
     out = {k: leaf(v, TOP_AXES[k], False) for k, v in tree.items()
-           if k != "layers"}
+           if k in keep}
     out["layers"] = {k: leaf(v, axes[k], True)
                      for k, v in tree["layers"].items()}
     return out
@@ -162,14 +190,16 @@ class SeededShards:
     dtype: str = "bfloat16"
     sharpen: bool = False
 
-    def __call__(self, rank: int, tp: int, device):
+    def __call__(self, rank: int, tp: int, device, stage: int = 0,
+                 pp: int = 1):
         import torch
 
         from ..models.llama import init_params
 
         gen = torch.Generator(device=device).manual_seed(self.seed)
         model = init_params(self.cfg, gen, dtype=getattr(torch, self.dtype),
-                            device=device, rank=rank, tp=tp)
+                            device=device, rank=rank, tp=tp, stage=stage,
+                            pp=pp)
         if self.sharpen:
             from ..testing import sharpen
 
@@ -187,7 +217,8 @@ class TreeShards:
     path: str
     dtype: Optional[str] = None
 
-    def __call__(self, rank: int, tp: int, device):
+    def __call__(self, rank: int, tp: int, device, stage: int = 0,
+                 pp: int = 1):
         import torch
 
         from ..models.llama import params_from_jax
@@ -195,7 +226,7 @@ class TreeShards:
         tree = load_tree(self.path)
         return params_from_jax(
             self.cfg, tree, dtype=getattr(torch, self.dtype) if self.dtype
-            else None, device=device, rank=rank, tp=tp)
+            else None, device=device, rank=rank, tp=tp, stage=stage, pp=pp)
 
 
 @dataclass(frozen=True)
@@ -210,7 +241,8 @@ class CheckpointShards:
     dtype: str = "bfloat16"
     prefix: str = ""
 
-    def __call__(self, rank: int, tp: int, device):
+    def __call__(self, rank: int, tp: int, device, stage: int = 0,
+                 pp: int = 1):
         import torch
 
         from ..models.llama import shard_model
@@ -218,7 +250,7 @@ class CheckpointShards:
 
         full = load_params(self.path, self.cfg, dtype=getattr(torch, self.dtype),
                            prefix=self.prefix, device="cpu")
-        return shard_model(full, rank, tp, device)
+        return shard_model(full, rank, tp, device, stage, pp)
 
 
 def save_tree(path: str, tree: Dict[str, Any]) -> None:

@@ -16,7 +16,8 @@
 random weights from ``--seed``); ``--quantization int8`` serves int8
 projections; ``--tp N`` (``--tp-devices``) serves on a tensor-parallel
 group of N processes, ``--dp D`` on D replicas of it (``--kv-partition``
-partitions the pool over them); see `dynamo_tpu_torch.worker`.  Runs on CUDA unless
+partitions the pool over them), ``--pp S`` stages the layers over S
+pipeline stages of such groups; see `dynamo_tpu_torch.worker`.  Runs on CUDA unless
 given ``--device cpu``.
 
 A batch input line is a JSON object with ``token_ids`` plus optional

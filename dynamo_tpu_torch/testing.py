@@ -174,7 +174,8 @@ def sharpen(model, tower=None, probe_seed: int = 0) -> None:
     import numpy as np
 
     qk = 1.5 / model.rope_scale
-    model.embed.mul_(50.0)
+    if model.embed is not None:  # a middle pipeline stage holds none
+        model.embed.mul_(50.0)
     for layer in model.layers:
         layer.wq.mul_(qk)
         layer.wk.mul_(qk)

@@ -45,9 +45,15 @@ M processes under this one leader (`ParallelConfig(dp=N, tp=M)`;
 replicated over the replicas or, with ``--kv-partition``, partitioned
 (each replica owns its own pages, so the KV capacity grows with N); its
 ``/metrics`` and KV events report the partitions as one pool.
-``--dp-ranks`` does not compose with ``--dp`` or ``--tp`` (ROADMAP
-2.2b.4).  ``--sp`` and ``--pp`` above 1, multihost and mock engines are
-later slices.  Multimodal models serve image and
+``--pp S`` (with ``--dp`` and ``--tp``) stages the layers over S
+pipeline stages of dp x pp x tp processes in all (`ParallelConfig(dp, pp,
+tp)`, rank ``(d * S + s) * M + t``; ``--tp-devices`` lists them all):
+each stage holds L/S layers and their KV pages, a prefill pass runs the
+GPipe schedule and a decode dispatch the full ring (`parallel/
+pipeline.py`); vision towers and M-RoPE models are not served under pp
+(ROADMAP 2.8).  ``--dp-ranks`` does not compose with ``--dp``, ``--tp``
+or ``--pp`` (ROADMAP 2.2b.4).  ``--sp`` above 1, multihost and mock
+engines are later slices.  Multimodal models serve image and
 video chats: a qwen-vl checkpoint directory or ``qwen2.5-vl-7b`` brings
 its tower, ``--vision tiny`` pairs a tiny CLIP tower with ``--model
 tiny`` or a checkpoint; ``--disagg-role encode`` serves only the tower
@@ -182,8 +188,8 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--kv-partition", action="store_true",
                     help="partition the KV pool over the --dp replicas "
                          "(each owns its own pages)")
-    # the serving mesh: dp x tp over torch.distributed (sp and pp are
-    # refused, each naming the roadmap item that ports it)
+    # the serving mesh: dp x pp x tp over torch.distributed (sp is
+    # refused, naming the roadmap item that ports it)
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel degree: replicas of the --tp group "
                          "under one leader")
@@ -192,12 +198,13 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence-parallel degree")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline-parallel degree")
+                    help="pipeline-parallel degree: the layers staged over "
+                         "N stages of --tp ranks each")
     ap.add_argument("--tp-devices", default="",
-                    help="comma-separated device of each of the dp*tp ranks, "
-                         "rank d*tp+t for replica d's tensor rank t (default: "
-                         "one card a rank, or the CPU with --device cpu); "
-                         "ranks sharing a card use gloo")
+                    help="comma-separated device of each of the dp*pp*tp "
+                         "ranks, rank (d*pp+s)*tp+t for replica d's stage s's "
+                         "tensor rank t (default: one card a rank, or the CPU "
+                         "with --device cpu); ranks sharing a card use gloo")
 
 
 def parallel_from_args(args):
@@ -213,7 +220,8 @@ def parallel_from_args(args):
         if len(devices) != pcfg.world:
             raise ValueError(
                 f"--tp-devices names {len(devices)} devices; a group of "
-                f"dp={pcfg.dp} x tp={pcfg.tp} has {pcfg.world} ranks")
+                f"dp={pcfg.dp} x {'' if pcfg.pp == 1 else f'pp={pcfg.pp} x '}"
+                f"tp={pcfg.tp} has {pcfg.world} ranks")
     elif args.device == "cpu":
         devices = ["cpu"] * pcfg.world
     else:
@@ -529,11 +537,11 @@ def check_role(args) -> None:
         ]:
             if bad:
                 raise SystemExit(f"--dp-ranks > 1 is incompatible with {flag}")
-    for axis in ("tp", "dp"):
-        # a dp x tp group serves generate, embed, media (the tower on the
-        # leader, or an encode worker's embeddings) and every KV move
-        # (parking, KVBM tiers, the disagg roles); --dp-ranks would stack
-        # engines on it
+    for axis in ("tp", "dp", "pp"):
+        # a dp x pp x tp group serves generate, embed, media (the tower on
+        # the leader, or an encode worker's embeddings; not under pp) and
+        # every KV move (parking, KVBM tiers, the disagg roles); --dp-ranks
+        # would stack engines on it
         if getattr(args, axis) > 1 and args.dp_ranks > 1:
             raise SystemExit(f"--{axis} > 1 with --dp-ranks is not served "
                              f"yet (ROADMAP 2.2b.4)")

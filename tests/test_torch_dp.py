@@ -32,7 +32,7 @@ from dynamo_tpu.models import llama as jl
 from dynamo_tpu.parallel import ParallelConfig as JaxParallelConfig
 from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.models import config as tcfg
-from dynamo_tpu_torch.parallel import ParallelConfig, TreeShards, check_ported
+from dynamo_tpu_torch.parallel import ParallelConfig, TreeShards
 from dynamo_tpu_torch.parallel.sharding import save_tree
 from dynamo_tpu_torch.testing import host_threads
 from dynamo_tpu_torch.worker.__main__ import (
@@ -279,23 +279,29 @@ class _Seq:
         self.pages = []
 
 
-def _layout_engine(dp, part, max_num_seqs=4):
+def _layout_engine(dp, part, max_num_seqs=4, pp=1):
     """An engine object with just what the row layouts read."""
     eng = object.__new__(TorchEngine)
     eng.dp = dp
+    eng.pp = pp
     eng._pooled = part
     eng.cfg = EngineConfig(page_size=8, num_pages=16, max_num_seqs=max_num_seqs,
                            max_model_len=64)
     return eng
 
 
-@pytest.mark.parametrize("dp, part, want", [
-    (2, False, ["a", "b", "c", None]),
-    (3, False, ["a", "b", "c", None, None, None]),
-    (2, True, ["b", None, None, None, "a", "c", None, None]),
-], ids=["replicated_dp2", "replicated_dp3", "partitioned_dp2"])
-def test_decode_rows_are_uniform_replica_blocks(dp, part, want):
-    eng = _layout_engine(dp, part)
+@pytest.mark.parametrize("dp, part, pp, want", [
+    (2, False, 1, ["a", "b", "c", None]),
+    (3, False, 1, ["a", "b", "c", None, None, None]),
+    (2, True, 1, ["b", None, None, None, "a", "c", None, None]),
+    # a pipeline's blocks split into pp microbatches: 4 rows round to
+    # dp x pp = 6, a partition's block of 4 to 6 at pp 3
+    (3, False, 2, ["a", "b", "c", None, None, None]),
+    (2, True, 3, ["b"] + [None] * 5 + ["a", "c"] + [None] * 4),
+], ids=["replicated_dp2", "replicated_dp3", "partitioned_dp2",
+        "replicated_dp3_pp2", "partitioned_dp2_pp3"])
+def test_decode_rows_are_uniform_replica_blocks(dp, part, pp, want):
+    eng = _layout_engine(dp, part, pp=pp)
     seqs = [_Seq(1, "a"), _Seq(0, "b"), _Seq(1, "c")]
     rows = eng._decode_rows(seqs)
     assert [s.name if s else None for s in rows] == want
@@ -377,6 +383,27 @@ def _vision_group():
     assert [got[r]["tower_params"] > 0 for r in (0, 1)] == [True, False]
 
 
+def _pp_group():
+    """A dp 2 x pp 2 group builds, each replica's ranks on stages 0 and 1
+    (pipelines are served: tests/test_torch_pp.py)."""
+    from dynamo_tpu_torch.parallel import SeededShards
+
+    cfg = tcfg.tiny_config()
+
+    async def reports(eng):
+        try:
+            return await eng.group_reports()
+        finally:
+            await eng.shutdown()
+
+    with host_threads(1):
+        eng = TorchEngine(cfg, SeededShards(cfg, 0, "float32"),
+                          EngineConfig(**ECFG), devices=["cpu"] * 4,
+                          parallel=ParallelConfig(dp=2, pp=2))
+        got = asyncio.run(reports(eng))
+    assert [got[r]["stage"] for r in range(4)] == [0, 1, 0, 1]
+
+
 @pytest.mark.parametrize("call, error, match", [
     # a partitioned pool needs replicas to partition over (JAX's message)
     (lambda: TorchEngine(tcfg.tiny_config(), None,
@@ -389,7 +416,8 @@ def _vision_group():
     (lambda: parallel_from_args(_worker_args("--dp", "2", "--tp", "2",
                                              "--tp-devices", "cpu,cpu,cpu")),
      ValueError, "names 3 devices; a group of dp=2 x tp=2 has 4 ranks"),
-    (lambda: check_ported(ParallelConfig(dp=2, pp=2)), ValueError, "ROADMAP 2.3"),
+    # served since pp was ported (no error: it builds)
+    (_pp_group, None, None),
 ], ids=["kv_partition_without_dp", "vision_under_dp", "dp_ranks_with_dp",
         "devices_of_another_group", "dp_with_pp"])
 def test_dp_refusals(call, error, match):

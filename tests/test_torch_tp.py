@@ -95,7 +95,9 @@ def test_parallel_config_validation():
     # dp is served (tests/test_torch_dp.py); dp with sp is still refused
     (lambda: check_ported(ParallelConfig(dp=2, sp=2)), "ROADMAP 2.4"),
     (lambda: check_ported(ParallelConfig(sp=2)), "ROADMAP 2.4"),
-    (lambda: check_ported(ParallelConfig(pp=2)), "ROADMAP 2.3"),
+    # pp is served (tests/test_torch_pp.py); pp with sp is still refused
+    (lambda: ParallelConfig(pp=2, sp=2).validate(4),
+     "pp composes with dp and tp"),
     (lambda: check_ported(ParallelConfig(tp=0)), "tp must be"),
     (lambda: choose_backend([torch.device("cuda", 0)] * 2, "nccl"),
      "nccl refuses two ranks on one device"),
@@ -192,10 +194,11 @@ def test_worker_refuses_with_tp(flags, match):
 
 
 @pytest.mark.parametrize("flags", [["--dp", "2", "--sp", "2"], ["--sp", "2"],
-                                   ["--pp", "2"]], ids=["dp", "sp", "pp"])
+                                   ["--pp", "2", "--sp", "2"]],
+                         ids=["dp", "sp", "pp"])
 def test_worker_refuses_other_axes(flags):
-    """sp and pp stay refused, with dp too (``--dp`` alone is served:
-    tests/test_torch_dp_kv.py)."""
+    """sp stays refused, with dp or pp too (``--dp`` and ``--pp`` are
+    served: tests/test_torch_dp_kv.py, tests/test_torch_pp.py)."""
     from dynamo_tpu_torch.worker.__main__ import build_parser, parallel_from_args
 
     args = build_parser().parse_args(["--control", "127.0.0.1:1", *flags,
