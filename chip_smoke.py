@@ -414,6 +414,40 @@ final line):
    up to a near-tie.  ``python3 chip_smoke.py --pp-probe`` runs (a) at
    PP_PROBE_LAYERS layers: the mutation check runs it in a copy whose
    ring hands stage 0 the previous step's token.
+20. Sequence parallelism (after 19; the ranks share the card over gloo,
+   eagerly; whole-remainder prefills as ring attention on the
+   `ring_block` kernel, decode on the paged decode kernel).  (a) Phase
+   4's 8B drawn again, full width and all 32 layers, on an sp 2 group
+   against the flat engine on the same weights (its prefill chunked at
+   512): prompts of 8192, 4096 and 1000 tokens (32 greedy tokens each)
+   and a seeded 1000-token row; the 8192-token prompt alone first, its
+   TTFT beside the flat engine's; the greedy rows up to near-ties; each
+   rank's ring rotations (sends, bytes, host ms, per layer), sequence
+   gathers, ring and decode launches; decode tokens/s; then a host tier
+   onboards a 1088-token prompt's blocks into the group; then the logits
+   through `forward_prefill_sp` itself (a 2047-token tail after a cached
+   2048-token prefix, then 16 decode steps, on an sp 2 group of forked
+   ranks) against the flat `forward_prefill`'s, within LOGIT_TOL std
+   (the served rows' argmax cannot see a wrong ring).  The flat
+   engine goes before (b).  (b) gpt-oss-20b's widths at SHALLOW_LAYERS
+   layers on sp 2 x tp 2 (four ranks), the prefix cache on: a 2048-token
+   prompt, then the same with a 512-token tail that hits it (the ring
+   starts at the prefix boundary, the prefix folded from the pages); the
+   served tokens reported beside the flat twin's, and the check with the
+   flat run's router choices forced on four ranks (phase 15 (c)'s rule),
+   logits within LOGIT_TOL std.  (c) dp 2 x sp 2, the pool partitioned
+   over the four (replica, slot) pairs (160 pages each, no prefix cache,
+   as JAX requires), the 8B at CUT_LAYERS layers: phase 4's requests
+   against phase 15 (a)'s twin; a batch victim parked for an arrival and
+   resumed onto its partition, the imported pages byte-equal to the
+   parked bytes.  Every rank of (a)-(c) launches `ring_block` and the
+   decode kernel; first, the ring as the engine runs it over 2 simulated
+   slots against the plain prefill attention (`sp_ring_check`).  ``python3
+   chip_smoke.py --sp-probe`` runs that check over 4 slots and (a), its
+   logits check included, at SP_PROBE_LAYERS layers on sp 4: the mutation
+   check runs it in copies whose
+   ring hands a slot the wrong source's block, or whose kernel masks the
+   diagonal.
 
 On the card every decode block is a replayed CUDA graph (a group's
 blocks run eagerly: gloo's collectives cannot be captured); the wrappers
@@ -422,18 +456,19 @@ launches at every replay.  Every JSON line is also written to
 ``chip_smoke.jsonl`` in the output directory below, for the lines a
 terminal's scrollback loses.  Launch counts are read per path (phases 4, 6
 and 7, each arm of 8, 9, 10, 11, 12 and 13, 14 (a) and (c), 16 (a) and
-each case of (b), 17 (a)-(c), 18 (a)-(b), 19 (a)-(c), each zeroed just
-before it): the
+each case of (b), 17 (a)-(c), 18 (a)-(b), 19 (a)-(c), 20 (a)-(c), each
+zeroed just before it): the
 kernel summary line's ``launches`` are those of the HTTP traffic, the
 main path, for the attention kernels, of phase 11's one-step gpt-oss
 serving for the grouped GEMM and the fused gate||up, of phase 12
 (b)'s decode worker process (read from its /metrics.json before and
 after the measured round) for the KV re-page, and of phase 13 (c)'s
 one-step Qwen2.5-VL-7B engine, this slice's path, for the segment
-attention; the prefill entry adds its launches on phase 14 (a)'s
+attention, and of phase 20 (a)'s rank 0 for the ring kernel; the prefill entry adds its launches on phase 14 (a)'s
 embeddings path, and ``launches_by_path`` each rank's of phases 15,
-16, 17, 18 and 19 (the followers' read from their own registries at the
-group's stats plan).  After phases 17 and 19 a ``children`` line lists
+16, 17, 18, 19 and 20 (the followers' read from their own registries at
+the group's stats plan).  After phases 17, 19 and 20 a ``children`` line
+lists
 the child processes still there.  Then the timing line (each phase's seconds, the helpers'
 inside them, and the total: what each path costs of the 1200 s limit),
 the kernel summary line, the card line, and as the last line
@@ -1447,6 +1482,183 @@ def tp_rank_cases(gen):
     return out
 
 
+# The ring prefill's block kernel (`csrc/ring_attention.cu`, phase 20's
+# path): one round folded into a carry that a plain fold of a random
+# earlier block made non-empty, the kernel's carry against the plain
+# version's on the same inputs (each finished by the plain finish, so the
+# block kernel alone is judged), and the finish kernel against the plain
+# finish on the plain carry.  Tolerances: the attention cases' bars.
+RING_8B = dict(hd=128, H=32, n_kv=8)
+RING_OSS = dict(hd=64, H=64, n_kv=8)
+
+
+def _ring_mask(q_base, k_base, Sq, Sk, causal, window, nk=None):
+    """The (query, key) pairs these inputs attend [B, Sq, Sk] (bool, on
+    the CPU)."""
+    from dynamo_tpu_torch.ops import ring_attention as ra
+
+    qp = ra._positions(q_base.cpu(), Sq)
+    kp = ra._positions(k_base.cpu(), Sk)
+    mask = ra._mask(qp, kp, causal, window)
+    if nk is not None:
+        mask = mask & (torch.arange(Sk)[None, :] < nk.cpu().long()[:, None])[:, None]
+    return mask
+
+
+def ring_case(name, gen, dtype, hd, H, n_kv, Sq, Sk=None, q_base=(0,),
+              k_base=(0,), prefix=0, window=None, with_sink=False,
+              timed=False):
+    """`prefix` > 0: the cached-prefix fold through the page table (keys
+    0 .. prefix - 1 of every row, pages of 16); else a block of Sk keys at
+    `k_base` (the causal ring round)."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import ring_attention as ra
+
+    B = len(q_base)
+    dev = "cuda"
+
+    def rnd(*shape, s):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    q = rnd(B, Sq, H, hd, s=Q_STD)
+    qb = torch.tensor(q_base, dtype=torch.int32, device=dev)
+    sink = torch.randn((H,), generator=gen, device=dev) if with_sink else None
+    carry = ra.ring_state(B, Sq, H, hd, dev)
+    ra.ring_block_plain(q, rnd(B, 256, n_kv, hd, s=KV_STD),
+                        rnd(B, 256, n_kv, hd, s=KV_STD), *carry, qb,
+                        torch.zeros_like(qb), causal=False)
+    page = 16
+    if prefix:
+        maxp = -(-prefix // page)
+        table, P = _table([maxp] * B, maxp)
+        table = table.cuda()
+        kp, vp = _pool(gen, P, page, n_kv, hd, dtype)
+        plens = torch.full((B,), prefix, dtype=torch.int32, device=dev)
+
+        def kern(m, l, o):
+            ra.ring_prefix(q, kp, vp, table, plens, m, l, o, qb, window)
+
+        def plain(m, l, o):
+            ra.ring_prefix_plain(q, kp, vp, table, plens, m, l, o, qb, window)
+
+        mask = _ring_mask(qb, torch.zeros_like(qb), Sq, maxp * page, False,
+                          window, plens)
+        key_bytes = B * prefix * n_kv * hd * 2 * q.element_size() + table.numel() * 4
+    else:
+        Sk = Sk or Sq
+        k, v = rnd(B, Sk, n_kv, hd, s=KV_STD), rnd(B, Sk, n_kv, hd, s=KV_STD)
+        kb = torch.tensor(k_base, dtype=torch.int32, device=dev)
+
+        def kern(m, l, o):
+            ra.ring_block(q, k, v, m, l, o, qb, kb, True, window)
+
+        def plain(m, l, o):
+            ra.ring_block_plain(q, k, v, m, l, o, qb, kb, True, window)
+
+        mask = _ring_mask(qb, kb, Sq, Sk, True, window)
+        key_bytes = (k.numel() + v.numel()) * q.element_size()
+    pairs = int(mask.sum())
+    got = [t.clone() for t in carry]
+    want = [t.clone() for t in carry]
+    kern(*got)
+    plain(*want)
+    fin = ra.ring_finish(*want, sink, dtype)
+    fin_ref = ra.ring_finish_plain(*want, sink, dtype)
+    torch.cuda.synchronize()
+    err = _errors(ra.ring_finish_plain(*got, sink, torch.float32),
+                  ra.ring_finish_plain(*want, sink, torch.float32), dtype)
+    fin_err = _errors(fin, fin_ref, dtype)
+    res = {"case": name, "kernel": "ring_attention", "dtype": str(dtype),
+           **err, "block_max_rel_err": err["max_rel_err"],
+           "finish_max_rel_err": fin_err["max_rel_err"],
+           "max_rel_err": max(err["max_rel_err"], fin_err["max_rel_err"]),
+           "max_abs_err": max(err["max_abs_err"], fin_err["max_abs_err"]),
+           "m_max_abs_err": (got[0] - want[0]).abs().max().item(),
+           "finite": bool(torch.isfinite(got[2]).all()
+                          and torch.isfinite(fin).all()),
+           "visible_pairs": pairs}
+    if not timed:
+        return res
+    esize = q.element_size()
+    carry_bytes = sum(t.numel() * 4 for t in carry)
+    nbytes = q.numel() * esize + key_bytes + 2 * carry_bytes
+    flops = 4 * pairs * H * hd
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+    # the library: one call computing a round's attention with its
+    # log-sum-exp (what merges into the carry; sinks join only at the
+    # finish), kv heads repeated.  Without a window in bf16 the flash op,
+    # causal for the diagonal round; with a window, or in f32 (which the
+    # flash op refuses), the memory-efficient op with the round's mask as
+    # an additive bias (NEG_INF where masked, broadcast over heads)
+    g = H // n_kv
+    if prefix:
+        kg, vg = pa.gather_kv(kp, vp, table)
+    else:
+        kg, vg = k, v
+    q_l = q.permute(0, 2, 1, 3).contiguous()
+    k_l = kg.repeat_interleave(g, 2).permute(0, 2, 1, 3).contiguous()
+    v_l = vg.repeat_interleave(g, 2).permute(0, 2, 1, 3).contiguous()
+    if dtype == torch.bfloat16 and not window:
+        causal = not prefix and q_base == k_base
+        flash = torch.ops.aten._scaled_dot_product_flash_attention
+        library = "flash"
+        lib_ms = time_ms(lambda: flash(q_l, k_l, v_l, 0.0, causal))
+    else:
+        bias = torch.zeros(mask.shape, dtype=dtype).masked_fill_(
+            ~mask, ra.NEG_INF).to(dev)[:, None].expand(B, H, Sq, k_l.shape[2])
+        eff = torch.ops.aten._scaled_dot_product_efficient_attention
+        library = "efficient + mask bias"
+        lib_ms = time_ms(lambda: eff(q_l, k_l, v_l, bias, True))
+    res.update({
+        "ms": time_ms(lambda: kern(*got)),
+        "host_paced_ms": host_paced_ms(lambda: kern(*got)),
+        "plain_ms": time_ms(lambda: plain(*[t.clone() for t in carry]),
+                            iters=3),
+        "finish_ms": time_ms(lambda: ra.ring_finish(*want, sink, dtype)),
+        "library_ms": lib_ms, "library": library,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    })
+    return res
+
+
+def ring_cases(gen):
+    """Phase 3's cases of the ring kernel (the shapes of phase 20's path:
+    an 8192-token prompt on sp 2 gives each slot Sq = Sk = 4096)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ring_case("ring 8B sp 2 rank 1: diagonal round, Sq = Sk = 4096", gen,
+                  bf, **RING_8B, Sq=4096, q_base=(4096,), k_base=(4096,),
+                  timed=True),
+        ring_case("ring 8B sp 2 rank 1: earlier-source round, Sq = Sk = 4096",
+                  gen, bf, **RING_8B, Sq=4096, q_base=(4096,), k_base=(0,),
+                  timed=True),
+        ring_case("ring 8B prefix through the table: 2048 tokens, Sq 4096",
+                  gen, bf, **RING_8B, Sq=4096, q_base=(2048,), prefix=2048,
+                  timed=True),
+        ring_case("ring gpt-oss-20b: 64 q / 8 kv of 64, window 128, sinks, "
+                  "diagonal round Sq = Sk = 2048", gen, bf, **RING_OSS,
+                  Sq=2048, q_base=(2048,), k_base=(2048,), window=128,
+                  with_sink=True, timed=True),
+        ring_case("ring 8B tp 2 rank: 16 q / 4 kv, diagonal round Sq = Sk = "
+                  "4096", gen, bf, hd=128, H=16, n_kv=4, Sq=4096,
+                  q_base=(4096,), k_base=(4096,), timed=True),
+        ring_case("ring f32 hd 64: 2 rows at offsets 96 / 200, window 40",
+                  gen, f32, hd=64, H=8, n_kv=2, Sq=96, q_base=(96, 200),
+                  k_base=(0, 152), window=40, timed=True),
+        ring_case("ring f32 prefix 77 through the table", gen, f32, hd=128,
+                  H=8, n_kv=8, Sq=50, q_base=(77,), prefix=77),
+        ring_case("ring bf16 G 7: Sq 1000, prefix 333, window 300", gen, bf,
+                  hd=128, H=28, n_kv=4, Sq=1000, q_base=(333,), prefix=333,
+                  window=300),
+        ring_case("ring bf16 G 7: Sq = Sk = 1000 partial tiles, diagonal",
+                  gen, bf, hd=128, H=28, n_kv=4, Sq=1000, q_base=(1000,),
+                  k_base=(1000,)),
+    ]
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1546,6 +1758,8 @@ def phase_kernels():
     results += [kv_repage_window_case(name, gen, **kw)
                 for name, kw in REPAGE_WINDOW_CASES]
     results += tp_rank_cases(gen)
+    # the ring prefill's block kernel and its finish (phase 20's path)
+    results += ring_cases(gen)
     for r in results:
         emit({"phase": "kernel_check", **r})
         ok = (r["max_rel_err"] <= r["rtol"] and r["finite"]
@@ -8460,6 +8674,693 @@ def pp_probe_main() -> int:
     return 0
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: sequence parallelism
+# --------------------------------------------------------------------------- #
+
+# whole prompts of up to 8192 tokens and the tokens they decode
+SP_LEN = 8448
+SP_ECFG = dict(TP_ECFG, max_prefill_tokens=SP_LEN, max_model_len=SP_LEN)
+# (a)'s flat reference: the same pool, its prefill chunked at TP_ECFG's 512
+SP_FLAT_ECFG = dict(TP_ECFG, max_model_len=SP_LEN)
+SP_PROMPTS = {"L_8192": 8192, "M_4096": 4096, "S_1000": 1000}
+SP_GREEDY = tuple(SP_PROMPTS)
+SP_KERNELS = ("ring_block", "ring_finish", "decode_attention")
+# (b): gpt-oss-20b's widths, a shared prefix and the tail that hits it
+SP_PREFIX, SP_TAIL, SP_OSS_TOKENS = 2048, 512, 16
+# (a)'s logits check: the tail after SP_PREFIX cached tokens, no multiple
+# of 2 or 4 (the pass is padded), and its decode steps
+SP_CHECK_TAIL = 2047
+SP_OSS_ECFG = dict(TP_ECFG, max_prefill_tokens=4096, max_model_len=4096)
+# (c): phase 17's partitions (160 pages), four of them, whole prompts and
+# no prefix cache (a partitioned pool's prefix pages are owner-local)
+SP_PART_ECFG = dict(MESH_PART_ECFG, max_prefill_tokens=4096,
+                    enable_prefix_caching=False, max_num_seqs=4)
+SP_REPORT_KERNELS = SP_KERNELS + ("prefill_attention", "moe_grouped_gemm",
+                                  "moe_grouped_glu")
+
+
+def _sp_note(what: str) -> None:
+    """A progress line of phase 20 on stderr."""
+    print(f"sequence_parallel {time.perf_counter() - _T0:.1f}s {what}",
+          file=sys.stderr, flush=True)
+
+
+def sp_requests(cfg):
+    """(a)'s prompts of 8192, 4096 and 1000 tokens (greedy, 32 tokens
+    each), a seeded 1000-token row, and a 64-token warm-up."""
+    g = torch.Generator().manual_seed(SEED + 20)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    reqs = {n: _req(prompt(L)) for n, L in SP_PROMPTS.items()}
+    reqs["T_seeded"] = _req(prompt(1000), temperature=0.8, seed=7)
+    return reqs, _req(prompt(64), max_tokens=4)
+
+
+def sp_rank_report(before, after, layers):
+    """Each rank's slot, kernel launches, ring rotations (sends, bytes,
+    host ms, and per layer) and sequence gathers between two reports."""
+    out = {}
+    for r in sorted(after):
+        a, b = after[r], before[r]
+        rot = {k: a["handoffs"][k] - b["handoffs"][k]
+               for k in ("sends", "bytes", "ms")}
+        gat = {k: a["gathers"][k] - b["gathers"][k]
+               for k in ("calls", "bytes", "ms")}
+        out[r] = {"sp_rank": a["sp_rank"],
+                  "launches": {k: a["launches"].get(k, 0)
+                               - b["launches"].get(k, 0)
+                               for k in SP_REPORT_KERNELS},
+                  "rotations": rot, "gathers": gat,
+                  "rotation_ms_per_layer": rot["ms"] / layers,
+                  "rotation_bytes_per_layer": rot["bytes"] / layers}
+    return out
+
+
+def sp_serve(engine, reqs, warm, stats=True, extra=None):
+    """The warm-up, the first request alone (its TTFT), then the rest at
+    once; then ``await extra(engine)`` when given.  Returns (results, the
+    rest's wall s, the group's reports before and after the first and
+    after the rest (None without `stats`), extra's result)."""
+
+    async def run():
+        try:
+            await _collect(engine, warm)
+            r0 = await engine.group_reports() if stats else None
+            first = next(iter(reqs))
+            one = await _collect(engine, reqs[first])
+            r1 = await engine.group_reports() if stats else None
+            t0 = time.perf_counter()
+            rest = await asyncio.gather(*[_collect(engine, r)
+                                          for n, r in reqs.items()
+                                          if n != first])
+            wall = time.perf_counter() - t0
+            r2 = await engine.group_reports() if stats else None
+            more = await extra(engine) if extra is not None else None
+            return {first: one, **dict(zip(list(reqs)[1:], rest))}, wall, \
+                (r0, r1, r2), more
+        finally:
+            await engine.shutdown()
+
+    return asyncio.run(run())
+
+
+async def sp_tier(engine, cfg, model):
+    """A host tier on (a)'s group: the 1088-token prompt cold, its blocks
+    offloaded, then served again with its blocks onboarded; its tokens
+    against the cold run's (up to a near-tie)."""
+    from dynamo_tpu_torch.kvbm import HostBlockPool, TieredKvCache
+
+    prompt = tpkv_prompts(cfg)[2]["greedy_1088"]
+    tier = TieredKvCache(HostBlockPool(capacity_bytes=TPKV_HOST_BYTES))
+    engine.attach_connector(tier)
+    engine.clear_kv_blocks()
+    cold = await _collect(engine, _req(prompt, max_tokens=MESH_TOKENS))
+    for _ in range(2000):
+        if not tier.offload_backlog:
+            break
+        await asyncio.sleep(0.01)
+    engine.clear_kv_blocks()
+    b0 = tier.onboarded_blocks
+    again = await _collect(engine, _req(prompt, max_tokens=MESH_TOKENS))
+    problems, flip = ([], None)
+    if again["tokens"] != cold["tokens"]:
+        problems, flip = tpkv_flip_problems(model, cfg, prompt, cold["tokens"],
+                                            again["tokens"], "(a) onboarded")
+    out = {"onboarded_blocks": tier.onboarded_blocks - b0,
+           "ttft_ms": again["ttft_ms"], "cold_ttft_ms": cold["ttft_ms"],
+           "equal_to_cold": again["tokens"] == cold["tokens"], "flip": flip}
+    if out["onboarded_blocks"] < len(prompt) // engine.cfg.page_size - 1:
+        problems.append(f"(a) tier: {out}")
+    return out, problems
+
+
+def sp_logit_check(model, cfg, sp):
+    """(a)'s logits through `forward_prefill_sp` itself (the served rows'
+    tokens cannot see a wrong ring: the sharpened embedding outweighs
+    attention in the argmax): the flat model's `sp_hit_path` (a
+    SP_PREFIX-token prefix, then a SP_CHECK_TAIL-token tail that reads it
+    from the pages, then SP_OSS_TOKENS decode steps) against the same
+    path on an sp group of `sp` ranks fed the same tokens.  It runs the
+    rope positions at the slot offsets, the prefix fold through the table,
+    the padding, the pool writes the decode steps read, and the last
+    position's sum over sp.  Returns (report, problems): the largest
+    logit difference within LOGIT_TOL of the flat logits' std."""
+    g = torch.Generator().manual_seed(SEED + 24)
+    prefix = torch.randint(0, cfg.vocab_size, (SP_PREFIX,), generator=g).tolist()
+    tail = torch.randint(0, cfg.vocab_size, (SP_CHECK_TAIL,),
+                         generator=g).tolist()
+    with torch.no_grad():
+        ref, toks = sp_hit_path(model, cfg, prefix, tail, SP_OSS_TOKENS)
+    out = sp_group_logits(cfg, sp, 1, SEED, prefix, tail, ref.cpu(),
+                          toks[:SP_OSS_TOKENS])
+    if out["logit_err_in_std"] <= LOGIT_TOL:
+        return out, []
+    return out, [f"(a) the logits through forward_prefill_sp on sp {sp} lie "
+                 f"{out['logit_err_in_std']:.3f} std from the flat "
+                 f"forward_prefill's (tolerance {LOGIT_TOL})"]
+
+
+def sp_llama8b(model, cfg, layers_note="full depth", sp=2):
+    """(a) Llama-3.1-8B's widths (at `cfg`'s depth) on an sp group (`sp`
+    ranks sharing the card over gloo) against the flat engine on the same
+    weights: the 8192-token prompt alone, then the 4096, 1000 and seeded
+    rows at once; greedy rows equal up to near-ties; the 8192 prompt's
+    TTFT beside the flat engine's chunked prefill; each rank's ring
+    rotations and gathers per layer, ring and decode launches; then a
+    host tier's onboard on the group; then `sp_logit_check`.  Returns
+    (problems, launches per rank)."""
+    import gc
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards
+
+    reqs, warm = sp_requests(cfg)
+    flat = TorchEngine(cfg, model, EngineConfig(**SP_FLAT_ECFG), device="cuda")
+    res_flat, wall_flat, _, _ = sp_serve(flat, reqs, warm, stats=False)
+    del flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sp_note("(a) flat")
+    ref = {n: r["tokens"] for n, r in res_flat.items()}
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, SeededShards(cfg, SEED, "bfloat16", sharpen=True),
+                         EngineConfig(**SP_ECFG), parallel=ParallelConfig(sp=sp),
+                         devices=["cuda:0"] * sp)
+    build_s = time.perf_counter() - t0
+    res, wall, (r0, r1, r2), (tier, tier_bad) = sp_serve(
+        engine, reqs, warm, extra=lambda e: sp_tier(e, cfg, model))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sp_note(f"(a) sp {sp}")
+    logits, logits_bad = sp_logit_check(model, cfg, sp)
+    _sp_note(f"(a) logits on sp {sp}")
+    problems, flips = tp_check(lambda: model, cfg, reqs, ref, res, SP_GREEDY, 32)
+    problems += tier_bad + logits_bad
+    L = cfg.num_hidden_layers
+    long_ranks = sp_rank_report(r0, r1, L)
+    rest_ranks = sp_rank_report(r1, r2, L)
+    emit({"phase": "sequence_parallel", "case": "a", "model": cfg.name,
+          "layers": L, "depth": layers_note, "sp": sp, "tp": 1,
+          "build_s": build_s, "greedy_equal": {n: res[n]["tokens"] == ref[n]
+                                               for n in SP_GREEDY},
+          "seeded_equal": res["T_seeded"]["tokens"] == ref["T_seeded"],
+          "flips": flips, "tol_in_std": LOGIT_TOL,
+          "ttft_8192_ms": res["L_8192"]["ttft_ms"],
+          "flat_chunked_ttft_8192_ms": res_flat["L_8192"]["ttft_ms"],
+          "flat_prefill_chunk": SP_FLAT_ECFG["max_prefill_tokens"],
+          **tp_rows({n: r for n, r in res.items() if n != "L_8192"}),
+          "flat_decode_tokens_per_s": tp_rows(
+              {n: r for n, r in res_flat.items() if n != "L_8192"})[
+                  "decode_tokens_per_s"],
+          "wall_s": wall, "flat_wall_s": wall_flat,
+          "ranks_8192": long_ranks, "ranks_rest": rest_ranks, "tier": tier,
+          "logits": logits, "card": card_line()})
+    launches = {r: {k: long_ranks[r]["launches"][k]
+                    + rest_ranks[r]["launches"][k] for k in SP_REPORT_KERNELS}
+                for r in long_ranks}
+    return problems, launches
+
+
+def sp_ring_check(slots, S=1024, prefixes=(0, 256)):
+    """The ring as the engine runs it (`ring_attention_local`: its rounds,
+    the prefix fold, the finish), `slots` slots simulated on the card
+    (`SimRing` hands each round's block as the rotation would), at the
+    8B's widths in bf16, against the plain prefill attention (the paged
+    kernels' reference) in f32 of the same inputs over the whole chunk
+    after the same cached prefix.  Returns (a report per prefix, problems): each row's error
+    within the bf16 attention bar."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.parallel.ring_attention import (
+        SimRing, ring_attention_local)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    H, n_kv, hd, page = RING_8B["H"], RING_8B["n_kv"], RING_8B["hd"], 16
+    bf = torch.bfloat16
+
+    def rnd(*shape, s):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(bf)
+
+    out, problems = {}, []
+    for pre in prefixes:
+        q = rnd(1, S, H, hd, s=Q_STD)
+        k, v = rnd(1, S, n_kv, hd, s=KV_STD), rnd(1, S, n_kv, hd, s=KV_STD)
+        maxp = max(1, -(-pre // page))
+        table, P = _table([maxp], maxp)
+        table = table.cuda()
+        kp, vp = _pool(gen, P, page, n_kv, hd, bf)
+        plen = torch.full((1,), pre, dtype=torch.int32, device="cuda")
+        chunk = torch.full((1,), S, dtype=torch.int32, device="cuda")
+        ref = pa.prefill_attention_plain(q.float(), k.float(), v.float(),
+                                         kp.float(), vp.float(), table, plen,
+                                         chunk)
+        Sl = S // slots
+        cut = [slice(i * Sl, (i + 1) * Sl) for i in range(slots)]
+        blocks = [torch.stack([k[:, c], v[:, c]]) for c in cut]
+        got = torch.cat([ring_attention_local(
+            q[:, c].contiguous(), k[:, c].contiguous(), v[:, c].contiguous(),
+            SimRing(blocks, i), q_offset=plen,
+            prefix=(kp, vp, table, plen) if pre else None)
+            for i, c in enumerate(cut)], 1)
+        torch.cuda.synchronize()
+        out[pre] = err = _errors(got, ref, bf)
+        if not err["max_rel_err"] <= err["rtol"]:
+            problems.append(f"the ring over {slots} slots after a {pre}-token "
+                            f"prefix disagrees with the plain prefill: {err}")
+    return out, problems
+
+
+def sp_hit_path(model, cfg, prefix, tail, steps, fed=None, group=None,
+                page=16):
+    """`prefix` prefilled at position 0, then `tail` after it (its prefix
+    read from the pages it wrote), then `steps` decode steps fed their own
+    greedy tokens (or `fed`): the flat model's `forward_prefill` (group
+    None) or an sp rank's `forward_prefill_sp`.  Returns (f32 logits
+    [2 + steps, V], greedy tokens)."""
+    from dynamo_tpu_torch.models import KVCache
+    from dynamo_tpu_torch.parallel.sp_prefill import forward_prefill_sp
+
+    n = len(prefix) + len(tail) + steps
+    maxp = -(-n // page)
+    table = torch.arange(1, maxp + 1, dtype=torch.int32, device="cuda")[None]
+    kv = KVCache.create(cfg, maxp + 1, page, torch.bfloat16, "cuda", tp=model.tp)
+
+    def chunk(toks, start):
+        p = torch.full((1,), start, dtype=torch.int32, device="cuda")
+        c = torch.full((1,), len(toks), dtype=torch.int32, device="cuda")
+        if group is None:
+            t = torch.tensor([toks], device="cuda")
+            return model.forward_prefill(kv, t, table, p, c)
+        # padded to a multiple of sp, as the engine pads its pass
+        t = torch.tensor([toks + [0] * (-len(toks) % group.sp)], device="cuda")
+        return forward_prefill_sp(model, group, kv, t, table, p, c,
+                                  prefix_pages=-(-start // page))
+
+    logits = [chunk(prefix, 0), chunk(tail, len(prefix))]
+    toks = [int(logits[-1].argmax(-1))]
+    pos = len(prefix) + len(tail)
+    for j in range(steps):
+        tok = toks[-1] if fed is None else fed[j]
+        logits.append(model.forward_decode(
+            kv, torch.tensor([tok], device="cuda"),
+            torch.tensor([pos + j], device="cuda"), table))
+        toks.append(int(logits[-1].argmax(-1)))
+    return torch.stack(logits)[:, 0], toks
+
+
+def _sp_hit_rank(rank, init, q, cfg, sp, tp, seed, prefix, tail, fed, path):
+    """A rank of an sp x tp group running `sp_hit_path` on its shard of
+    `cfg` (drawn from `seed` and sharpened as the engines' shards are),
+    fed `fed`; with `path`, every router choice forced to the flat run's
+    record (a prefill call's rows cut to this slot's tokens)."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards, make_mesh
+
+    group = make_mesh(ParallelConfig(sp=sp, tp=tp), ["cuda:0"] * (sp * tp),
+                      rank=rank, init_method=init)
+    try:
+        model = SeededShards(cfg, seed, "bfloat16", sharpen=True)(
+            group.tp_rank, tp, group.device)
+        model.attach_group(group)
+        if path is not None:
+            calls = iter(torch.load(path))
+
+            def top_k(logits, k):
+                idx = next(calls)
+                if idx.shape[0] > 1:
+                    n = idx.shape[0] // group.sp
+                    idx = idx[group.sp_rank * n:(group.sp_rank + 1) * n]
+                idx = idx.to(logits.device)
+                return logits.gather(-1, idx), idx
+
+            llama._top_k = top_k
+        with torch.no_grad():
+            logits, _ = sp_hit_path(model, cfg, prefix, tail, len(fed), fed,
+                                    group)
+        if rank == 0:  # by value: the rank may exit before it is read
+            q.put(logits.float().cpu().numpy())
+    finally:
+        group.close()
+
+
+def sp_forced_record(model, cfg, prefix, tail):
+    """The flat model's `sp_hit_path` (SP_OSS_TOKENS greedy steps) with
+    its router's choices saved to ``build/``: (flat logits, the tokens
+    fed, the record's path, the router calls)."""
+    from dynamo_tpu_torch.models import llama
+
+    calls, orig = [], llama._top_k
+
+    def record(logits, k):
+        vals, idx = orig(logits, k)
+        calls.append(idx.cpu())
+        return vals, idx
+
+    llama._top_k = record
+    try:
+        with torch.no_grad():
+            ref, toks = sp_hit_path(model, cfg, prefix, tail, SP_OSS_TOKENS)
+    finally:
+        llama._top_k = orig
+    path = os.path.join(ROOT, "build", "sp_routing.pt")
+    torch.save(calls, path)
+    return ref.cpu(), toks[:SP_OSS_TOKENS], path, len(calls)
+
+
+def sp_group_logits(cfg, sp, tp, seed, prefix, tail, ref, fed, path=None):
+    """`sp_hit_path` on an sp x tp group of processes sharing the card
+    (forked from the groups' fork server, which has the port imported: a
+    rank starts in about a second, not eight), fed the flat run's tokens
+    (and with `path`, its router choices): the largest logit difference
+    from the flat run's `ref` in the flat logits' std, at the tail's last
+    position and each decode step."""
+    from dynamo_tpu_torch.engine import lockstep
+    from dynamo_tpu_torch.parallel.mesh import free_port
+
+    ctx = lockstep._follower_context()  # noqa: SLF001
+    q = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_sp_hit_rank,
+                         args=(r, init, q, cfg, sp, tp, seed, prefix, tail,
+                               fed, path))
+             for r in range(sp * tp)]
+    for p in procs:
+        p.start()
+    try:
+        got = torch.from_numpy(q.get(timeout=600))
+    finally:
+        for p in procs:
+            p.join(120)
+            if p.is_alive():
+                p.terminate()
+    err = ((got - ref.float()).abs().amax(-1) / ref.float().std(-1)).tolist()
+    return {"prefix_tokens": len(prefix), "tail_tokens": len(tail),
+            "decode_steps": len(fed), "sp": sp, "tp": tp,
+            "logit_err_in_std": max(err), "logit_err_in_std_by_step": err}
+
+
+def sp_gpt_oss():
+    """(b) gpt-oss-20b's widths (64 q / 8 kv heads of 64, a 128-token
+    window on alternate layers, sinks, 32 experts) at SHALLOW_LAYERS layers
+    on an sp 2 x tp 2 group (four ranks sharing the card), the prefix
+    cache on: a 2048-token prompt, then the prompt with a 512-token tail,
+    which hits its cached prefix, so the ring starts at the prefix
+    boundary.  The served tokens are reported beside the flat twin's; the
+    check is the forced-routing one of phase 15 (c) (random routers put
+    top-k near-ties everywhere): the flat path of the same prefix, hit and
+    decode steps with its router's choices recorded, and the group's ranks
+    with them forced, logits within LOGIT_TOL std.  Returns (problems,
+    launches per rank)."""
+    import gc
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models import GPT_OSS_20B
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards
+
+    model, cfg = tp_flat_twin(GPT_OSS_20B, SHALLOW_LAYERS, seed=SEED + 11)
+    g = torch.Generator().manual_seed(SEED + 21)
+    prefix = torch.randint(0, cfg.vocab_size, (SP_PREFIX,), generator=g).tolist()
+    tail = torch.randint(0, cfg.vocab_size, (SP_TAIL,), generator=g).tolist()
+    reqs = {"P_prefix": _req(prefix, max_tokens=SP_OSS_TOKENS),
+            "H_hit": _req(prefix + tail, max_tokens=SP_OSS_TOKENS)}
+
+    def serve(engine, stats):
+        async def run():
+            try:
+                r0 = await engine.group_reports() if stats else None
+                out = {}
+                for n, r in reqs.items():  # in turn: the second hits
+                    out[n] = await _collect(engine, r)
+                r1 = await engine.group_reports() if stats else None
+                return out, r0, r1, vars(engine.metrics())
+            finally:
+                await engine.shutdown()
+
+        return asyncio.run(run())
+
+    flat = TorchEngine(cfg, model, EngineConfig(**SP_OSS_ECFG), device="cuda")
+    res_flat, _, _, m_flat = serve(flat, False)
+    del flat
+    record = sp_forced_record(model, cfg, prefix, tail)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sp_note("(b) flat twin")
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, SeededShards(cfg, SEED + 11, "bfloat16",
+                                           sharpen=True),
+                         EngineConfig(**SP_OSS_ECFG),
+                         parallel=ParallelConfig(sp=2, tp=2),
+                         devices=["cuda:0"] * 4)
+    build_s = time.perf_counter() - t0
+    res, r0, r1, m = serve(engine, True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sp_note("(b) sp 2 x tp 2")
+    ref, fed, path, n_calls = record
+    forced = dict(sp_group_logits(cfg, 2, 2, SEED + 11, prefix, tail, ref,
+                                  fed, path), router_calls=n_calls)
+    _sp_note("(b) forced routing")
+    problems = [f"(b) {n} ended {r['finish_reason']} with {len(r['tokens'])} "
+                f"tokens" for n, r in res.items()
+                if r["finish_reason"] != "length"
+                or len(r["tokens"]) != SP_OSS_TOKENS]
+    hits = m["prefix_cached_tokens_total"]
+    if hits < SP_PREFIX - SP_OSS_ECFG["page_size"]:
+        problems.append(f"(b) the tail hit {hits} cached tokens")
+    if forced["logit_err_in_std"] > LOGIT_TOL:
+        problems.append(f"(b) with the flat run's routing the sp x tp logits "
+                        f"lie {forced['logit_err_in_std']:.3f} std from the "
+                        f"flat logits")
+    ranks = sp_rank_report(r0, r1, cfg.num_hidden_layers)
+    emit({"phase": "sequence_parallel", "case": "b", "model": cfg.name,
+          "layers": cfg.num_hidden_layers, "sp": 2, "tp": 2,
+          "build_s": build_s, "prefix_cached_tokens": hits,
+          "flat_prefix_cached_tokens": m_flat["prefix_cached_tokens_total"],
+          "tokens_equal_flat": {n: res[n]["tokens"] == res_flat[n]["tokens"]
+                                for n in reqs},
+          **tp_rows(res), "forced_routing": forced, "tol_in_std": LOGIT_TOL,
+          "ranks": ranks, "card": card_line()})
+    return problems, {r: v["launches"] for r, v in ranks.items()}
+
+
+async def sp_park(engine, cfg):
+    """On (c)'s partitioned group: three 2048-token interactive anchors
+    spread over three partitions, a 1224-token batch victim on the
+    fourth, parked for a 64-token arrival (the slots are full, and its
+    partition has the most free pages) and resumed onto the same
+    partition; its tokens against its uncontended run, and the pages the
+    resume imported against the parked bytes, byte for byte."""
+    from dynamo_tpu_torch.runtime import Context
+
+    victim, inter, _ = tpkv_prompts(cfg)
+    g = torch.Generator().manual_seed(SEED + 22)
+    anchors = [_req(torch.randint(0, cfg.vocab_size, (2048,),
+                                  generator=g).tolist(), max_tokens=400)
+               for _ in range(engine.parts - 1)]
+    engine.clear_kv_blocks()
+    alone = await _collect(engine, victim)
+    parked, kept, resumed = [], {}, []
+    lot_park = engine.parking.park
+    resume = engine.scheduler.resume_fn
+
+    def spy_park(entry):
+        ok = lot_park(entry)
+        if ok:
+            parked.append(entry.kv_rank)
+            kept[entry.request_id] = entry
+        return ok
+
+    def spy_resume(seq):
+        resume(seq)
+        entry = kept.get(seq.request_id)
+        if entry is not None:
+            k, v = engine._export_dev(seq.pages[:entry.n_pages])  # noqa: SLF001
+            resumed.append({
+                "partition": seq.kv_rank, "pages": entry.n_pages,
+                "differing_elements": int((_bits(k.cpu()) != _bits(entry.k)).sum()
+                                          + (_bits(v.cpu()) != _bits(entry.v)).sum())})
+
+    engine.parking.park = spy_park
+    engine.scheduler.resume_fn = spy_resume
+    ctxs = [Context(f"anchor{i}") for i in range(len(anchors))]
+    tasks = []
+    try:
+        for a, ctx in zip(anchors, ctxs):
+            first = asyncio.Event()
+            tasks.append(asyncio.ensure_future(
+                _collect_as(engine, a, None, first, ctx)))
+            await first.wait()
+        m0 = engine.metrics()
+        got, _, order = await _storm(engine, victim, inter, 2)
+        m1 = engine.metrics()
+    finally:
+        for ctx in ctxs:
+            ctx.stop_generating()
+        await asyncio.gather(*tasks)
+        engine.parking.park = lot_park
+        engine.scheduler.resume_fn = resume
+    out = {"victim_tokens_equal_alone": got["tokens"] == alone["tokens"],
+           "parked_on_partition": parked, "resumed": resumed,
+           "finish_order": order,
+           "preempted": m1.preempted_total - m0.preempted_total,
+           "lot_after": [len(engine.parking), engine.parking.pages_held]}
+    ok = (out["victim_tokens_equal_alone"] and len(parked) == 1
+          and out["preempted"] == 1 and out["lot_after"] == [0, 0]
+          and [r["partition"] for r in resumed] == parked
+          and all(r["differing_elements"] == 0 for r in resumed))
+    return out, [] if ok else [f"(c) park: {out}"]
+
+
+def sp_partitioned(cut, ref, twin):
+    """(c) dp 2 x sp 2, the pool partitioned over the four (replica, slot)
+    pairs (160 pages each), the 8B at CUT_LAYERS layers: phase 4's five
+    requests, each sent once the previous one streams, against the flat
+    twin's tokens (phase 15 (a)'s) up to near-ties, each sequence's pages
+    on its partition; then `sp_park`.  Returns (problems, launches per rank
+    over the wave, over the park)."""
+    import gc
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.parallel import ParallelConfig, SeededShards
+
+    cfg = cut
+    reqs, warm = mesh_requests(cfg)
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, SeededShards(cfg, SEED, "bfloat16", sharpen=True),
+                         EngineConfig(**SP_PART_ECFG, kv_partition=True),
+                         parallel=ParallelConfig(dp=2, sp=2),
+                         devices=["cuda:0"] * 4)
+    build_s = time.perf_counter() - t0
+
+    async def run():
+        try:
+            await _collect(engine, warm)
+            seqs = {}
+            _finish_spy(engine, seqs)
+            r0 = await engine.group_reports()
+            tasks = []
+            for n, r in reqs.items():
+                first = asyncio.Event()
+                tasks.append(asyncio.ensure_future(
+                    _collect_as(engine, r, n, first)))
+                await first.wait()
+            outs = await asyncio.gather(*tasks)
+            r1 = await engine.group_reports()
+            park, bad = await sp_park(engine, cfg)
+            r2 = await engine.group_reports()
+            return dict(zip(reqs, outs)), seqs, park, bad, (r0, r1, r2), \
+                vars(engine.metrics())
+        finally:
+            await engine.shutdown()
+
+    res, seqs, park, problems, (r0, r1, r2), m = asyncio.run(run())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sp_note("(c) dp 2 x sp 2 partitioned")
+    bad, flips = tp_check(twin, cfg, reqs, ref, res, TP_GREEDY, 32)
+    problems += bad
+    parts = {}
+    for n in reqs:
+        pages, rank = seqs[n]
+        parts[n] = rank
+        if {p // SP_PART_ECFG["num_pages"] for p in pages} != {rank}:
+            problems.append(f"(c) {n}'s pages leave partition {rank}")
+    if len(set(parts.values())) < 2:
+        problems.append(f"(c) the wave used one partition: {parts}")
+    wave = sp_rank_report(r0, r1, cfg.num_hidden_layers)
+    moves = sp_rank_report(r1, r2, cfg.num_hidden_layers)
+    emit({"phase": "sequence_parallel", "case": "c", "model": cfg.name,
+          "layers": cfg.num_hidden_layers, "dp": 2, "sp": 2, "tp": 1,
+          "kv_partition": True, "build_s": build_s,
+          "kv_total_pages": m["kv_total_pages"],
+          "greedy_equal": {n: res[n]["tokens"] == ref[n] for n in TP_GREEDY},
+          "flips": flips, "tol_in_std": LOGIT_TOL, **tp_rows(res),
+          "partition_of": parts, "park": park, "ranks_wave": wave,
+          "card": card_line()})
+    return problems, {r: v["launches"] for r, v in wave.items()}, \
+        {r: v["launches"] for r, v in moves.items()}
+
+
+def phase_sequence_parallel(cfg, cut, ref):
+    """Phase 20 (see the module docstring).  `cfg`: phase 4's 8B (drawn
+    again here at full depth from the script's seed); `cut`, `ref`: phase
+    15 (a)'s flat twin's config (CUT_LAYERS layers) and its greedy tokens
+    of phase 4's requests.  Returns each group's launches per rank."""
+    import gc
+
+    from dynamo_tpu_torch.models import init_params
+
+    ring, problems = sp_ring_check(2)
+    emit({"phase": "sequence_parallel", "case": "ring", "slots": 2,
+          "errors": ring, "card": card_line()})
+    launches = {}
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    bad, launches["a"] = sp_llama8b(model, cfg)
+    problems += bad
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad, launches["b"] = sp_gpt_oss()
+    problems += bad
+    twin_cache = []
+
+    def twin():
+        if not twin_cache:
+            twin_cache.append(tp_flat_twin(cut, CUT_LAYERS)[0])
+        return twin_cache[0]
+
+    bad, launches["c_wave"], launches["c_park"] = sp_partitioned(cut, ref, twin)
+    problems += bad
+    del twin_cache[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        fail(f"sequence parallel: {problems}")
+    for case in ("a", "b", "c_wave"):
+        tp_launch_gate(f"sequence parallel ({case})", launches[case],
+                       ("ring_block", "decode_attention"))
+    return launches
+
+
+SP_PROBE_LAYERS = 4
+# four slots: at two, a ring that hands slot i the block of (i + r) mod N
+# is the right one ((i + r) = (i - r) mod 2)
+SP_PROBE_SLOTS = 4
+
+
+def sp_probe_main() -> int:
+    """The mutation check's probe of the ring: `sp_ring_check` on
+    SP_PROBE_SLOTS slots, then phase 20 (a) on the 8B's full width at
+    SP_PROBE_LAYERS layers (the flat engine's rows against an sp
+    SP_PROBE_SLOTS group's; the random 8B's sharpened embedding outweighs
+    its attention in a served row's argmax, so its logits check through
+    `forward_prefill_sp` is what sees the engine's ring); prints one JSON
+    line with the problems it finds (none on the port as it is)."""
+    from dynamo_tpu_torch.models import LLAMA_3_1_8B, init_params
+    from dynamo_tpu_torch.ops import _build
+
+    _build.build_all()
+    ring, problems = sp_ring_check(SP_PROBE_SLOTS)
+    cfg = LLAMA_3_1_8B.with_depth(SP_PROBE_LAYERS)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        dtype=torch.bfloat16, device="cuda")
+    sharpen(model)
+    bad, _ = sp_llama8b(model, cfg, f"{SP_PROBE_LAYERS} layers",
+                        sp=SP_PROBE_SLOTS)
+    print(json.dumps({"sp_probe": {"layers": SP_PROBE_LAYERS,
+                                   "sp": SP_PROBE_SLOTS, "ring": ring,
+                                   "problems": problems + bad}}), flush=True)
+    return 0
+
+
 def time_ms_host(fn, iters: int = 3) -> float:
     """Host-clock ms of fn() to a synchronize, after one warm-up."""
     fn()
@@ -8488,6 +9389,10 @@ def main() -> int:
         if not torch.cuda.is_available():
             fail("no CUDA device: the pipeline probe runs on a GPU")
         return pp_probe_main()
+    if sys.argv[1:2] == ["--sp-probe"]:
+        if not torch.cuda.is_available():
+            fail("no CUDA device: the sequence-parallel probe runs on a GPU")
+        return sp_probe_main()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     global _JSONL
@@ -8611,6 +9516,12 @@ def main() -> int:
     # again from its seed), (c) and (d) against phase 15 (a)'s flat twin
     pipe = clocked("19 pipeline", phase_pipeline, cfg, direct, cut8, ref8)
     emit({"phase": "children", "after": "19 pipeline", "alive": live_children()})
+    # phase 20: sequence parallelism; (a) on phase 4's flat model (drawn
+    # again from its seed), (c) against phase 15 (a)'s flat twin
+    seqp = clocked("20 sequence_parallel", phase_sequence_parallel, cfg, cut8,
+                   ref8)
+    emit({"phase": "children", "after": "20 sequence_parallel",
+          "alive": live_children()})
     by_path = {"serving (phase 4, generate)": serving_launches,
                "golden (phase 6)": golden_launches,
                "http (phase 7, the main path)": http_launches,
@@ -8655,7 +9566,15 @@ def main() -> int:
                       ("b", f"llama-3-70b {PP_70B_LAYERS} layers pp 2 x tp 2"),
                       ("c_wave", "dp 2 x pp 2 partitioned wave"),
                       ("c_moves", "dp 2 x pp 2 partitioned kv moves"))
-                  for r, n in pipe[case].items()}}
+                  for r, n in pipe[case].items()},
+               **{f"sequence parallel {what} rank {r} (phase 20 {case}, this "
+                  f"slice's path)": n
+                  for case, what in (
+                      ("a", "llama-3.1-8b sp 2 x tp 1"),
+                      ("b", f"gpt-oss-20b {SHALLOW_LAYERS} layers sp 2 x tp 2"),
+                      ("c_wave", "dp 2 x sp 2 partitioned wave"),
+                      ("c_park", "dp 2 x sp 2 partitioned park"))
+                  for r, n in seqp[case].items()}}
 
     kernels = []
     for name, src_line in (("decode_attention", "dynamo_tpu/ops/pallas_attention.py:182"),
@@ -8764,6 +9683,34 @@ def main() -> int:
         "library": "scaled_dot_product_attention with the boolean block mask",
         "timed_cases": [{k: c[k] for k in keys} for c in timed],
     })
+    # the ring prefill's block kernel and its finish: their path is phase
+    # 20 (a), the 8B's 8192-token prompt on sp 2 (each slot Sq = Sk = 4096)
+    mine = [c for c in checks if c["kernel"] == "ring_attention"]
+    timed = [c for c in mine if "ms" in c]
+    head = next(c for c in timed if "diagonal round, Sq = Sk = 4096" in c["case"])
+    keys = ("case", "ms", "host_paced_ms", "plain_ms", "library_ms",
+            "library", "bound_ms", "bound_by", "finish_ms")
+    ring_path = "sequence parallel llama-3.1-8b sp 2 x tp 1 rank 0 (phase 20 a, this slice's path)"
+    kernels.append({
+        "name": "ring_attention", "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/ring_attention.cu",
+        "replaces": "dynamo_tpu/parallel/ring_attention.py:37",
+        "replaces_what": "ring_attention_local's _block_attn (:37-57) and the "
+                         "scan's flash merge and normalisation (:106-138); XLA "
+                         "ops, not a Pallas kernel",
+        "launches": by_path[ring_path]["ring_block"],
+        "finish_launches": by_path[ring_path]["ring_finish"],
+        "launches_by_path": {p: c.get("ring_block", 0) for p, c in by_path.items()},
+        "max_abs_err": max(c["max_abs_err"] for c in mine),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "timed_case": head["case"],
+        "library": "torch.ops.aten._scaled_dot_product_flash_attention (out "
+                   "and log-sum-exp), kv heads repeated; with a window or in "
+                   "f32, _scaled_dot_product_efficient_attention with the "
+                   "round's mask as a bias and compute_log_sumexp",
+        "timed_cases": [{k: c[k] for k in keys} for c in timed],
+    })
     emit(timing_line())
     emit({"kernels": kernels})
     print(card, flush=True)
@@ -8780,7 +9727,8 @@ _CLOCKED = ("kv_transfers", "park_resume", "kv_tier_runs", "kv_router_arm",
             "breadth_model", "breadth_paths", "breadth_serving",
             "breadth_worker", "breadth_int8", "vl_serving", "vl_processes",
             "tp_serve", "forced_record", "tp_forced_routing", "pp_llama8b",
-            "pp_llama70b", "pp_partitioned")
+            "pp_llama70b", "pp_partitioned", "sp_llama8b", "sp_gpt_oss",
+            "sp_group_logits", "sp_partitioned")
 for _name in _CLOCKED:
     globals()[_name] = _clock_helper(_name, globals()[_name])
 

@@ -196,7 +196,7 @@ def ipc_export(engine) -> Dict[str, Any]:
         "uuid": device_uuid(k.device), "shape": list(k.shape),
         "stride": list(k.stride()),
         "dtype": str(k.dtype).removeprefix("torch."), "lease": 0,
-        "pp": getattr(engine, "pp", 1),
+        "pp": getattr(engine, "pp", 1), "sp": getattr(engine, "sp", 1),
     }
     for name, t in (("k", engine.kv.k), ("v", engine.kv.v)):
         entry[name] = {"share": list(t.untyped_storage()._share_cuda_()),
@@ -254,11 +254,14 @@ class IpcLane:
     replace the CUDA mapping (tests on the CPU inject them)."""
 
     def __init__(self, device: torch.device, opener=None, event_opener=None,
-                 stages: int = 1):
+                 stages: int = 1, sp: int = 1):
         self.device = device
         # the destination's pipeline stages: each rank would need a window
         # of the source's layers as well as of its heads (ROADMAP 2.3b)
         self.stages = stages
+        # the destination's sequence slots: each (replica, slot) of a
+        # partitioned pool holds other pages (ROADMAP 2.4b)
+        self.sp = sp
         self.injected = opener is not None
         self._open = opener or open_ipc_pools
         self._open_event = event_opener or open_ipc_event
@@ -272,8 +275,10 @@ class IpcLane:
         """True when this lane serves the entry: every source rank's pools
         lie on this engine's card (or an opener was injected), and neither
         side is a pipeline (ROADMAP 2.3b: its pages then move on the host
-        lane, as a dp source's do)."""
-        if not entry or self.stages > 1 or entry.get("pp", 1) > 1:
+        lane, as a dp source's do) or a sequence-parallel group (ROADMAP
+        2.4b, the same way)."""
+        if (not entry or self.stages > 1 or entry.get("pp", 1) > 1
+                or self.sp > 1 or entry.get("sp", 1) > 1):
             return False
         if self.injected:
             return True

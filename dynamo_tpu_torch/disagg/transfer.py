@@ -166,10 +166,12 @@ class KvTransferSource:
         # replica): it serves them through its exports, on the host lane
         # (an entry naming one replica's ranks is not ported: ROADMAP
         # 2.2b.6); so does a pipeline, whose ranks hold a window of the
-        # layers (ROADMAP 2.3b)
+        # layers (ROADMAP 2.3b), and a sequence-parallel group (ROADMAP
+        # 2.4b)
         if (self.engine.device.type == "cuda"
                 and getattr(self.engine, "dp", 1) == 1
-                and getattr(self.engine, "pp", 1) == 1):
+                and getattr(self.engine, "pp", 1) == 1
+                and getattr(self.engine, "sp", 1) == 1):
             if getattr(self.engine, "tp", 1) > 1:
                 # every rank's pools (an ``ipc_export`` plan, between steps)
                 self.ipc = group_entry(await self.engine._device_op(  # noqa: SLF001
@@ -355,7 +357,8 @@ class KvTransferClient:
         self.lanes = lanes
         self.ipc = IpcLane(engine.device, opener=ipc_opener,
                            event_opener=ipc_event_opener,
-                           stages=getattr(engine, "pp", 1))
+                           stages=getattr(engine, "pp", 1),
+                           sp=getattr(engine, "sp", 1))
 
     async def fetch(self, descriptor: Dict[str, Any],
                     timeout: Optional[float] = 60.0,

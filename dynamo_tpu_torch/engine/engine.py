@@ -138,7 +138,25 @@ vision towers and M-RoPE models (ROADMAP 2.8), turns the fused prefill,
 mixed dispatches and speculative decoding off, and rounds the decode
 rows to dp x pp (a partitioned pool's blocks to pp).
 
-Not ported yet (later slices): sp and multihost.
+Sequence parallelism (``parallel=ParallelConfig(dp=D, sp=N, tp=M)``):
+the ranks are JAX's ``(dp, sp, tp)`` mesh (rank ``(d * N + i) * M + t``);
+every slot holds every layer (its tp shard).  A prefill pass is whole
+remainders (`_sp_config`: no mixed dispatches, a step budget that never
+chunks a prompt), padded to a multiple of N; each slot of a replica takes
+N-th of its block's columns through the ring prefill
+(`parallel/sp_prefill.py`: ring attention on the `ring_block` kernel,
+the cached prefix folded first from the pool), and the chunk's K/V,
+gathered over the sp group, is written by every slot (a replicated pool,
+then levelled over dp) or by the row's owner slot alone (``kv_partition``:
+the pool partitioned over the D x N (replica, slot) pairs, prefill rows
+grouped by ``kv_rank // N``).  Decode runs the paged decode kernel: on a
+replicated pool every slot of a replica runs the replica's rows (results
+from slot 0), on a partitioned pool each (replica, slot) its partition's
+block.  KV moves read and write partitions over the pool group; the CUDA
+IPC lane turns an sp group down (ROADMAP 2.4b), as do vision towers and
+M-RoPE (ROADMAP 2.8), pp (as in JAX) and speculative decoding.
+
+Not ported yet (later slices): multihost.
 """
 
 from __future__ import annotations
@@ -253,6 +271,61 @@ def _pp_config(cfg: EngineConfig, model_cfg: ModelConfig, pp: int,
                                mixed_prefill_tokens=0)
 
 
+def _sp_config(cfg: EngineConfig, model_cfg: ModelConfig, parallel,
+               vision) -> EngineConfig:
+    """The engine config of a sequence-parallel group (JAX `engine.py:
+    1423-1482`): whole-remainder prefill (no mixed dispatches, a step
+    budget that never splits a prompt), chunk buckets divisible by sp, no
+    prefix cache on a partitioned pool (prefix pages are owner-shard-
+    local), MoE experts on the tp axis through the ragged dispatch, and
+    even tp splits of the heads, the vocab and a dense ffn.  The a2a MoE
+    (ROADMAP 2.5), a vision tower or an M-RoPE model (ROADMAP 2.8) are
+    refused."""
+    import dataclasses
+
+    sp, tp = parallel.sp, parallel.tp
+    if vision is not None or model_cfg.mrope_section:
+        raise ValueError(
+            f"sp={sp} does not serve a vision tower or M-RoPE yet "
+            f"(ROADMAP 2.8)")
+    cfg = dataclasses.replace(cfg, mixed_prefill_tokens=0)
+    if cfg.enable_prefix_caching and cfg.kv_partition:
+        raise ValueError(
+            "sp > 1 with kv_partition requires "
+            "enable_prefix_caching=False (prefix pages are "
+            "owner-shard-local)")
+    if cfg.max_prefill_tokens < cfg.max_model_len * cfg.prefill_batch_size:
+        raise ValueError(
+            "sp > 1 requires max_prefill_tokens >= "
+            "max_model_len * prefill_batch_size — the step "
+            "budget is shared across co-planned prompts and "
+            "none may be split into chunks")
+    bad = [b for b in cfg.chunk_buckets if b % sp]
+    if bad:
+        raise ValueError(f"chunk buckets {bad} not divisible by sp={sp}")
+    if tp > 1 and model_cfg.is_moe:
+        if model_cfg.moe_impl == "a2a":
+            raise ValueError(
+                "sp×tp MoE with moe_impl='a2a' (wide-EP capacity drops) is "
+                "not ported yet (ROADMAP 2.5); use moe_impl='ragged'")
+        if (model_cfg.moe_impl != "ragged"
+                or model_cfg.num_experts % tp):
+            raise ValueError(
+                "sp×tp MoE requires moe_impl='ragged'|'a2a' and "
+                "num_experts divisible by tp")
+    uneven = {"q heads": model_cfg.num_attention_heads,
+              "kv heads": model_cfg.num_key_value_heads,
+              "vocab_size": model_cfg.vocab_size}
+    if not model_cfg.is_moe:
+        uneven["intermediate_size"] = model_cfg.intermediate_size
+    bad_dims = [k for k, v in uneven.items() if v % tp]
+    if bad_dims:
+        raise ValueError(
+            f"tp={tp} must evenly divide "
+            f"{', '.join(bad_dims)} for sp×tp prefill")
+    return cfg
+
+
 def _dp_config(cfg: EngineConfig, dp: int) -> EngineConfig:
     """The engine config of a dp group (JAX `engine.py:1483-1516`): a
     partitioned pool turns the fused prefill off and refuses decode
@@ -277,6 +350,12 @@ def _dp_config(cfg: EngineConfig, dp: int) -> EngineConfig:
 class TorchEngine:
     """Continuous-batching engine over a paged KV cache on one device."""
 
+    @property
+    def parts(self) -> int:
+        """The pool's partitions (each (replica, slot) of a partitioned
+        pool; else the dp replicas)."""
+        return self.dp * self.sp if self._pooled else self.dp
+
     def __init__(
         self,
         model_cfg: ModelConfig,
@@ -295,7 +374,8 @@ class TorchEngine:
         self.tp = parallel.tp if parallel is not None else 1
         self.dp = parallel.dp if parallel is not None else 1
         self.pp = parallel.pp if parallel is not None else 1
-        self.world = self.tp * self.dp * self.pp
+        self.sp = parallel.sp if parallel is not None else 1
+        self.world = self.tp * self.dp * self.pp * self.sp
         # a pipeline runs its dispatches through `parallel/pipeline.py`.
         # A check hook besides: set on a flat engine before its first
         # request, it runs that path at one stage (eagerly), which must be
@@ -308,20 +388,24 @@ class TorchEngine:
             from ..parallel import check_ported
 
             check_ported(parallel)
+            if self.sp > 1:  # its rules first, with JAX's messages
+                self.cfg = _sp_config(self.cfg, model_cfg, parallel, vision)
             _check_supported(model_cfg, self.tp, self.pp)
         if self.pp > 1:
             self.cfg = _pp_config(self.cfg, model_cfg, self.pp, vision)
-        if self.cfg.kv_partition and self.dp == 1:
+        if self.cfg.kv_partition and self.dp * self.sp == 1:
             raise ValueError("kv_partition requires a serving mesh "
                              "(ParallelConfig with dp*sp > 1)")
-        # a partitioned pool: one partition a dp replica (JAX `_pooled`)
+        # a partitioned pool: one partition a (dp, sp) shard (JAX
+        # `_pooled`, `_pool_ranks`)
         self._pooled = bool(self.cfg.kv_partition)
-        if self.dp > 1:
+        if self.dp * self.sp > 1:
             self.cfg = _dp_config(self.cfg, self.dp)
         if self.world > 1:
             bad = _group_refusals(self.cfg, self.tp)
             if bad:
-                what = "dp x tp" if self.dp > 1 else "tp"
+                what = ("dp x sp x tp" if self.sp > 1 else
+                        "dp x tp" if self.dp > 1 else "tp")
                 raise ValueError(f"not served under {what}: {'; '.join(bad)}")
             if group is None:
                 # the leader: spawn the followers, join, build rank 0
@@ -457,7 +541,7 @@ class TorchEngine:
         if self._pooled:
             from .page_pool import ShardedPagePool
 
-            return ShardedPagePool(self.dp, self.cfg.num_pages,
+            return ShardedPagePool(self.parts, self.cfg.num_pages,
                                    self.cfg.page_size,
                                    event_sink=self._emit_event)
         return PagePool(self.cfg.num_pages, self.cfg.page_size,
@@ -526,6 +610,7 @@ class TorchEngine:
             m.tp = self.tp
             m.dp = self.dp
             m.pp = self.pp
+            m.sp = self.sp
             m.kv_partition = self._pooled
             m.tp_backend = self.group.backend
             m.tp_plans_total = self._lockstep.plans
@@ -850,14 +935,16 @@ class TorchEngine:
         kind = desc["kind"]
         if kind == "prefill":
             self._prefill_block(d["arrays"], Variant(*desc["variant"]),
-                                mm=d["media"])
+                                mm=d["media"],
+                                prefix_pages=desc.get("prefix_pages", 0))
         elif kind == "decode":
             self._dispatch_decode(d, Variant(*desc["variant"]),
                                   desc["chain_len"], desc["n_steps"])
         elif kind == "spec":
             self._spec_block(d, desc["k"], desc["greedy"])
         elif kind == "embed":
-            if self.group.replica == 0:  # replica 0 embeds (`_embed_rows`)
+            # replica 0 (its sequence slot 0) embeds (`_embed_rows`)
+            if self.group.replica == 0 and self.group.sp_rank == 0:
                 self._embed_dev(d["tokens"], d["lens"])
         elif kind == "kv_export":
             self._export_replay(d["pages"], d["src"])
@@ -896,19 +983,23 @@ class TorchEngine:
         gives each partition's sequences a block of `max_num_seqs` rows
         (JAX `_decode_rows`).  A pipeline rounds the rows up to dp x pp
         (a partitioned pool's blocks to pp): each replica's block splits
-        into pp microbatches (JAX rounds its decode buckets so)."""
+        into pp microbatches (JAX rounds its decode buckets so).  Under sp
+        a replicated pool's rows split over dp alone (every sequence slot
+        of a replica runs its replica's block), a partitioned pool's over
+        its dp x sp partitions (JAX `engine.py:1492-1494`)."""
         n = self.cfg.max_num_seqs
         if not self._pooled:
             unit = self.dp * self.pp
             n = -(-n // unit) * unit
             return list(seqs) + [None] * (n - len(seqs))
         n = -(-n // self.pp) * self.pp
-        return self._rank_blocks(seqs, lambda s: s.kv_rank, n)
+        return self._rank_blocks(seqs, lambda s: s.kv_rank, n, self.parts)
 
-    def _rank_blocks(self, items, rank_of, width: int) -> list:
-        """`items` grouped by partition into dp blocks of `width` rows
-        each (None-padded), in partition order."""
-        by_rank: List[list] = [[] for _ in range(self.dp)]
+    def _rank_blocks(self, items, rank_of, width: int,
+                     blocks_n: Optional[int] = None) -> list:
+        """`items` grouped by `rank_of` into `blocks_n` (default dp) blocks
+        of `width` rows each (None-padded), in block order."""
+        by_rank: List[list] = [[] for _ in range(blocks_n or self.dp)]
         for it in items:
             by_rank[rank_of(it)].append(it)
         if max(len(g) for g in by_rank) > width:
@@ -923,8 +1014,9 @@ class TorchEngine:
         """The prefill row layout: the items themselves on a flat engine;
         under dp, dp uniform blocks (a replicated pool pads to a multiple
         of dp, a partitioned pool groups the items by partition, JAX
-        `_prefill_rows`).  A padding row runs a 1-token chunk into the
-        trash page."""
+        `_prefill_rows`; under sp by dp shard, ``kv_rank // sp``: the
+        sequence axis rides sp, JAX `engine.py:2632-2636`).  A padding row
+        runs a 1-token chunk into the trash page."""
         if self.dp == 1:
             return list(items)
         if not self._pooled:
@@ -932,26 +1024,33 @@ class TorchEngine:
             return list(items) + [None] * (n - len(items))
         counts = [0] * self.dp
         for it in items:
-            counts[it.seq.kv_rank] += 1
-        return self._rank_blocks(items, lambda it: it.seq.kv_rank,
+            counts[it.seq.kv_rank // self.sp] += 1
+        return self._rank_blocks(items, lambda it: it.seq.kv_rank // self.sp,
                                  max(counts))
 
     # -- the replicas of a dp group ------------------------------------------ #
 
-    def _span(self, rows: int) -> Tuple[int, int]:
+    def _span(self, rows: int, by_part: bool = False) -> Tuple[int, int]:
         """(first row, rows) of this replica's block of a `rows`-row
-        layout: the whole of it without dp."""
-        if self.dp == 1:
+        layout: the whole of it without dp.  `by_part`: the layout is one
+        block a partition of a partitioned pool (a decode layout; under sp
+        a (replica, slot) each), this rank's partition's block."""
+        n_blocks, me = self.dp, (0 if self.group is None
+                                 else self.group.replica)
+        if by_part and self._pooled:
+            n_blocks, me = self.parts, self.group.part
+        if n_blocks == 1:
             return 0, rows
-        n = rows // self.dp
-        return self.group.replica * n, n
+        n = rows // n_blocks
+        return me * n, n
 
-    def _block(self, d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This replica's rows of a dispatch's inputs (every input is
-        row-major): the whole of them without dp."""
-        if self.dp == 1:
+    def _block(self, d: Dict[str, torch.Tensor],
+               by_part: bool = False) -> Dict[str, torch.Tensor]:
+        """This replica's (`by_part`: this partition's) rows of a
+        dispatch's inputs (every input is row-major)."""
+        lo, n = self._span(next(iter(d.values())).shape[0], by_part)
+        if n == next(iter(d.values())).shape[0]:
             return d
-        lo, n = self._span(next(iter(d.values())).shape[0])
         return {k: t[lo:lo + n] for k, t in d.items()}
 
     def _partition(self, pages) -> Tuple[Optional[int], List[int]]:
@@ -1018,7 +1117,8 @@ class TorchEngine:
                 self.kv.v[:, pg, sl] = part[1]
 
     def _gather_results(self, packed: List[torch.Tensor], widths,
-                        shapes=None) -> Optional[List[torch.Tensor]]:
+                        shapes=None, by_part: bool = False
+                        ) -> Optional[List[torch.Tensor]]:
         """Each replica's packed results (one tensor a block) joined over
         every row, on the leader; None on the other ranks.  Without dp
         the leader's own.  Under dp every replica's tensor rank 0 sends
@@ -1042,7 +1142,7 @@ class TorchEngine:
             out = [self._from_last_stage(p, shape)
                    for p, shape in zip(packed, shapes)]
             return out if g.rank == 0 else None
-        if self.dp == 1:
+        if self.dp * self.sp == 1:
             return packed if self._lockstep is not None or self.group is None \
                 else None
         g = self.group
@@ -1050,8 +1150,17 @@ class TorchEngine:
             return None
         from ..parallel.collectives import all_parts
 
-        joined = [blocks.join_packed(all_parts(p, g.replica, g.dp_ranks(),
-                                               g.dp_group), widths)
+        if by_part and self._pooled and self.sp > 1:
+            # a partition's block each: every (replica, slot) sends
+            me, ranks, pg = g.part, g.pool_ranks(), g.pool_group
+        else:
+            # a replica's block each, from its sequence slot 0
+            if g.sp_rank != 0:
+                return None
+            if self.dp == 1:
+                return packed if g.rank == 0 else None
+            me, ranks, pg = g.replica, g.dp_ranks(), g.dp_group
+        joined = [blocks.join_packed(all_parts(p, me, ranks, pg), widths)
                   for p in packed]
         return joined if g.rank == 0 else None
 
@@ -1206,6 +1315,8 @@ class TorchEngine:
         rows = self._prefill_rows(items)
         seq_rows = [it.seq if it else None for it in rows]
         S = max(it.chunk_len for it in items)
+        # the ring splits the chunk into sp equal slots: pad to a multiple
+        S = -(-S // self.sp) * self.sp
         toks = np.zeros((len(rows), S), np.int64)
         for i, it in enumerate(rows):
             if it is not None:
@@ -1222,22 +1333,46 @@ class TorchEngine:
             "chunk": np.asarray([it.chunk_len if it else 1 for it in rows],
                                 np.int32)}
         samp_arrays = {"seeds": seeds, "ctr": counters, **samp}
-        if self.dp > 1 or self.pp > 1:
+        if self.dp * self.pp * self.sp > 1:
             # every replica samples its own rows, on its last stage
             host.update(samp_arrays)
+        prefix_pages = 0
+        if self.sp > 1:
+            prefix_pages = self._sp_arrays(host, rows)
         # the tower runs here, on the leader, before the plan: what the
         # other ranks need of it rides the plan
         media.encode_pending(self, seqs)
         mm = media.chunk_media(self, rows, S)
-        self._plan_prefill(host, v, mm)
+        self._plan_prefill(host, v, mm, prefix_pages)
         d = self._to_device({**host, **samp_arrays})
         tok_d, packed = self._prefill_block(
             d, v, held=[it.seq for it in items
-                        if it.samples and it.seq.hold_pages], mm=mm)
+                        if it.samples and it.seq.hold_pages], mm=mm,
+            prefix_pages=prefix_pages)
         return tok_d, HostFetch(packed), v.with_top, rows
 
+    def _sp_arrays(self, host: Dict[str, np.ndarray], rows) -> int:
+        """A ring prefill's extras (JAX `engine.py:2784-2806`, `:3410-
+        3430`): on a partitioned pool the sp slot owning each row's pages
+        (``owner``, into `host`); otherwise the table columns that cover
+        the pass's longest cached prefix (0 when no row has one), which
+        the ring folds first."""
+        if self._pooled:
+            if host["prefix"].any():
+                # whole prompts with the prefix cache off: a scheduler
+                # fault would corrupt the ring (JAX's guard)
+                raise RuntimeError("sp prefill on a partitioned pool "
+                                   "requires prefix_lens == 0")
+            host["owner"] = np.asarray(
+                [it.seq.kv_rank % self.sp if it else 0 for it in rows],
+                np.int32)
+            return 0
+        longest = int(host["prefix"].max()) if len(rows) else 0
+        return min(-(-longest // self.cfg.page_size), host["table"].shape[1])
+
     def _plan_prefill(self, host: Dict[str, np.ndarray], v: Variant,
-                      mm: Optional[Dict[str, Any]]) -> None:
+                      mm: Optional[Dict[str, Any]],
+                      prefix_pages: int = 0) -> None:
         """Send a prefill plan; a pass with media carries them (the rows'
         embeddings as bytes, masks, rope streams), its bytes and the
         send's host ms accounted in ``media_plan``."""
@@ -1246,7 +1381,8 @@ class TorchEngine:
         t0 = time.perf_counter()
         wire = None if mm is None else media.to_wire(mm)
         self._plan("prefill", arrays=host, media=wire,
-                   variant=[v.penalized, v.with_top, v.greedy])
+                   variant=[v.penalized, v.with_top, v.greedy],
+                   prefix_pages=prefix_pages)
         if wire is not None:
             mp = self.media_plan
             mp["chunks"] += 1
@@ -1255,22 +1391,31 @@ class TorchEngine:
             mp["ms"] += (time.perf_counter() - t0) * 1e3
 
     def _prefill_block(self, d: Dict[str, torch.Tensor], v: Variant,
-                       held=(), mm=None):
+                       held=(), mm=None, prefix_pages: int = 0):
         """Every rank's device half of a prefill pass: its replica's rows
         through the model (with their media, `media.block_extras` of the
-        pass's `media.chunk_media`), the replicas' pools brought level,
-        and the rows sampled where their results go (the leader; each
-        replica's tensor rank 0 under dp).  Returns (tokens, packed) on
-        the leader, (None, None) elsewhere."""
+        pass's `media.chunk_media`; under sp the ring prefill of its
+        sequence slot, `parallel.sp_prefill`), the replicas' pools brought
+        level, and the rows sampled where their results go (the leader;
+        each replica's tensor rank 0 under dp, of its slot 0 under sp).
+        Returns (tokens, packed) on the leader, (None, None) elsewhere."""
         blk = self._block(d)
         if self._staged:
             return self._prefill_stages(d, blk, v)
-        extras = media.block_extras(self, mm,
-                                     self._span(d["tokens"].shape[0]),
-                                     blk["prefix"])
-        logits = self.model.forward_prefill(
-            self.kv, blk["tokens"], blk["table"], blk["prefix"], blk["chunk"],
-            **extras)
+        if self.sp > 1:
+            from ..parallel.sp_prefill import forward_prefill_sp
+
+            logits = forward_prefill_sp(
+                self.model, self.group, self.kv, blk["tokens"], blk["table"],
+                blk["prefix"], blk["chunk"], owner=blk.get("owner"),
+                prefix_pages=prefix_pages)
+        else:
+            extras = media.block_extras(self, mm,
+                                        self._span(d["tokens"].shape[0]),
+                                        blk["prefix"])
+            logits = self.model.forward_prefill(
+                self.kv, blk["tokens"], blk["table"], blk["prefix"],
+                blk["chunk"], **extras)
         if self.device.type == "cuda":
             for seq in held:
                 # the held prompt's KV is all written once this chunk is:
@@ -1280,7 +1425,8 @@ class TorchEngine:
                 seq.kv_ready.record()
         self._sync_replicas(d["table"], d["prefix"], d["chunk"])
         if self.group is not None and self.group.rank != 0 and (
-                self.dp == 1 or self.group.tp_rank != 0):
+                self.dp == 1 or self.group.tp_rank != 0
+                or self.group.sp_rank != 0):
             return None, None
         tok, packed = blocks.sample_pack(logits, blk, blk["ctr"], v)
         joined = self._gather_results([packed], blocks.out_widths(v.with_top))
@@ -1414,17 +1560,19 @@ class TorchEngine:
         key = ("decode", T, v.greedy, v.penalized, v.with_top,
                d["table"].shape[1])
         fn = self._block_fn("decode", T, v)
-        fetches, ups = [], self._block(d)
+        fetches, ups = [], self._block(d, by_part=True)
+        meshed = self.dp * self.sp > 1
         for _ in range(chain_len):
             outs = self.graphs.run(key, fn, ups)
-            fetches.append(HostFetch(outs["packed"]) if self.dp == 1
-                           else outs["packed"])
+            fetches.append(outs["packed"] if meshed
+                           else HostFetch(outs["packed"]))
             ups = {k: outs[k] for k in ("tok", "pos", "ctr", "counts")
                    if k in outs}
-        if self.dp == 1:
+        if not meshed:
             return fetches
         self._sync_replicas(d["table"], d["pos"], chain_len * T)
-        joined = self._gather_results(fetches, blocks.out_widths(v.with_top))
+        joined = self._gather_results(fetches, blocks.out_widths(v.with_top),
+                                      by_part=True)
         return None if joined is None else [HostFetch(p) for p in joined]
 
     def _decode_stages(self, d: Dict[str, torch.Tensor], v: Variant,
@@ -1574,8 +1722,9 @@ class TorchEngine:
         k+1 tokens of the context cap would write drafts past their
         page-table horizon."""
         k = self.cfg.speculative_ngram_k
-        # JAX runs no verify on a partition, nor under pp (`engine.py:3497`)
-        if k <= 0 or self._pooled or self._staged:
+        # JAX runs no verify on a partition, nor under pp or sp
+        # (`engine.py:3497`)
+        if k <= 0 or self._pooled or self._staged or self.sp > 1:
             return False
         if any(s.opts.penalized or s.opts.top_logprobs > 0 for s in seqs):
             return False
@@ -2029,7 +2178,8 @@ class TorchEngine:
         model's every layer.  Under dp the pages are read on one replica
         (the partition holding them, or replica 0 of a replicated pool)
         and reach the leader over its dp group (JAX
-        `_build_export_fn_pooled`, `_build_export_fn_pp_pooled`)."""
+        `_build_export_fn_pooled`, `_build_export_fn_pp_pooled`); under sp
+        on one (replica, slot), over the pool group."""
         src, local = self._partition(pages)
         src = src or 0
         self._plan("kv_export", arrays={"pages": np.asarray(local, np.int64)},
@@ -2037,9 +2187,9 @@ class TorchEngine:
         return self._export_replay(self._page_index(local), src)
 
     def _export_replay(self, idx: torch.Tensor, src: int = 0):
-        """Every rank's device half of an export from replica `src`; the
-        full-head pages on the leader (what the other ranks return is not
-        used)."""
+        """Every rank's device half of an export from partition `src` (a
+        replica; a (replica, slot) under sp); the full-head pages on the
+        leader (what the other ranks return is not used)."""
         g = self.group
         if self.world == 1:
             return self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
@@ -2048,7 +2198,7 @@ class TorchEngine:
         L, _, ps, h, hd = self.kv.k.shape
         full = (L * self.pp, len(idx), ps, h * self.tp, hd)
         k = v = None
-        if g.replica == src:
+        if g.part == src:
             k, v = self.kv.k.index_select(1, idx), self.kv.v.index_select(1, idx)
             if self.tp > 1:
                 ranks = g.tp_ranks()
@@ -2063,12 +2213,12 @@ class TorchEngine:
         if src != 0 and g.tp_rank == 0 and g.stage == 0:
             # the owner's stage 0, tensor rank 0 sends the pages to the
             # leader
-            if g.replica != src:
+            if g.part != src:
                 k = self.kv.k.new_empty(full)
                 v = self.kv.v.new_empty(full)
-            owner = g.rank_of(src, 0, 0)
-            broadcast_bytes(k, owner, g.dp_group)
-            broadcast_bytes(v, owner, g.dp_group)
+            owner = g.part_rank(src)
+            broadcast_bytes(k, owner, g.pool_group)
+            broadcast_bytes(v, owner, g.pool_group)
         return k, v
 
     def _import_dev(self, pages: List[int], k: torch.Tensor,
@@ -2077,8 +2227,8 @@ class TorchEngine:
         IN PLACE: the captured graphs hold the pool's addresses, so the
         pool tensors are never replaced.  Under tp `k`, `v` hold every kv
         head: the leader broadcasts them and each rank scatters its own
-        heads (a ``kv_import`` plan); under dp they land on the pages'
-        partition, or on every replica of a replicated pool."""
+        heads (a ``kv_import`` plan); under dp (and sp) they land on the
+        pages' partition, or on every replica of a replicated pool."""
         dst, local = self._partition(pages)
         idx = self._page_index(local)
         k = k.to(self.device, non_blocking=True)
@@ -2097,7 +2247,7 @@ class TorchEngine:
     def _lands_here(self, dst: Optional[int]) -> bool:
         """Does an import into partition `dst` (None: every replica of a
         replicated pool) write this rank's pool?"""
-        return self.group is None or dst is None or dst == self.group.replica
+        return self.group is None or dst is None or dst == self.group.part
 
     def _import_inputs(self, desc: Dict[str, Any]) -> Dict[str, Any]:
         """A follower's host half of a ``kv_import`` plan: the page ids
@@ -2126,7 +2276,8 @@ class TorchEngine:
         """Every rank's device half of a group's ``kv_import``: the
         leader's full pages (every layer, every head) reach the
         destination replicas' stage 0, tensor rank 0 over the dp group
-        (when the destination is not replica 0 alone), then every stage's
+        (under sp: every (replica, slot)'s over the pool group; when the
+        destination is not partition 0 alone), then every stage's
         tensor rank 0 over the pp group, then each stage's ranks over its
         tp group, and each rank scatters its own layers' own heads (JAX
         `_build_import_fn_pp_pooled`)."""
@@ -2139,8 +2290,9 @@ class TorchEngine:
         L, _, _, h, _ = self.kv.k.shape
         for name, pool in (("k", self.kv.k), ("v", self.kv.v)):
             full = d[name]
-            if self.dp > 1 and dst != 0 and g.tp_rank == 0 and g.stage == 0:
-                broadcast_bytes(full, 0, g.dp_group)
+            if (self.dp * self.sp > 1 and dst != 0 and g.tp_rank == 0
+                    and g.stage == 0):
+                broadcast_bytes(full, 0, g.pool_group)
             if not self._lands_here(dst):
                 continue
             if self.pp > 1 and g.tp_rank == 0:

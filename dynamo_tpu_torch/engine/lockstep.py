@@ -242,8 +242,9 @@ def _own_ipc_entry(engine) -> Optional[Dict[str, Any]]:
 
 
 def _own_stats(engine=None) -> dict:
-    """This rank's kernel launches, its stage handoffs (sends and bytes)
-    and, given its engine, its pipeline stage, the layout rows of its
+    """This rank's kernel launches and, given its engine, its pipeline
+    stage, sequence slot, stage handoffs or ring rotations (sends, bytes,
+    host ms) and sequence gathers, the layout rows of its
     recent media splices and the parameters of its vision tower (none but
     the leader's)."""
     from ..ops._launches import LAUNCHES
@@ -251,7 +252,9 @@ def _own_stats(engine=None) -> dict:
     out = {"rank": dist.get_rank(), "launches": dict(LAUNCHES)}
     if engine is not None:
         out["stage"] = engine.group.stage
+        out["sp_rank"] = engine.group.sp_rank
         out["handoffs"] = dict(engine.group.handoffs)
+        out["gathers"] = dict(engine.group.gathers)
         tower = engine.vision[0] if engine.vision else None
         out["media_rows"] = list(engine.media_rows)
         out["tower_params"] = (0 if tower is None else
@@ -284,7 +287,7 @@ def start_group(pcfg: ParallelConfig, devices: Optional[Sequence],
         procs.append(p)
     try:
         group = TpGroup(0, pcfg.world, devs[0], backend, init, dp=pcfg.dp,
-                        pp=pcfg.pp)
+                        pp=pcfg.pp, sp=pcfg.sp)
     except BaseException:
         for p in procs:
             p.terminate()
@@ -380,7 +383,7 @@ def follower_main(spec: Dict[str, Any]) -> None:
     rank, pcfg = spec["rank"], spec["parallel"]
     devs = [torch.device(d) for d in spec["devices"]]
     group = TpGroup(rank, pcfg.world, devs[rank], spec["backend"],
-                    spec["init_method"], dp=pcfg.dp, pp=pcfg.pp)
+                    spec["init_method"], dp=pcfg.dp, pp=pcfg.pp, sp=pcfg.sp)
     engine = None
     try:
         # every replica builds the same shards

@@ -14,14 +14,18 @@ flat engine), which must report problems; a mutant of a group's media
 partitioned dp 2 group serving Qwen2.5-VL-7B's images and video against
 a flat engine), and a mutant of the decode ring (`parallel/pipeline.py`)
 by phase 19 (a)'s (`chip_smoke.py --pp-probe`: a pp 2 group against the
-flat engine).  The card runs need a CUDA card:
+flat engine), and a mutant of the sequence-parallel ring (its rotation
+in `parallel/ring_attention.py`, its kernel's causal mask in
+`csrc/ring_attention.cu`) by phase 20 (a)'s (`chip_smoke.py --sp-probe`:
+an sp 4 group against the flat engine).  The card runs need a CUDA card:
 
     python3 -m dynamo_tpu_torch.mutants            # every mutant
     python3 -m dynamo_tpu_torch.mutants NAME ...   # some of them
 
 The media and ring mutants (`CPU_CHECKED`) are also checked on the CPU,
 where their test file must fail in a copy of the package that carries
-the fault (one whose card probe cannot see it is checked there only):
+the fault (one whose card probe cannot see it is checked there only; the
+ring kernel's mask, which no CPU test runs, through its plain twin's):
 
     python3 -m dynamo_tpu_torch.mutants --cpu [NAME ...]
 
@@ -48,6 +52,9 @@ VA = "vision_attention.cu"
 ENGINE = os.path.join("..", "engine", "engine.py")
 MEDIA = os.path.join("..", "engine", "media.py")
 PIPELINE = os.path.join("..", "parallel", "pipeline.py")
+RING = os.path.join("..", "parallel", "ring_attention.py")
+RING_OPS = os.path.join("..", "ops", "ring_attention.py")
+RA = "ring_attention.cu"
 
 # name -> (source file, a text of it, its faulty replacement); each text
 # occurs once
@@ -146,6 +153,20 @@ MUTANTS = {
     "the ring hands stage 0 the previous step's token": (
         PIPELINE, "                feed[gp % M] = recv\n",
         "                feed[gp % M] = feed[gp % M]\n"),
+    # the sp ring: slot i is told its round-r block came from (i + r) mod
+    # N where the rotation hands it (i - r) mod N's (the keys' positions,
+    # and so the causal mask, are another block's)
+    "the sp ring hands each slot the block of (i + r) mod N": (
+        RING, "    return [(slot - r) % n for r in range(n)]\n",
+        "    return [(slot + r) % n for r in range(n)]\n"),
+    # the ring kernel's causal mask without the diagonal (no query sees
+    # its own key), and its plain twin, the CPU's ring
+    "the ring kernel's causal mask is < instead of <=": (
+        RA, "return u < nk && (!causal || kp <= qp)",
+        "return u < nk && (!causal || kp < qp)"),
+    "the plain ring's causal mask is < instead of <=": (
+        RING_OPS, "    mask = kp <= qp if causal else torch.ones_like(kp <= qp)\n",
+        "    mask = kp < qp if causal else torch.ones_like(kp <= qp)\n"),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
@@ -162,6 +183,10 @@ VL_CHECKED = ("replica 1 receives replica 0's block of media rows",)
 # the mutants phase 19 (a)'s pipeline probe must see
 _PP_PROBE = "import sys, chip_smoke; sys.argv[1:] = ['--pp-probe']; sys.exit(chip_smoke.main())"
 PP_CHECKED = ("the ring hands stage 0 the previous step's token",)
+# the mutants phase 20 (a)'s sequence-parallel probe must see
+_SP_PROBE = "import sys, chip_smoke; sys.argv[1:] = ['--sp-probe']; sys.exit(chip_smoke.main())"
+SP_CHECKED = ("the sp ring hands each slot the block of (i + r) mod N",
+              "the ring kernel's causal mask is < instead of <=")
 # the engine mutants the CPU tests must see: name -> the test file that
 # fails in a copy carrying the fault.  Dropping the M-RoPE streams moved
 # phase 18 (b)'s probe rows only within a near-tie (0.44 std at 2 layers
@@ -174,9 +199,14 @@ CPU_CHECKED = {
         os.path.join("tests", "test_torch_tp_vision.py"),
     "the ring hands stage 0 the previous step's token":
         os.path.join("tests", "test_torch_pp.py"),
+    "the sp ring hands each slot the block of (i + r) mod N":
+        os.path.join("tests", "test_torch_sp.py"),
+    "the plain ring's causal mask is < instead of <=":
+        os.path.join("tests", "test_torch_sp.py"),
 }
 CARD_CHECKED = [n for n in MUTANTS
-                if n not in CPU_CHECKED or n in VL_CHECKED or n in PP_CHECKED]
+                if n not in CPU_CHECKED or n in VL_CHECKED or n in PP_CHECKED
+                or n in SP_CHECKED]
 
 
 def _copy(name: str) -> str:
@@ -257,7 +287,8 @@ def main(argv=None) -> int:
             probe = None
             for checked, code, key in ((DP_CHECKED, _DP_PROBE, "dp_probe"),
                                        (VL_CHECKED, _VL_PROBE, "vl_probe"),
-                                       (PP_CHECKED, _PP_PROBE, "pp_probe")):
+                                       (PP_CHECKED, _PP_PROBE, "pp_probe"),
+                                       (SP_CHECKED, _SP_PROBE, "sp_probe")):
                 if n not in checked:
                     continue
                 p2 = _py(code, dirs[n])

@@ -4,7 +4,9 @@
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), inside ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``).  The library name carries a hash of its source, so an
-edited kernel is rebuilt and a stale one is never loaded.  Nothing here
+edited kernel is rebuilt and a stale one is never loaded; the hash also
+covers the shared headers (``csrc/*.cuh``), so an edit there rebuilds
+every library.  Nothing here
 runs at import time: the CPU tests import every module, on machines that
 have no ``nvcc``.
 """
@@ -27,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_attention.cu", "grouped_gemm.cu", "kv_transfer.cu",
-           "vision_attention.cu")
+           "vision_attention.cu", "ring_attention.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -44,8 +46,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1()
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 

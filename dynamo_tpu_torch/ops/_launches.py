@@ -10,7 +10,9 @@ calls of the grouped GEMM (with K in slices, a slice pass then a sum
 pass), "moe_split_reduce" the sum passes, "moe_grouped_glu" the fused
 gate||up launches, "kv_repage" the KV re-page launches of disaggregated
 serving (one a transfer, K and V together), "segment_attention" the
-vision towers' segment attention.
+vision towers' segment attention, "ring_block" the sequence-parallel
+prefill's ring rounds (a cached prefix's fold included) and "ring_finish"
+their ends.
 
 Several engines may launch from their own threads in one process (the
 data-parallel ranks of a worker), so the counts are taken under a lock,
@@ -24,7 +26,8 @@ from typing import Dict, Iterator
 
 LAUNCHES = {"decode_attention": 0, "decode_merge": 0, "prefill_attention": 0,
             "moe_grouped_gemm": 0, "moe_split_reduce": 0, "moe_grouped_glu": 0,
-            "kv_repage": 0, "segment_attention": 0}
+            "kv_repage": 0, "segment_attention": 0, "ring_block": 0,
+            "ring_finish": 0}
 
 _lock = threading.Lock()
 _local = threading.local()

@@ -1,4 +1,4 @@
-"""The dp x pp x tp group's collectives, built from ``broadcast`` and
+"""The dp x pp|sp x tp group's collectives, built from ``broadcast`` and
 ``all_reduce`` only: that is what gloo offers for CUDA tensors, and what
 NCCL offers everywhere.  The JAX package gets the same collectives from
 GSPMD (XLA inserts them; no Pallas kernel computes them).  A source
@@ -27,6 +27,11 @@ convention for subgroups).
   `next_group` / `prev_group`): gloo refuses ``send`` / ``recv`` of CUDA
   tensors but broadcasts them, and on the one card every group is gloo;
   a broadcast inside a pair is a send under NCCL too;
+- `ring_shift`: the ring prefill's K/V block to the next sequence slot
+  and the previous slot's block in (`parallel/ring_attention.py`), over
+  the same pair groups and in the same order as `stage_handoff`;
+- `gather_seq`: each sequence slot's tensor joined along the sequence
+  axis over the sp group (the chunk's K/V for the pool write);
 - `broadcast_plan`: the leader's plan bytes to every rank, length first
   and then the payload padded to a power of two (`dynamo_tpu/parallel/
   multihost.py` `broadcast_plan`).
@@ -37,6 +42,8 @@ same token from the same logits.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -114,6 +121,29 @@ def gather_heads(local: torch.Tensor, rank: int, ranks, group,
     return torch.cat(all_parts(local, rank, ranks, group), dim=axis)
 
 
+def _pair_exchange(group, slot: int, n: int, send=None, recv=None) -> None:
+    """`send` to the next slot and `recv` from the previous one on this
+    rank's middle axis (its `slot` of `n` stages or sequence slots, of
+    its replica and tensor rank), each a broadcast inside the two ranks'
+    pair group; even slots send first and then receive, odd slots the
+    other way round (see `stage_handoff`).  Counted in
+    ``group.handoffs``: sends, bytes sent, host ms of the broadcasts."""
+    prev = group.rank_of(group.replica, (slot - 1) % n, group.tp_rank)
+    ops = []
+    if send is not None:
+        ops.append((send.contiguous(), group.rank, group.next_group))
+        group.handoffs["sends"] += 1
+        group.handoffs["bytes"] += send.numel() * send.element_size()
+    if recv is not None:
+        ops.append((recv, prev, group.prev_group))
+    if slot % 2:
+        ops.reverse()
+    t0 = time.perf_counter()
+    for t, src, pg in ops:
+        broadcast_bytes(t, src, pg)
+    group.handoffs["ms"] += (time.perf_counter() - t0) * 1e3
+
+
 def stage_handoff(group, send=None, recv=None) -> None:
     """One tick's handoffs of this rank's stage (`group`: its `TpGroup`):
     `send` (a tensor or None) goes to the next stage (stage 0 after the
@@ -132,19 +162,33 @@ def stage_handoff(group, send=None, recv=None) -> None:
     waits can form.  At pp 2 the two directions share one pair group,
     whose broadcasts both ranks issue in the same order (stage 0's,
     then stage 1's)."""
-    prev = group.rank_of(group.replica, (group.stage - 1) % group.pp,
-                         group.tp_rank)
-    ops = []
-    if send is not None:
-        ops.append((send.contiguous(), group.rank, group.next_group))
-        group.handoffs["sends"] += 1
-        group.handoffs["bytes"] += send.numel() * send.element_size()
-    if recv is not None:
-        ops.append((recv, prev, group.prev_group))
-    if group.stage % 2:
-        ops.reverse()
-    for t, src, pg in ops:
-        broadcast_bytes(t, src, pg)
+    _pair_exchange(group, group.stage, group.pp, send, recv)
+
+
+def ring_shift(group, send: torch.Tensor, recv: torch.Tensor) -> None:
+    """One rotation of the ring prefill (`group`: this rank's `TpGroup`
+    under sp): `send` goes to the next sequence slot (slot 0 after the
+    last), `recv` is filled with the previous slot's block.  The pair
+    groups and the even/odd order of `stage_handoff`, so no odd or even
+    ring size can deadlock; a broadcast inside a pair is what gloo takes
+    for CUDA tensors (the ranks sharing one card), and a send under
+    NCCL."""
+    _pair_exchange(group, group.sp_rank, group.sp, send, recv)
+
+
+def gather_seq(local: torch.Tensor, group) -> torch.Tensor:
+    """Every sequence slot's `local` [B, S/sp, ...] (the same shape on
+    each) joined along the sequence in slot order, on every slot of this
+    rank's sp group (counted in ``group.gathers``: calls, bytes received,
+    host ms)."""
+    t0 = time.perf_counter()
+    out = torch.cat(all_parts(local, group.sp_rank, group.sp_ranks(),
+                              group.sp_group), dim=1)
+    g = group.gathers
+    g["calls"] += 1
+    g["bytes"] += (group.sp - 1) * local.numel() * local.element_size()
+    g["ms"] += (time.perf_counter() - t0) * 1e3
+    return out
 
 
 def broadcast_plan(payload: bytes, group=None, src: int = 0) -> bytes:

@@ -51,8 +51,16 @@ tp)`, rank ``(d * S + s) * M + t``; ``--tp-devices`` lists them all):
 each stage holds L/S layers and their KV pages, a prefill pass runs the
 GPipe schedule and a decode dispatch the full ring (`parallel/
 pipeline.py`); vision towers and M-RoPE models are not served under pp
-(ROADMAP 2.8).  ``--dp-ranks`` does not compose with ``--dp``, ``--tp``
-or ``--pp`` (ROADMAP 2.2b.4).  ``--sp`` above 1, multihost and mock
+(ROADMAP 2.8).  ``--sp N`` (with ``--dp``, ``--tp`` and
+``--kv-partition``; not with ``--pp``) shards each prompt's uncached
+remainder over N sequence slots of dp x sp x tp processes in all
+(`ParallelConfig(dp, sp, tp)`, rank ``(d * N + i) * M + t``): the prefill
+runs as ring attention (`parallel/sp_prefill.py`), every slot decodes its
+replica's rows (a partitioned pool's partitions are the (replica, slot)
+pairs); it needs ``--max-prefill-tokens`` of at least ``--max-model-len``
+(whole prompts), and serves no vision tower (ROADMAP 2.8) and no CUDA IPC
+lane (ROADMAP 2.4b).  ``--dp-ranks`` does not compose with ``--dp``,
+``--tp``, ``--pp`` or ``--sp`` (ROADMAP 2.2b.4).  Multihost and mock
 engines are later slices.  Multimodal models serve image and
 video chats: a qwen-vl checkpoint directory or ``qwen2.5-vl-7b`` brings
 its tower, ``--vision tiny`` pairs a tiny CLIP tower with ``--model
@@ -186,25 +194,27 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                          "one forward; 0 disables")
     ap.add_argument("--quantization", default="none", choices=["none", "int8"])
     ap.add_argument("--kv-partition", action="store_true",
-                    help="partition the KV pool over the --dp replicas "
-                         "(each owns its own pages)")
-    # the serving mesh: dp x pp x tp over torch.distributed (sp is
-    # refused, naming the roadmap item that ports it)
+                    help="partition the KV pool over the --dp replicas and "
+                         "--sp slots (each owns its own pages)")
+    # the serving mesh: dp x pp|sp x tp over torch.distributed
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel degree: replicas of the --tp group "
                          "under one leader")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree: a group of N processes")
     ap.add_argument("--sp", type=int, default=1,
-                    help="sequence-parallel degree")
+                    help="sequence-parallel degree: each prompt's prefill "
+                         "sharded over N slots of --tp ranks each (ring "
+                         "attention)")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline-parallel degree: the layers staged over "
                          "N stages of --tp ranks each")
     ap.add_argument("--tp-devices", default="",
-                    help="comma-separated device of each of the dp*pp*tp "
-                         "ranks, rank (d*pp+s)*tp+t for replica d's stage s's "
-                         "tensor rank t (default: one card a rank, or the CPU "
-                         "with --device cpu); ranks sharing a card use gloo")
+                    help="comma-separated device of each of the dp*pp*sp*tp "
+                         "ranks, rank (d*pp*sp+s)*tp+t for replica d's stage "
+                         "or slot s's tensor rank t (default: one card a "
+                         "rank, or the CPU with --device cpu); ranks sharing "
+                         "a card use gloo")
 
 
 def parallel_from_args(args):
@@ -221,6 +231,7 @@ def parallel_from_args(args):
             raise ValueError(
                 f"--tp-devices names {len(devices)} devices; a group of "
                 f"dp={pcfg.dp} x {'' if pcfg.pp == 1 else f'pp={pcfg.pp} x '}"
+                f"{'' if pcfg.sp == 1 else f'sp={pcfg.sp} x '}"
                 f"tp={pcfg.tp} has {pcfg.world} ranks")
     elif args.device == "cpu":
         devices = ["cpu"] * pcfg.world
@@ -537,11 +548,11 @@ def check_role(args) -> None:
         ]:
             if bad:
                 raise SystemExit(f"--dp-ranks > 1 is incompatible with {flag}")
-    for axis in ("tp", "dp", "pp"):
-        # a dp x pp x tp group serves generate, embed, media (the tower on
-        # the leader, or an encode worker's embeddings; not under pp) and
-        # every KV move (parking, KVBM tiers, the disagg roles); --dp-ranks
-        # would stack engines on it
+    for axis in ("tp", "dp", "pp", "sp"):
+        # a dp x pp|sp x tp group serves generate, embed, media (the tower
+        # on the leader, or an encode worker's embeddings; not under pp or
+        # sp) and every KV move (parking, KVBM tiers, the disagg roles);
+        # --dp-ranks would stack engines on it
         if getattr(args, axis) > 1 and args.dp_ranks > 1:
             raise SystemExit(f"--{axis} > 1 with --dp-ranks is not served "
                              f"yet (ROADMAP 2.2b.4)")

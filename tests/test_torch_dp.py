@@ -284,6 +284,7 @@ def _layout_engine(dp, part, max_num_seqs=4, pp=1):
     eng = object.__new__(TorchEngine)
     eng.dp = dp
     eng.pp = pp
+    eng.sp = 1
     eng._pooled = part
     eng.cfg = EngineConfig(page_size=8, num_pages=16, max_num_seqs=max_num_seqs,
                            max_model_len=64)

@@ -31,7 +31,8 @@ def test_cpu_checked_mutants_name_their_test_files():
         assert os.path.exists(os.path.join(mutants.ROOT, test))
     assert set(mutants.CARD_CHECKED) == (
         set(mutants.MUTANTS) - set(mutants.CPU_CHECKED)) | set(
-            mutants.VL_CHECKED) | set(mutants.PP_CHECKED)
+            mutants.VL_CHECKED) | set(mutants.PP_CHECKED) | set(
+                mutants.SP_CHECKED)
 
 
 @pytest.mark.parametrize("stdout, rc, caught", [
@@ -62,6 +63,7 @@ def test_chip_smoke_probes_are_defined():
     assert called and called <= defs, called - defs
     flags = {c.value for c in ast.walk(main) if isinstance(c, ast.Constant)
              and isinstance(c.value, str) and c.value.endswith("-probe")}
-    for code in (mutants._DP_PROBE, mutants._VL_PROBE, mutants._PP_PROBE):
+    for code in (mutants._DP_PROBE, mutants._VL_PROBE, mutants._PP_PROBE,
+                 mutants._SP_PROBE):
         flag = code.split("sys.argv[1:] = ['")[1].split("'")[0]
         assert flag in flags, flag

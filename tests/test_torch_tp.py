@@ -92,9 +92,10 @@ def test_parallel_config_validation():
 
 
 @pytest.mark.parametrize("call, match", [
-    # dp is served (tests/test_torch_dp.py); dp with sp is still refused
-    (lambda: check_ported(ParallelConfig(dp=2, sp=2)), "ROADMAP 2.4"),
-    (lambda: check_ported(ParallelConfig(sp=2)), "ROADMAP 2.4"),
+    # dp and sp are served (tests/test_torch_dp.py, tests/test_torch_sp.py;
+    # match None: no refusal)
+    (lambda: check_ported(ParallelConfig(dp=2, sp=2)), None),
+    (lambda: check_ported(ParallelConfig(sp=2)), None),
     # pp is served (tests/test_torch_pp.py); pp with sp is still refused
     (lambda: ParallelConfig(pp=2, sp=2).validate(4),
      "pp composes with dp and tp"),
@@ -108,6 +109,9 @@ def test_parallel_config_validation():
 ], ids=["dp", "sp", "pp", "tp0", "nccl_shared_card", "nccl_cpu", "mixed",
         "count"])
 def test_group_refusals(call, match):
+    if match is None:
+        call()
+        return
     with pytest.raises(ValueError, match=match):
         call()
 
@@ -197,13 +201,19 @@ def test_worker_refuses_with_tp(flags, match):
                                    ["--pp", "2", "--sp", "2"]],
                          ids=["dp", "sp", "pp"])
 def test_worker_refuses_other_axes(flags):
-    """sp stays refused, with dp or pp too (``--dp`` and ``--pp`` are
+    """``--sp`` is served, with ``--dp`` too (tests/test_torch_sp.py); pp
+    with sp stays refused, with JAX's message (``--dp`` and ``--pp`` are
     served: tests/test_torch_dp_kv.py, tests/test_torch_pp.py)."""
     from dynamo_tpu_torch.worker.__main__ import build_parser, parallel_from_args
 
     args = build_parser().parse_args(["--control", "127.0.0.1:1", *flags,
                                       "--device", "cpu"])
-    with pytest.raises(ValueError, match="ROADMAP"):
+    if "--pp" not in flags:
+        pcfg, devs = parallel_from_args(args)
+        assert (pcfg.dp, pcfg.sp) == (args.dp, 2)
+        assert devs == ["cpu"] * pcfg.world
+        return
+    with pytest.raises(ValueError, match="pp composes with dp and tp"):
         parallel_from_args(args)
 
 

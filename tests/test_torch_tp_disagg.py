@@ -247,9 +247,9 @@ def _worker_check(*flags):
     (_vision_group, None, None),
     (lambda: _worker_check("--tp", "2", "--dp-ranks", "2"), SystemExit,
      "ROADMAP 2.2b.4"),
-    # meshed dp is served (tests/test_torch_dp.py): dp x tp with sp is not
-    (lambda: check_ported(ParallelConfig(dp=2, tp=2, sp=2)), ValueError,
-     "ROADMAP 2.4"),
+    # meshed dp is served (tests/test_torch_dp.py), and dp x sp x tp
+    # (tests/test_torch_sp.py): no error
+    (lambda: check_ported(ParallelConfig(dp=2, tp=2, sp=2)), None, None),
     # a partitioned pool needs dp replicas to partition over (JAX's message)
     (lambda: _tp_engine(ecfg={"kv_partition": True}), ValueError,
      r"kv_partition requires a serving mesh \(ParallelConfig with dp\*sp > 1\)"),
