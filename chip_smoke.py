@@ -1507,9 +1507,11 @@ def _ring_mask(q_base, k_base, Sq, Sk, causal, window, nk=None):
 
 def ring_case(name, gen, dtype, hd, H, n_kv, Sq, Sk=None, q_base=(0,),
               k_base=(0,), prefix=0, window=None, with_sink=False,
-              timed=False):
+              timed=False, page=16, permuted=False):
     """`prefix` > 0: the cached-prefix fold through the page table (keys
-    0 .. prefix - 1 of every row, pages of 16); else a block of Sk keys at
+    0 .. prefix - 1 of every row, pages of `page`: rows' pages 1, 2, ...
+    in order, or with `permuted` pages drawn at random from a pool of twice
+    their number, as a pool looks after churn); else a block of Sk keys at
     `k_base` (the causal ring round)."""
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import ring_attention as ra
@@ -1527,10 +1529,17 @@ def ring_case(name, gen, dtype, hd, H, n_kv, Sq, Sk=None, q_base=(0,),
     ra.ring_block_plain(q, rnd(B, 256, n_kv, hd, s=KV_STD),
                         rnd(B, 256, n_kv, hd, s=KV_STD), *carry, qb,
                         torch.zeros_like(qb), causal=False)
-    page = 16
     if prefix:
         maxp = -(-prefix // page)
         table, P = _table([maxp] * B, maxp)
+        if permuted:
+            # the rows' pages drawn from a pool of twice their number: a
+            # row that reads other pages than its table's reads others'
+            # keys (over a pool of exactly its pages, only their order
+            # would differ, which a fold of all visible keys cannot see)
+            P = 2 * B * maxp + 1
+            perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+            table = perm[:B * maxp].view(B, maxp).to(torch.int32)
         table = table.cuda()
         kp, vp = _pool(gen, P, page, n_kv, hd, dtype)
         plens = torch.full((B,), prefix, dtype=torch.int32, device=dev)
@@ -1616,6 +1625,11 @@ def ring_case(name, gen, dtype, hd, H, n_kv, Sq, Sk=None, q_base=(0,),
         "plain_ms": time_ms(lambda: plain(*[t.clone() for t in carry]),
                             iters=3),
         "finish_ms": time_ms(lambda: ra.ring_finish(*want, sink, dtype)),
+        # the finish reads m, l, o (f32) and the sinks once and writes the
+        # output in q's dtype once: bytes bound it
+        "finish_bound_ms": (carry_bytes + q.numel() * esize
+                            + (sink.numel() * 4 if sink is not None else 0))
+        / PEAK_BYTES * 1e3,
         "library_ms": lib_ms, "library": library,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1638,6 +1652,16 @@ def ring_cases(gen):
         ring_case("ring 8B prefix through the table: 2048 tokens, Sq 4096",
                   gen, bf, **RING_8B, Sq=4096, q_base=(2048,), prefix=2048,
                   timed=True),
+        ring_case("ring 8B prefix through the table: 2048 tokens on pages "
+                  "drawn at random from a pool of twice as many, Sq 4096",
+                  gen, bf, **RING_8B, Sq=4096, q_base=(2048,), prefix=2048,
+                  permuted=True, timed=True),
+        # pages of 48 are not a power of two: the kernel finds a key's
+        # page by division (pages of 16 by a shift)
+        ring_case("ring 8B prefix on pages of 48 (not a power of two): "
+                  "1000 tokens, the last page partial, Sq 1000", gen, bf,
+                  **RING_8B, Sq=1000, q_base=(1000,), prefix=1000, page=48,
+                  permuted=True),
         ring_case("ring gpt-oss-20b: 64 q / 8 kv of 64, window 128, sinks, "
                   "diagonal round Sq = Sk = 2048", gen, bf, **RING_OSS,
                   Sq=2048, q_base=(2048,), k_base=(2048,), window=128,
@@ -9689,7 +9713,7 @@ def main() -> int:
     timed = [c for c in mine if "ms" in c]
     head = next(c for c in timed if "diagonal round, Sq = Sk = 4096" in c["case"])
     keys = ("case", "ms", "host_paced_ms", "plain_ms", "library_ms",
-            "library", "bound_ms", "bound_by", "finish_ms")
+            "library", "bound_ms", "bound_by", "finish_ms", "finish_bound_ms")
     ring_path = "sequence parallel llama-3.1-8b sp 2 x tp 1 rank 0 (phase 20 a, this slice's path)"
     kernels.append({
         "name": "ring_attention", "route": "cuda",

@@ -1,8 +1,9 @@
 """Mutation check of the CUDA kernels against `chip_smoke.py` phase 3.
 
 Each mutant is a copy of the checkout, in a temporary directory, whose
-`csrc/paged_attention.cu`, `csrc/grouped_gemm.cu`, `csrc/kv_transfer.cu`
-or `csrc/vision_attention.cu` carries one planted fault.  Every copy builds
+`csrc/paged_attention.cu`, `csrc/grouped_gemm.cu`, `csrc/kv_transfer.cu`,
+`csrc/vision_attention.cu` or `csrc/ring_attention.cu` carries one planted
+fault.  Every copy builds
 its own kernels (in parallel), then runs phase 3 alone; phase 3 must fail
 with "kernel disagrees".  A mutant of the re-page between tp groups must
 also fail phase 16 (b)'s byte check, run in its copy on a transfer made in
@@ -167,6 +168,17 @@ MUTANTS = {
     "the plain ring's causal mask is < instead of <=": (
         RING_OPS, "    mask = kp <= qp if causal else torch.ones_like(kp <= qp)\n",
         "    mask = kp < qp if causal else torch.ones_like(kp <= qp)\n"),
+    # the ring kernel's pool route: it reads a key's page as a fresh
+    # pool lays out a single row (page index + 1) and not through the
+    # table (right for phase 3's ordered pages, wrong after churn: its
+    # permuted pages), or finds a key's place in its page with a mask
+    # (right for pages of a power of two, wrong for its pages of 48)
+    "the ring kernel reads a key's page as in a fresh pool, not the table": (
+        RA, "slot = (size_t)spid[min(pidx - pg0, n_pg - 1)] * page + (u - pidx * page);",
+        "slot = (size_t)(pidx + 1) * page + (u - pidx * page);"),
+    "the ring kernel finds a key's place in its page with a mask": (
+        RA, "slot = (size_t)spid[min(pidx - pg0, n_pg - 1)] * page + (u - pidx * page);",
+        "slot = (size_t)spid[min(pidx - pg0, n_pg - 1)] * page + (u & (page - 1));"),
 }
 
 _BUILD = "from dynamo_tpu_torch.ops import _build; _build.build_all()"
